@@ -1,0 +1,449 @@
+"""Chip smoke test of the PyTorch port (``riptrm_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's main path (RIPTRM, tCG mode, first-order stopping, on
+NonnegPCA) on the card at the size of the system's own benchmark, n = 1000,
+through its user entry points, and checks the three hand-written kernels
+of ``riptrm_torch/csrc/sphere_tcg.cu`` against their plain PyTorch
+versions.  One line per phase; a failed check raises and the script exits
+non-zero.  It refuses to run without CUDA.  The line before the last is a
+JSON object with one entry per kernel (launches on the main path, error
+against the plain version, CUDA-event medians of kernel and plain version);
+the last line is ``{"ok": true, "device": {...}}``.
+
+Phases:
+  1. build the kernels with nvcc; the card's name and power limit;
+  2. K1 chained_barrier_matvec (64 iterations) against its plain version;
+  3. K2 fused tCG on one n = 1000 subproblem against its plain version;
+  4. K3 batched fused tCG at B = 16 and B = 128, mixed radii;
+  -- launch counters reset: the main path starts here --
+  5. golden solve: RIPTRM.run on dataset/NonnegPCA/1 point a, float64,
+     plain tCG (residual <= 1e-8, cost -1.537809 +- 1e-4), then fused;
+  6. bench.py's headline op (K1 at the initial state) and the single-lane
+     n = 1000 float32 solve through RIPTRM.run and solve_compiled, fused;
+  7. batched_riptrm_solve at n = 1000, B = 16 and B = 128, fused, and
+     B = 16 with the plain tCG;
+  -- launch counters read --
+  8. CUDA-event medians of each kernel and its plain version.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+N = 1000
+SOLVE_STEPS = 400
+DATASET = os.path.join(os.path.dirname(os.path.abspath(__file__)), "dataset", "NonnegPCA", "1")
+SOURCE = "riptrm_torch/csrc/sphere_tcg.cu"
+REPLACES = {
+    "chained_barrier_matvec": "riptrm_tpu/ops/pallas_kernels.py:747",
+    "fused_tcg_sphere_quadratic": "riptrm_tpu/ops/pallas_kernels.py:217",
+    "fused_tcg_sphere_quadratic_batched": "riptrm_tpu/ops/pallas_kernels.py:423",
+}
+
+
+class SmokeFailure(AssertionError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def say(*parts):
+    print(*parts, flush=True)
+
+
+def bench_option():
+    """bench.py's solver options: float32 forcing floors (the reference's
+    1e-14 floors assume float64)."""
+    return {
+        "maxiter": 60,
+        "tolresid": 3e-4,
+        "TRS_solver": "tCG",
+        "second_order_stationarity": False,
+        "forcing_function_Lagrangian": lambda mu: torch.clamp(mu, min=1e-4),
+        "forcing_function_complementarity": lambda mu: torch.clamp(1e-3 * mu, min=2e-4),
+        "do_exit_on_error": False,
+    }
+
+
+def rel_err(a, b):
+    return float(torch.linalg.vector_norm((a - b).double()) / torch.linalg.vector_norm(b.double()))
+
+
+def sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def event_ms(fn, device, reps=7):
+    """Median over ``reps`` calls of the CUDA-event time of one call (ms),
+    after one warm-up call.  Zs stays in L2 between calls, as it does
+    between the solver's steps."""
+    fn()
+    sync(device)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def wall(fn, device):
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, time.perf_counter() - t0
+
+
+class Smoke:
+    def __init__(self, device, n=N, lanes=(16, 128), steps=SOLVE_STEPS, seed=0):
+        from riptrm_torch.problems import nonneg_pca
+        from riptrm_torch.solvers.riptrm import RIPTRM, init_state
+
+        self.device, self.n, self.lanes, self.steps = device, n, lanes, steps
+        self.gen = torch.Generator(device).manual_seed(seed)
+        f32 = dict(dtype=torch.float32, device=device)
+        z = nonneg_pca.generate_instance(self.gen, n, **f32)["Z"]
+        x0 = torch.abs(torch.randn(n, generator=self.gen, **f32))
+        self.problem = nonneg_pca.make_problem(z, x0 / torch.linalg.vector_norm(x0))
+        self.zs = self.problem.structure["Zs"]
+        self.option = RIPTRM(bench_option()).option
+        self.state0 = init_state(self.problem, self.option)
+        self.tcg_kw = dict(
+            maxinner=self.problem.manifold.dim,
+            mininner=self.option["tCG_mininner"],
+            theta=self.option["tCG_theta"],
+            kappa=self.option["tCG_kappa"],
+        )
+        self.report = {name: {} for name in REPLACES}
+        # first and final states of the main path's solves, for phase 8
+        self.start = {"single": self.state0}
+        self.final = {}
+
+    # -- inputs at the main path's shapes ---------------------------------
+    def chain_inputs(self):
+        st = self.state0
+        x, y = st.x[0], st.y[0]
+        v0 = self.problem.manifold.random_tangent(st.x, self.gen)[0]
+        return self.zs, x, y / self.problem.slack(st.x)[0], v0
+
+    def subproblem(self, st):
+        """The tCG subproblem the solver's step poses at state ``st``."""
+        from riptrm_torch.solvers.riptrm import _barrier_ops
+
+        c, _, cx = _barrier_ops(self.problem, st.x, st.y, st.mu)
+        return self.zs, st.x, st.y / c, cx, st.tr_radius
+
+    def lanes_subproblem(self, b):
+        """B starts with mixed radii, as tests/test_pallas.py builds them."""
+        from riptrm_torch.solvers.riptrm import _barrier_ops
+
+        kw = dict(generator=self.gen, dtype=torch.float32, device=self.device)
+        xs = torch.abs(torch.randn(b, self.n, **kw))
+        xs = xs / torch.linalg.vector_norm(xs, dim=-1, keepdim=True)
+        ys = 0.5 + torch.abs(torch.randn(b, self.n, **kw))
+        mu = torch.full((b,), 0.05, dtype=torch.float32, device=self.device)
+        c, _, cx = _barrier_ops(self.problem, xs, ys, mu)
+        radii = torch.tensor([0.1, 0.3, 0.5, 0.2] * (b // 4 + 1), device=self.device)[:b]
+        return self.zs, xs, ys / c, cx, radii
+
+    # -- phases 2-4: each kernel against its plain version ---------------
+    def phase_k1(self):
+        from riptrm_torch.ops import kernels as k
+
+        args = self.chain_inputs()
+        out = k.chained_barrier_matvec(*args, 64)
+        ref = k.chained_barrier_matvec_plain(*args, 64)
+        sync(self.device)
+        err, mae = rel_err(out, ref), float(torch.max(torch.abs(out - ref)))
+        self.report["chained_barrier_matvec"]["max_abs_err"] = mae
+        say(f"phase 2 K1 chained_barrier_matvec n={self.n} K=64: rel 2-norm err {err:.3e}, "
+            f"max abs err {mae:.3e} (limit 1e-3 rel)")
+        check(torch.all(torch.isfinite(out)), "K1 output not finite")
+        check(err <= 1e-3, f"K1 disagrees with its plain version: {err}")
+
+    def phase_k2(self):
+        from riptrm_torch.ops import kernels as k
+
+        zs, x, w, g, tr = self.subproblem(self.state0)
+        eta, heta, it, code = k.fused_tcg_sphere_quadratic(zs, x[0], w[0], g[0], tr[0], **self.tcg_kw)
+        e_p, h_p, it_p, code_p = k.fused_tcg_plain(zs, x, w, g, tr, **self.tcg_kw)
+        sync(self.device)
+        err = rel_err(eta, e_p[0])
+        mae = float(torch.max(torch.abs(eta - e_p[0])))
+        self.report["fused_tcg_sphere_quadratic"]["max_abs_err"] = mae
+        say(f"phase 3 K2 fused tCG n={self.n}: kernel (iters {int(it)}, code {int(code)}), "
+            f"plain (iters {int(it_p[0])}, code {int(code_p[0])}); eta rel err {err:.3e}, "
+            f"max abs err {mae:.3e} (limit 1e-3 rel)")
+        check((int(it), int(code)) == (int(it_p[0]), int(code_p[0])),
+              "K2 iterations/stop code differ from the plain version")
+        check(err <= 1e-3, f"K2 eta disagrees: {err}")
+
+    def phase_k3(self):
+        """Kernel against plain version per lane.  In float32 at n = 1000 a
+        lane can flip a stop threshold, or (with barrier weights y/c near
+        1e5) move eta by more than 1e-3 in both versions: such a lane counts
+        as disagreeing, at most 1 of 16 and 6 of 128.  A float64 tCG on the
+        same inputs is the arbiter: on lanes with equal iterations and codes
+        the kernel must be no further from it than 1e-3 or twice the plain
+        version's worst distance."""
+        from riptrm_torch.manifolds import Sphere
+        from riptrm_torch.ops import kernels as k
+        from riptrm_torch.ops.tcg import truncated_cg
+
+        def rel(a, b):
+            a, b = a.double(), b.double()
+            return torch.linalg.vector_norm(a - b, dim=-1) / torch.linalg.vector_norm(b, dim=-1)
+
+        mae_all = 0.0
+        for b, allowed in zip(self.lanes, (1, 6)):
+            args = self.lanes_subproblem(b)
+            etas, _, iters, codes = k.fused_tcg_sphere_quadratic_batched(*args, **self.tcg_kw)
+            e_p, _, it_p, code_p = k.fused_tcg_plain(*args, **self.tcg_kw)
+            zs, xs, ws, gs, radii = (t.double() for t in args)
+            hw64 = k.sphere_hw(zs, xs, ws, k.barrier_corr(zs, xs, ws))
+            e64, _, _, _ = truncated_cg(Sphere(self.n), xs, hw64, gs, radii,
+                                        maxinner=self.tcg_kw["maxinner"])
+            sync(self.device)
+            same_stop = (iters == it_p) & (codes == code_p)
+            err_kp, err_k64, err_p64 = rel(etas, e_p), rel(etas, e64), rel(e_p, e64)
+            agree = same_stop & (err_kp <= 1e-3)
+            bad = torch.nonzero(~agree).flatten().tolist()
+            worst = float(err_kp[agree].max()) if bool(agree.any()) else float("nan")
+            mae = float(torch.max(torch.abs(etas - e_p)[agree])) if bool(agree.any()) else 0.0
+            mae_all = max(mae_all, mae)
+            say(f"phase 4 K3 batched fused tCG n={self.n} B={b}: {len(bad)} lanes disagree "
+                f"(allowed {allowed}); iterations kernel {iters.tolist()}")
+            for i in bad:
+                say(f"  lane {i}: kernel (iters {int(iters[i])}, code {int(codes[i])}), "
+                    f"plain (iters {int(it_p[i])}, code {int(code_p[i])}); eta rel err "
+                    f"{float(err_kp[i]):.3e}; against float64: kernel {float(err_k64[i]):.3e}, "
+                    f"plain {float(err_p64[i]):.3e}")
+            say(f"  agreeing lanes: worst eta rel err {worst:.3e}, max abs err {mae:.3e} "
+                f"(limit 1e-3 rel)")
+            k64, p64 = float(err_k64[same_stop].max()), float(err_p64[same_stop].max())
+            say(f"  against the float64 tCG (lanes with equal stops): kernel worst {k64:.3e}, "
+                f"plain worst {p64:.3e}")
+            check(len(bad) <= allowed, f"K3 B={b}: {len(bad)} lanes disagree")
+            check(worst <= 1e-3, f"K3 B={b}: eta disagrees on agreeing lanes: {worst}")
+            check(k64 <= max(1e-3, 2.0 * p64), f"K3 B={b}: kernel further from float64: {k64}")
+        self.report["fused_tcg_sphere_quadratic_batched"]["max_abs_err"] = mae_all
+
+    # -- phases 5-7: the main path -----------------------------------------
+    def phase_golden(self):
+        from riptrm_torch.ops.kernels import launch_counts
+        from riptrm_torch.problems import nonneg_pca
+        from riptrm_torch.solvers.riptrm import RIPTRM
+
+        p = nonneg_pca.load_problem(DATASET, "a", dtype=torch.float64, device=self.device)
+        opt = {"maxtime": 120, "maxiter": 30, "tolresid": 1e-8, "TRS_solver": "tCG",
+               "second_order_stationarity": False, "do_exit_on_error": False}
+        out, t = wall(lambda: RIPTRM(opt).run(p), self.device)
+        res, cost = out.log["residual"][-1], out.log["cost"][-1]
+        x = out.x.double()
+        say(f"phase 5 golden solve (dataset/NonnegPCA/1 a, n=50, float64, plain tCG): "
+            f"residual {res:.3e}, cost {cost:.7f}, {len(out.log['residual']) - 1} steps, "
+            f"{t:.2f} s")
+        check(res <= 1e-8, f"golden residual {res} > 1e-8")
+        check(abs(cost + 1.537809) <= 1e-4, f"golden cost {cost}")
+        check(abs(float(torch.linalg.vector_norm(x)) - 1) < 1e-12 and float(x.min()) > -1e-12,
+              "golden point off the sphere or infeasible")
+        before = launch_counts()["fused_tcg_sphere_quadratic"]
+        out, t = wall(lambda: RIPTRM(opt | {"use_fused_tcg": True}).run(p), self.device)
+        say(f"phase 5 golden solve, use_fused_tcg (float32 tCG in a float64 solve): "
+            f"residual {out.log['residual'][-1]:.3e}, cost {out.log['cost'][-1]:.7f}, "
+            f"{len(out.log['residual']) - 1} steps, K2 launches "
+            f"{launch_counts()['fused_tcg_sphere_quadratic'] - before}, {t:.2f} s")
+
+    def phase_single(self):
+        from riptrm_torch.ops import kernels as k
+        from riptrm_torch.ops.kkt import compute_residual
+        from riptrm_torch.solvers.riptrm import RIPTRM
+
+        # bench.py's headline op: the chained barrier-Hessian matvec at x0
+        out = k.chained_barrier_matvec(*self.chain_inputs(), 64)
+        check(bool(torch.all(torch.isfinite(out))), "headline chain not finite")
+        say(f"phase 6 bench headline op: chained_barrier_matvec n={self.n} K=64 at x0, finite")
+
+        solver = RIPTRM(self.option | {"use_fused_tcg": True})
+        before = k.launch_counts()["fused_tcg_sphere_quadratic"]
+        out, t_run = wall(lambda: solver.run(self.problem), self.device)
+        steps = len(out.log["residual"]) - 1
+        launches = k.launch_counts()["fused_tcg_sphere_quadratic"] - before
+        res = out.log["residual"][-1]
+        say(f"phase 6 RIPTRM.run n={self.n} float32 fused: residual {res:.3e}, {steps} steps, "
+            f"{out.log['iteration'][-1]} outer, K2 launches {launches}, {t_run:.3f} s")
+        check(res <= 1e-3 and launches == steps, "single-lane run failed")
+
+        solve = solver.solve_compiled(self.problem, self.steps)
+        before = k.launch_counts()["fused_tcg_sphere_quadratic"]
+        (st, kk), t_sc = wall(lambda: solve(self.state0), self.device)
+        self.final["single"] = st
+        launches = k.launch_counts()["fused_tcg_sphere_quadratic"] - before
+        res = float(compute_residual(self.problem, st.x, st.y)[0][0])
+        say(f"phase 6 solve_compiled n={self.n} float32 fused max_steps={self.steps}: "
+            f"residual {res:.3e}, {int(kk[0])} steps, outer {int(st.outer_iter[0])}, "
+            f"K2 launches {launches}, {t_sc:.3f} s")
+        check(res <= 1e-3 and launches == int(kk[0]), "single-lane solve_compiled failed")
+
+    def sweep_starts(self, b):
+        """bench.py's sweep starts: |normal| rows, normalised; y = 1."""
+        kw = dict(dtype=torch.float32, device=self.device)
+        xs = torch.abs(torch.randn(b, self.n, generator=self.gen, **kw))
+        return xs / torch.linalg.vector_norm(xs, dim=-1, keepdim=True), torch.ones(b, self.n, **kw)
+
+    def phase_sweep(self):
+        from riptrm_torch.ops import kernels as k
+        from riptrm_torch.parallel.sweep import batched_riptrm_solve, init_state_from
+
+        medians = {}
+        for b in self.lanes:
+            xs, ys = self.sweep_starts(b)
+            self.start[b] = init_state_from(self.problem, self.option, xs, ys)
+            for fused in ((True, False) if b == self.lanes[0] else (True,)):
+                solve = batched_riptrm_solve(
+                    self.problem, self.option | {"use_fused_tcg": fused}, self.steps
+                )
+                before = k.launch_counts()["fused_tcg_sphere_quadratic_batched"]
+                (st, steps, res), t = wall(lambda: solve(xs, ys), self.device)
+                launches = k.launch_counts()["fused_tcg_sphere_quadratic_batched"] - before
+                med = float(torch.median(res))
+                medians[(b, fused)] = med
+                say(f"phase 7 batched_riptrm_solve n={self.n} B={b} "
+                    f"{'fused' if fused else 'plain'} tCG: median residual {med:.3e}, "
+                    f"max {float(res.max()):.3e}, steps max {int(steps.max())} median "
+                    f"{float(steps.float().median()):.0f}, K3 launches {launches}, "
+                    f"{t:.3f} s ({t / b * 1e3:.2f} ms per solve)")
+                check(bool(torch.all(torch.isfinite(res))), "sweep residuals not finite")
+                if fused:
+                    self.final[b] = st
+                    check(med <= 1e-3 and launches > 0, f"batched sweep B={b} failed")
+        b = self.lanes[0]
+        say(f"phase 7 B={b} median residual: fused {medians[(b, True)]:.3e}, "
+            f"plain {medians[(b, False)]:.3e}")
+
+    # -- phase 8: timings --------------------------------------------------
+    def phase_timings(self):
+        """Each kernel against its plain version on the subproblems the main
+        path poses at the first and at the last step of its solves (late
+        steps run far more tCG iterations).  The JSON line keeps the last
+        row of each kernel: the last step, and K3's largest batch."""
+        from riptrm_torch.ops import kernels as k
+
+        dev = self.device
+        zs, x, w, v0 = self.chain_inputs()
+        rows = [
+            ("chained_barrier_matvec", f"n={self.n} K=64 at x0",
+             lambda: k.chained_barrier_matvec(zs, x, w, v0, 64),
+             lambda: k.chained_barrier_matvec_plain(zs, x, w, v0, 64)),
+        ]
+        for b in ("single",) + tuple(self.lanes):
+            for when, st in (("first", self.start[b]), ("last", self.final[b])):
+                a = self.subproblem(st)
+                if b == "single":
+                    name, shape = "fused_tcg_sphere_quadratic", f"n={self.n} B=1 {when} step"
+                    one = (a[0], a[1][0], a[2][0], a[3][0], a[4][0])
+                    kern = lambda one=one: k.fused_tcg_sphere_quadratic(*one, **self.tcg_kw)
+                else:
+                    name, shape = "fused_tcg_sphere_quadratic_batched", f"n={self.n} B={b} {when} step"
+                    kern = lambda a=a: k.fused_tcg_sphere_quadratic_batched(*a, **self.tcg_kw)
+                rows.append((name, shape, kern, lambda a=a: k.fused_tcg_plain(*a, **self.tcg_kw)))
+        for name, shape, kern, plain in rows:
+            # plain, kernel, kernel, plain: the two kernel and two plain
+            # medians are averaged
+            p1, k1, k2, p2 = (event_ms(f, dev) for f in (plain, kern, kern, plain))
+            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            iters = ""
+            if name != "chained_barrier_matvec":
+                it_k, it_p = int(kern()[2].max()), int(plain()[2].max())
+                iters = f", tCG iterations (max over lanes) kernel {it_k}, plain {it_p}"
+            say(f"phase 8 {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                f"(CUDA-event medians; runs {k1:.4f}/{k2:.4f} and {p1:.4f}/{p2:.4f}){iters}")
+            self.report[name].update(ms=ms, plain_ms=plain_ms, shape=shape)
+
+
+def nvidia_smi_line():
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return proc.stdout.strip().splitlines()[0]
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs only on the GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from riptrm_torch.ops import _build
+    from riptrm_torch.ops import kernels as k
+    from riptrm_torch.utils.devices import cuda_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = cuda_device()
+    t0 = time.perf_counter()
+    path, log = _build.build()
+    say(f"phase 1 build: {os.path.relpath(path)} in {time.perf_counter() - t0:.1f} s")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            say(f"  ptxas: {line.strip()}")
+    _build.load()
+    say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+        f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+    smi = nvidia_smi_line()
+
+    smoke = Smoke(device)
+    smoke.phase_k1()
+    smoke.phase_k2()
+    smoke.phase_k3()
+
+    k.reset_launch_counts()  # the main path starts here
+    t_main = time.perf_counter()
+    smoke.phase_golden()
+    smoke.phase_single()
+    smoke.phase_sweep()
+    counts = k.launch_counts()
+    say(f"main path launch counts {counts}, {time.perf_counter() - t_main:.1f} s")
+    for name, n_launch in counts.items():
+        check(n_launch > 0, f"{name} was not launched on the main path")
+        smoke.report[name]["launches"] = n_launch
+
+    smoke.phase_timings()
+    kernels = [
+        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+         **smoke.report[name]}
+        for name in REPLACES
+    ]
+    say(smi)
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

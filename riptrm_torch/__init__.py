@@ -1,0 +1,37 @@
+"""riptrm_torch — the PyTorch/CUDA port of ``riptrm_tpu``.
+
+The JAX package ``riptrm_tpu`` is the reference; this package mirrors its
+layout and names (``manifolds``, ``problems``, ``ops``, ``solvers``,
+``parallel``, ``utils``) so each module's counterpart sits under the same
+path.  Ported so far: the RIPTRM tCG main path on NonnegPCA (sphere,
+first-order stopping), with hand-written Hopper kernels for the three
+sphere-quadratic Pallas kernels (``ops/kernels.py``, ``csrc/``).
+
+Conventions:
+
+* Solver states and manifold points carry a leading lane axis: ``x`` and
+  ``y`` are ``[B, n]``, per-lane scalars are ``[B]``.  The host runner uses
+  B = 1, the batched sweep B > 1; one step function serves both.
+* Every constructor takes an explicit ``device`` and ``dtype``; random draws
+  take an explicit ``torch.Generator``.  The package never picks a device on
+  its own and never imports JAX.
+* Nothing is compiled at import time: the CUDA kernels are built with
+  ``nvcc`` at their first launch on a CUDA tensor (``ops/_build.py``).
+"""
+
+from riptrm_torch import config, manifolds, ops, parallel, problems, solvers  # noqa: F401
+from riptrm_torch.problems import Problem  # noqa: F401
+from riptrm_torch.solvers import RIPTRM  # noqa: F401
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "config",
+    "manifolds",
+    "ops",
+    "parallel",
+    "problems",
+    "solvers",
+    "Problem",
+    "RIPTRM",
+]

@@ -1,0 +1,62 @@
+"""Unit sphere S^{n-1} embedded in R^n, over a leading lane axis.
+
+Counterpart of ``riptrm_tpu/manifolds/sphere.py``.  The Householder tangent
+basis waits for exact mode (ROADMAP.md queue 1, item 8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from riptrm_torch.config import resolve
+from riptrm_torch.manifolds.base import Manifold
+
+
+def _dot(u, v):
+    return torch.sum(u * v, dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sphere(Manifold):
+    n: int  # ambient dimension; manifold is S^{n-1}
+
+    @property
+    def dim(self) -> int:
+        return self.n - 1
+
+    @property
+    def typical_dist(self) -> float:
+        return math.pi
+
+    def inner(self, x, u, v):
+        return _dot(u, v)
+
+    def proj(self, x, v):
+        return v - _dot(x, v)[..., None] * x
+
+    def retract(self, x, v):
+        y = x + v
+        return y / torch.linalg.vector_norm(y, dim=-1, keepdim=True)
+
+    def dist(self, x, y):
+        return torch.arccos(torch.clamp(_dot(x, y), -1.0, 1.0))
+
+    def egrad2rgrad(self, x, egrad):
+        return self.proj(x, egrad)
+
+    def ehess2rhess(self, x, egrad, ehess, v):
+        return self.proj(x, ehess) - _dot(x, egrad)[..., None] * v
+
+    def random_point(self, generator, lanes=1, *, dtype=None, device=None):
+        dtype, device = resolve(dtype, device)
+        v = torch.randn(lanes, self.n, generator=generator, dtype=dtype, device=device)
+        return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+
+    def random_tangent(self, x, generator):
+        v = self.proj(
+            x, torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+        )
+        return v / self.norm(x, v)[..., None]

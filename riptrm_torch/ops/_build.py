@@ -1,0 +1,113 @@
+"""Build and load the CUDA kernels of ``riptrm_torch/csrc``.
+
+At first use ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
+with a plain C interface, ``riptrm_torch/_build/sphere_tcg_<hash>.so``,
+keyed by a hash of the sources and the flags, and ``ctypes`` loads it.
+Pointers and the stream are passed as ``c_void_p``, ints as ``c_int``.
+This takes seconds, where a build that includes PyTorch's headers takes
+minutes.  Nothing here runs at import time; a missing ``nvcc`` or a failed
+build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # zs, x, w, v0, corr, out, n, n_iters, device, stream
+    "sphere_chain_launch": [_P] * 6 + [_I] * 3 + [_P],
+    # zs, xs, ws, grads, corrs, radii, targets, flags, etas, hetas, stats,
+    # b, n, maxinner, mininner, device, stream
+    "sphere_tcg_launch": [_P] * 11 + [_I] * 5 + [_P],
+}
+
+
+def _sources():
+    return sorted(
+        os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+        if f.endswith((".cu", ".cuh"))
+    )
+
+
+def _nvcc():
+    cands = [shutil.which("nvcc")]
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root:
+            cands.append(os.path.join(root, "bin", "nvcc"))
+    for c in cands:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
+
+
+def library_path():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"sphere_tcg_{h.hexdigest()[:16]}.so")
+
+
+def build():
+    """Compile the kernels unless a library for these sources exists.
+
+    Returns (path, compiler output); the output is empty when the library
+    was already built."""
+    path = library_path()
+    if os.path.exists(path):
+        return path, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cu = [s for s in _sources() if s.endswith(".cu")]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+            capture_output=True, text=True, timeout=600,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def load():
+    """The built library with its argtypes declared (built on first call)."""
+    path, _ = build()
+    lib = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.sphere_tcg_error_string.argtypes = [ctypes.c_int]
+    lib.sphere_tcg_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib, err: int, what: str):
+    """Raise if a launcher returned a CUDA error."""
+    if err != 0:
+        msg = lib.sphere_tcg_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

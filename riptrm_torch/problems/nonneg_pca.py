@@ -1,0 +1,94 @@
+"""Nonnegative PCA: max x^T Z x on the sphere S^{n-1} with x >= 0.
+
+Counterpart of ``riptrm_tpu/problems/nonneg_pca.py``.  The n per-element
+constraints are one stacked function g(x) = -x.  The TPU-only knobs of the
+JAX version (``matmul_precision`` and the ``Zs`` sharding re-pin) are
+dropped: a float32 matmul on the card runs in full float32 unless TF32 is
+switched on by the caller.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from riptrm_torch.config import as_tensor, resolve
+from riptrm_torch.manifolds import Sphere
+from riptrm_torch.problems.problem import Problem
+from riptrm_torch.utils.io import loadtxt
+
+
+def make_problem(Z, x0, y0=None, dtype=None, device=None) -> Problem:
+    """Problem from numpy arrays or tensors (``Z`` [n, n], ``x0``/``y0`` [n]).
+
+    Both packages build from the same ``Zs = 0.5 (Z + Z')``: -x'Zx equals
+    -x'Zs x exactly, and the symmetric form makes every Hessian application
+    one matvec."""
+    Z = as_tensor(Z, dtype, device)
+    Zs = 0.5 * (Z + Z.T)
+    x0 = as_tensor(x0, Z.dtype, Z.device)
+    n = Z.shape[0]
+    if y0 is None:
+        y0 = torch.ones(n, dtype=Z.dtype, device=Z.device)
+    else:
+        y0 = as_tensor(y0, Z.dtype, Z.device)
+
+    def cost_fn(x):
+        return -(x @ (Zs @ x))
+
+    def ineq_fn(x):
+        return -x  # feasible: x >= 0
+
+    def manvio_fn(x):
+        return torch.linalg.vector_norm(x) - 1.0
+
+    return Problem(
+        manifold=Sphere(n),
+        cost_fn=cost_fn,
+        ineq_fn=ineq_fn,
+        x0=x0,
+        y0=y0,
+        z0=Z.new_zeros(0),
+        num_ineq=n,
+        num_eq=0,
+        manvio_fn=manvio_fn,
+        structure={"kind": "sphere_quadratic", "Zs": Zs},
+    )
+
+
+def load_problem(dataset_path: str, initialpoint: str = "a", dtype=None,
+                 device=None) -> Problem:
+    """Load a shipped instance (``dataset/NonnegPCA/<i>/*.csv``)."""
+    Z = loadtxt(f"{dataset_path}/Z.csv")
+    x0 = loadtxt(f"{dataset_path}/initx_{initialpoint}.csv")
+    y0 = loadtxt(f"{dataset_path}/initineqLagmult.csv")
+    return make_problem(Z, x0, y0, dtype=dtype, device=device)
+
+
+def generate_instance(generator: torch.Generator, dim: int, snr: float = 0.5,
+                      delta: float = 0.7, *, dtype=None, device=None):
+    """Spiked-covariance instance, the distribution of the JAX generator.
+
+    The draws come from ``generator`` (whose device must be ``device``), so
+    the same seed does not give the JAX package's instance.  Returns
+    ``{"dim": [[dim]], "Z": tensor [dim, dim]}``."""
+    dtype, device = resolve(dtype, device)
+    samplesize = int(np.floor(delta * dim))
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    support = torch.randperm(dim, generator=generator, device=device) < samplesize
+    v = support.to(dtype) / np.sqrt(samplesize)
+    noise = torch.randn(dim, dim, **kw) / np.sqrt(dim)
+    diag_noise = torch.randn(dim, **kw) * 2.0 / np.sqrt(dim)
+    eye = torch.eye(dim, dtype=dtype, device=device)
+    noise = noise * (1.0 - eye) + torch.diag(diag_noise)
+    z = np.sqrt(snr) * torch.outer(v, v) + noise
+    return {"dim": np.array([[dim]]), "Z": z}
+
+
+def generate_initialpoint(generator: torch.Generator, dim: int,
+                          feasible: bool = True, *, dtype=None, device=None):
+    """Random unit-norm initial point [dim] (uniform entries, normalised)."""
+    dtype, device = resolve(dtype, device)
+    x0 = torch.rand(dim, generator=generator, dtype=dtype, device=device)
+    x0 = x0 / torch.linalg.vector_norm(x0)
+    return torch.abs(x0) if feasible else x0

@@ -1,0 +1,157 @@
+"""Constrained Riemannian problem with stacked constraints, over lanes.
+
+Counterpart of ``riptrm_tpu/problems/problem.py``.  The user supplies
+per-lane functions (``cost_fn: [n] -> scalar``, ``ineq_fn: [n] -> [m]``,
+...); every method here takes lane-batched points ``[B, n]`` and maps the
+per-lane functions with ``torch.func.vmap``.  Derivatives come from
+``torch.func.grad``/``vjp``/``jvp``.
+
+Sign conventions (as in the reference):
+  feasible      <=>  ineq(x) <= 0 elementwise (and eq(x) = 0)
+  slack         c(x) = -ineq(x) > 0 at strictly feasible points
+  Lagrangian    L(x, y, z) = f(x) + y . ineq(x) + z . eq(x),  y >= 0
+
+Point-frozen factories (``lag_rhess_at``, ``gx_at``, ``gx_adj_at``) do the
+point-dependent work once per solver step, like the JAX package's
+``linearize``/``vjp``.  ``torch.func.linearize`` traces through ``make_fx``
+and costs seconds per call, so the Hessian-vector product is instead the
+pullback of a frozen ``vjp`` of the Lagrangian gradient: the Hessian is
+symmetric, so that pullback is exactly H v, at a fraction of the cost of a
+per-application ``jvp(grad(...))``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+from torch.func import grad, jvp, vjp, vmap
+
+from riptrm_torch.manifolds.base import Manifold
+
+
+@dataclasses.dataclass(frozen=True)
+class Problem:
+    manifold: Manifold
+    cost_fn: Callable[[torch.Tensor], torch.Tensor]  # per lane: [n] -> scalar
+    ineq_fn: Optional[Callable] = None  # per lane: [n] -> [m], feasible <= 0
+    eq_fn: Optional[Callable] = None  # per lane: [n] -> [l]
+    x0: Any = None  # [n]
+    y0: Any = None  # [m]
+    z0: Any = None  # [l]
+    num_ineq: int = 0
+    num_eq: int = 0
+    # Manifold-constraint violation per lane, [n] -> scalar (residual term)
+    manvio_fn: Optional[Callable] = None
+    # Extra per-iteration metrics, (problem, x, y, z, eval_dict) -> eval_dict
+    callback: Optional[Callable] = None
+    # Structure metadata for fused fast paths, e.g.
+    # {"kind": "sphere_quadratic", "Zs": <sym matrix>} routes the tCG to
+    # the hand-written kernels (ops/kernels.py).
+    structure: Optional[dict] = None
+
+    @property
+    def has_ineq(self) -> bool:
+        return self.num_ineq > 0
+
+    @property
+    def has_eq(self) -> bool:
+        return self.num_eq > 0
+
+    # ------------------------------------------------------------------
+    # Values over lanes
+    # ------------------------------------------------------------------
+    def cost(self, x):
+        return vmap(self.cost_fn)(x)
+
+    def ineq_val(self, x):
+        if not self.has_ineq:
+            return x.new_zeros((x.shape[0], 0))
+        return vmap(self.ineq_fn)(x)
+
+    def eq_val(self, x):
+        if not self.has_eq:
+            return x.new_zeros((x.shape[0], 0))
+        return vmap(self.eq_fn)(x)
+
+    def slack(self, x):
+        """c(x) = -ineq(x); positive at strictly feasible points."""
+        return -self.ineq_val(x)
+
+    def manvio(self, x):
+        if self.manvio_fn is None:
+            return x.new_zeros(x.shape[0])
+        return vmap(self.manvio_fn)(x)
+
+    def apply_callback(self, x, y, z, ev):
+        if self.callback is None:
+            return ev
+        return self.callback(self, x, y, z, ev)
+
+    # ------------------------------------------------------------------
+    # First-order operators
+    # ------------------------------------------------------------------
+    def egrad(self, x):
+        return vmap(grad(self.cost_fn))(x)
+
+    def rgrad(self, x):
+        return self.manifold.egrad2rgrad(x, self.egrad(x))
+
+    # ------------------------------------------------------------------
+    # Lagrangian operators (all constraints at once)
+    # ------------------------------------------------------------------
+    def _lag(self, x, y, z):
+        val = self.cost_fn(x)
+        if self.has_ineq:
+            val = val + torch.dot(y, self.ineq_fn(x))
+        if self.has_eq:
+            val = val + torch.dot(z, self.eq_fn(x))
+        return val
+
+    def _z(self, x, z):
+        return x.new_zeros((x.shape[0], 0)) if z is None else z
+
+    def lag_egrad(self, x, y, z=None):
+        return vmap(grad(self._lag))(x, y, self._z(x, z))
+
+    def lag_rgrad(self, x, y, z=None):
+        """Riemannian gradient of the Lagrangian."""
+        return self.manifold.egrad2rgrad(x, self.lag_egrad(x, y, z))
+
+    def lag_rhess_at(self, x, y, z=None):
+        """Returns v -> Riemannian Hessian-vector product of L at (x, y, z).
+
+        The frozen pullback of the lane-batched Lagrangian gradient is
+        H v (the Hessian is symmetric, the lanes independent)."""
+        z = self._z(x, z)
+        eg, pullback = vjp(lambda xx: vmap(grad(self._lag))(xx, y, z), x)
+
+        def hvp(v):
+            (eh,) = pullback(v)
+            return self.manifold.ehess2rhess(x, eg, eh, v)
+
+        return hvp
+
+    # ------------------------------------------------------------------
+    # Constraint-Jacobian operators in terms of the slack c = -g
+    # ------------------------------------------------------------------
+    def gx_adj(self, x, dx):
+        """Gxaj(dx)_i = d/dt c_i(x + t dx): one jvp."""
+        _, dg = jvp(lambda xx: vmap(self.ineq_fn)(xx), (x,), (dx,))
+        return -dg
+
+    def gx_at(self, x):
+        """Returns v -> Gx(v), the Riemannian gradient of x -> v . c(x),
+        with the constraint pullback frozen."""
+        _, pullback = vjp(lambda xx: vmap(self.ineq_fn)(xx), x)
+
+        def gx(v):
+            (eg,) = pullback(-v)
+            return self.manifold.egrad2rgrad(x, eg)
+
+        return gx
+
+    def gx_adj_at(self, x):
+        """Returns dx -> Gxaj(dx) at the point x."""
+        return lambda dx: self.gx_adj(x, dx)

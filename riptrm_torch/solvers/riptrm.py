@@ -1,0 +1,733 @@
+"""RIPTRM: Riemannian primal-dual Interior Point Trust-Region Method, tCG
+mode with first-order stopping.
+
+Counterpart of ``riptrm_tpu/solvers/riptrm.py``.  As there, the inner x
+outer loop nest is one ``step``: an inner trust-region iteration whose
+"converged" branch also applies the outer barrier-parameter update.  The
+step acts on every lane of a ``RiptrmState`` at once (``x``/``y`` [B, n],
+per-lane scalars [B]); each lane follows exactly the JAX step's branches
+(``torch.where`` in place of ``jnp.where``).  The same step powers the host
+runner (``RIPTRM.run``, B = 1) and the fixed-budget loop
+(``solve_compiled``, any B; ``parallel/sweep.py``).
+
+Not ported yet, and refused with ``NotImplementedError`` when asked for
+(ROADMAP.md queue 1): exact mode ``TRS_solver='Exact_RepMat'``,
+``second_order_stationarity=True`` and ``checkTRSoptimality`` (item 8),
+``compensated_reductions`` (item 11), ``checkpoint_path`` and
+``wandb_logging`` (item 12).  The defaults stay the JAX ones, so a caller
+passes ``TRS_solver='tCG'`` and ``second_order_stationarity=False``.
+
+``use_fused_tcg`` (the JAX ``use_pallas_tcg``) routes the tCG of a
+``sphere_quadratic`` problem to the fused kernels of ``ops/kernels.py``:
+K2 at B = 1, K3 at B > 1, on any n.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from riptrm_torch.ops import kernels
+from riptrm_torch.ops.kkt import compute_residual, evaluation
+from riptrm_torch.ops.tcg import truncated_cg
+from riptrm_torch.solvers.base import (
+    LogAccumulator,
+    Output,
+    WallClock,
+    compiled_best_while,
+    merge_options,
+)
+
+# inner_status codes
+INNER_INITIAL = 0
+INNER_CONVERGED = 1
+INNER_SUCCESSFUL = 2
+INNER_UNSUCCESSFUL = 3
+INNER_PRIMAL_INFEASIBLE = 4
+INNER_MAX_TIME = 5
+INNER_MAX_ITER = 6
+
+INNER_STATUS_NAMES = {
+    INNER_INITIAL: "initial",
+    INNER_CONVERGED: "converged",
+    INNER_SUCCESSFUL: "successful",
+    INNER_UNSUCCESSFUL: "unsuccessful",
+    INNER_PRIMAL_INFEASIBLE: "primal_infeasible",
+    INNER_MAX_TIME: "max-time-exceeded",
+    INNER_MAX_ITER: "max-iter-exceeded",
+}
+
+RADIUS_NAMES = {-1: None, 0: "unchanged", 1: "reduced", 2: "expanded"}
+TCG_NAMES = {
+    0: "tCG_MAX_INNER_ITER",
+    1: "tCG_NEGATIVE_CURVATURE",
+    2: "tCG_EXCEEDED_TR",
+    3: "tCG_MODEL_INCREASED",
+    4: "tCG_REACHED_TARGET_LINEAR",
+    5: "tCG_REACHED_TARGET_SUPERLINEAR",
+}
+TRS_NAMES = {0: "interior", 1: "boundary", 2: "hardcase"}
+
+
+def default_option():
+    """The JAX package's defaults (``riptrm_tpu/solvers/riptrm.py``)."""
+    return {
+        "maxtime": 240,
+        "maxiter": 100,
+        "tolresid": 1e-15,
+        "inner_maxiter": None,
+        "inner_maxtime": None,
+        "initial_TR_radius": None,
+        "minimal_initial_TR_radius": 1e-15,
+        "maximal_TR_radius": 10.0,
+        "rho": 0.1,
+        "reduction_regularization": 1e3,
+        "gamma": 0.25,
+        "forcing_function_Lagrangian": lambda mu: torch.clamp(mu, min=1e-14),
+        "forcing_function_complementarity": lambda mu: torch.clamp(1e-3 * mu, min=1e-14),
+        "forcing_function_second_order": lambda mu: mu,
+        "min_barrier_parameter": 1e-15,
+        "TRS_solver": "Exact_RepMat",  # or 'tCG'; only 'tCG' is ported
+        "exact_trs_method": "auto",
+        "second_order_stationarity": True,
+        "second_order_lanczos_iters": 64,
+        "tCG_theta": 1.0,
+        "tCG_kappa": 0.1,
+        "tCG_mininner": 1,
+        "initial_barrier_parameter": 0.1,
+        "barrier_parameter_update_r": 0.01,
+        "barrier_parameter_update_c": 0.5,
+        "barrier_parameter_update_b": 0.8,
+        "do_simple_barrier_parameter_update": True,
+        "const_left": 0.5,
+        "const_right": 1e20,
+        "checkTRSoptimality": False,
+        # Run the whole tCG as one hand-written kernel when the problem
+        # carries sphere_quadratic structure (float32 inside).
+        "use_fused_tcg": False,
+        "compensated_reductions": False,
+        "verbosity": 0,
+        "save_inner_iteration": True,
+        "wandb_logging": False,
+        "do_exit_on_error": True,
+        "checkpoint_path": None,
+        "checkpoint_every": 30.0,
+        "resume": False,
+        # Accepted for reference-config compatibility; no-ops here.
+        "do_euclidean_lincomb": False,
+        "is_euclidean_embedded": False,
+        "basisfun": None,
+        "TRS_tolresid": 1e-12,
+        "TRS_tolhardcase": 1e-8,
+    }
+
+
+_NOT_PORTED = (
+    ("TRS_solver", lambda v: v != "tCG",
+     "TRS_solver={!r}: exact mode waits for ROADMAP.md queue 1 item 8; pass 'tCG'"),
+    ("second_order_stationarity", bool,
+     "second_order_stationarity={!r}: the second-order criterion waits for "
+     "ROADMAP.md queue 1 item 8; pass False"),
+    ("checkTRSoptimality", bool,
+     "checkTRSoptimality={!r} waits for ROADMAP.md queue 1 item 8"),
+    ("compensated_reductions", bool,
+     "compensated_reductions={!r} (ops/compensated.py) waits for ROADMAP.md "
+     "queue 1 item 11"),
+    ("checkpoint_path", lambda v: v is not None,
+     "checkpoint_path={!r}: checkpoint/resume waits for ROADMAP.md queue 1 item 12"),
+    ("wandb_logging", bool,
+     "wandb_logging={!r} waits for ROADMAP.md queue 1 item 12"),
+)
+
+
+def check_slice(option):
+    """Raise NotImplementedError for an option outside the ported slice."""
+    for key, unsupported, msg in _NOT_PORTED:
+        if unsupported(option.get(key)):
+            raise NotImplementedError(msg.format(option.get(key)))
+
+
+@dataclasses.dataclass
+class RiptrmState:
+    """Solver state over lanes: vectors [B, n], scalars [B]."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    mu: torch.Tensor
+    tr_radius: torch.Tensor
+    outer_iter: torch.Tensor  # completed outer iterations (int64)
+    inner_count: torch.Tensor  # inner iterations in the current outer step
+    # Inner-loop initial values, for budget-exceeded resets
+    inner_x0: torch.Tensor
+    inner_y0: torch.Tensor
+    inner_tr0: torch.Tensor
+    # Exact-mode cache; zero-sized in tCG mode, kept so the state has the
+    # JAX state's fields.
+    cache_valid: torch.Tensor
+    h_lam: torch.Tensor  # [B, 0]
+    h_q: torch.Tensor  # [B, 0, 0]
+    c_vec: torch.Tensor  # [B, 0]
+
+    @property
+    def lanes(self) -> int:
+        return self.x.shape[0]
+
+
+_FLOAT_FIELDS = ("x", "y", "mu", "tr_radius", "inner_x0", "inner_y0", "inner_tr0",
+                 "h_lam", "h_q", "c_vec")
+_INT_FIELDS = ("outer_iter", "inner_count")
+
+
+def state_from_numpy(d, device=None, dtype=None) -> RiptrmState:
+    """Port's state from a dict of arrays, e.g. ``jax.device_get(state)
+    ._asdict()`` of a JAX ``RiptrmState``.  An unbatched state (``x`` [n])
+    becomes one lane; a vmapped one (``x`` [B, n]) keeps its lanes.  Float
+    fields take ``dtype`` (default: the dtype of ``x``)."""
+    batched = np.ndim(d["x"]) == 2
+    if dtype is None:
+        dtype = torch.from_numpy(np.array(d["x"])).dtype
+    out = {}
+    for f in dataclasses.fields(RiptrmState):
+        a = np.array(d[f.name])  # a writable copy
+        if not batched:
+            a = a[None]
+        if f.name in _FLOAT_FIELDS:
+            t = torch.as_tensor(a, dtype=dtype, device=device)
+        elif f.name in _INT_FIELDS:
+            t = torch.as_tensor(a.astype(np.int64), device=device)
+        else:
+            t = torch.as_tensor(a.astype(bool), device=device)
+        out[f.name] = t
+    return RiptrmState(**out)
+
+
+def state_to_numpy(state: RiptrmState) -> dict:
+    """Inverse of ``state_from_numpy``: the lane axis is dropped at B = 1."""
+    squeeze = state.lanes == 1
+    out = {}
+    for f in dataclasses.fields(RiptrmState):
+        a = getattr(state, f.name).detach().cpu().numpy()
+        out[f.name] = a[0] if squeeze else a
+    return out
+
+
+def _barrier_ops(problem, x, y, mu):
+    """Condensed barrier-KKT operator pieces at (x, y, mu): the slack c, the
+    operator Hw(dx) = Hess_x L[dx] + Gx(y * Gxaj(dx) / c) with the point's
+    work done once, and cx = grad f - Gx(mu / c)."""
+    c = problem.slack(x)
+    lag_hvp = problem.lag_rhess_at(x, y)
+    gx = problem.gx_at(x)
+    gx_adj = problem.gx_adj_at(x)
+
+    def hw(dx):
+        return lag_hvp(dx) + gx((y * gx_adj(dx)) / c)
+
+    cx_vec = problem.rgrad(x) - gx(mu[:, None] / c)
+    return c, hw, cx_vec
+
+
+def _log_barrier(problem, x, mu):
+    """phi(x) = f(x) - mu sum log c(x), finite at infeasible points."""
+    c = problem.slack(x)
+    safe_c = torch.where(c > 0, c, torch.ones_like(c))
+    return problem.cost(x) - mu * torch.sum(torch.log(safe_c), dim=-1)
+
+
+def _outer_update(option, mu):
+    """Barrier parameter schedule."""
+    simple = option["barrier_parameter_update_c"] * mu ** (
+        1.0 + option["barrier_parameter_update_r"]
+    )
+    if not option["do_simple_barrier_parameter_update"]:
+        simple = torch.minimum(option["barrier_parameter_update_b"] * mu, simple)
+    return torch.clamp(simple, min=option["min_barrier_parameter"])
+
+
+def _lanes(mask, a, b):
+    """where(mask, a, b) with a [B] mask over [B, ...] values."""
+    return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b)
+
+
+def make_step(problem, option):
+    """Build the inner-step function ``step(state) -> (state, info)``;
+    ``info`` is a dict of [B] tensors with the JAX step's keys."""
+    check_slice(option)
+    man = problem.manifold
+    dim = man.dim
+    ff_lag = option["forcing_function_Lagrangian"]
+    ff_compl = option["forcing_function_complementarity"]
+    inner_maxiter = option["inner_maxiter"]
+    tcg_kw = dict(
+        theta=option["tCG_theta"],
+        kappa=option["tCG_kappa"],
+        mininner=option["tCG_mininner"],
+        maxinner=dim,
+    )
+    fused = bool(
+        option["use_fused_tcg"]
+        and problem.structure
+        and problem.structure.get("kind") == "sphere_quadratic"
+    )
+
+    def direction(x, y, c, hw, cx, tr_radius):
+        if not fused:
+            return truncated_cg(man, x, hw, cx, tr_radius, **tcg_kw)
+        zs = problem.structure["Zs"]
+        w = y / c
+        if x.shape[0] == 1:
+            dx, h_dx, it, code = kernels.fused_tcg_sphere_quadratic(
+                zs, x[0], w[0], cx[0], tr_radius[0], **tcg_kw
+            )
+            dx, h_dx, it, code = dx[None], h_dx[None], it.reshape(1), code.reshape(1)
+        else:
+            dx, h_dx, it, code = kernels.fused_tcg_sphere_quadratic_batched(
+                zs, x, w, cx, tr_radius, **tcg_kw
+            )
+        return dx.to(x.dtype), h_dx.to(x.dtype), it, code
+
+    def step(state: RiptrmState):
+        x, y, mu, tr_radius = state.x, state.y, state.mu, state.tr_radius
+        dt = y.dtype
+        c, hw, cx = _barrier_ops(problem, x, y, mu)
+
+        # ---- direction -------------------------------------------------
+        dx, h_dx, tcg_iters, tcg_code = direction(x, y, c, hw, cx, tr_radius)
+        hw_dx_dx = man.inner(x, dx, h_dx)
+        cx_dx = man.inner(x, cx, dx)
+        dxtype = 10 + tcg_code.to(torch.int64)
+        normdx = man.norm(x, dx)
+
+        # ---- trial point -----------------------------------------------
+        dy = -y + mu[:, None] / c - y * problem.gx_adj(x, dx) / c
+        x_new = man.retract(x, dx)
+        y_new = y + dy
+        c_new = problem.slack(x_new)
+
+        # ---- inner stopping criteria (first order) ---------------------
+        xfeas = torch.all(c_new > 0, dim=-1)
+        yfeas = torch.all(y_new > 0, dim=-1)
+        norm_grad_lag = man.norm(x_new, problem.lag_rgrad(x_new, y_new))
+        compl = torch.linalg.vector_norm(y_new * c_new - mu[:, None], dim=-1)
+        crit_lag = norm_grad_lag <= ff_lag(mu)
+        crit_compl = compl <= ff_compl(mu)
+        mineig = torch.full_like(normdx, math.nan)
+
+        converged = xfeas & yfeas & crit_lag & crit_compl
+        infeasible = (~converged) & (~xfeas)
+
+        # ---- ared / pred and radius update -----------------------------
+        # ared = [f(x) - f(xNew)] + mu * sum(log(cNew_i / c_i)): the
+        # reference's phi(x) - phi(xNew) without the catastrophic
+        # cancellation of two O(n) barrier sums.
+        safe_c = torch.where(c > 0, c, torch.ones_like(c))
+        ratio = torch.where((c_new > 0) & (c > 0), c_new / safe_c, torch.ones_like(c))
+        ared_raw = (problem.cost(x) - problem.cost(x_new)) + mu * torch.sum(
+            torch.log(ratio), dim=-1
+        )
+        phi_cur = _log_barrier(problem, x, mu)  # scale only (regularization)
+        eps_dt = torch.finfo(dt).eps
+        red_reg = (
+            torch.clamp(torch.abs(phi_cur), min=1.0)
+            * eps_dt
+            * option["reduction_regularization"]
+        )
+        ared = ared_raw + red_reg
+        pred = -0.5 * hw_dx_dx - cx_dx + red_reg
+
+        shrink = ared < 0.25 * pred
+        # |dx| == TR to 1e-15 at float64 (the reference); scaled with the
+        # dtype's eps below that, or the radius never expands in float32.
+        boundary_tol = 1e-15 if eps_dt < 1e-12 else 8.0 * eps_dt * tr_radius
+        expand = (ared >= 0.75 * pred) & (torch.abs(normdx - tr_radius) <= boundary_tol)
+        tr_updated = torch.where(
+            shrink,
+            0.25 * tr_radius,
+            torch.where(
+                expand,
+                torch.clamp(2.0 * tr_radius, max=option["maximal_TR_radius"]),
+                tr_radius,
+            ),
+        )
+        radius_update_code = torch.where(shrink, 1, torch.where(expand, 2, 0))
+        accepted = ared > option["rho"] * pred
+
+        # Dual clipping; I_right is a scalar max broadcast to every entry
+        # (the reference's np.maximum(a, b, out) semantics).
+        safe_c_new = torch.where(c_new > 0, c_new, torch.ones_like(c_new))
+        i_left = option["const_left"] * torch.clamp(
+            torch.minimum(y, mu[:, None] / safe_c_new), max=1.0
+        )
+        i_right = torch.clamp(option["const_right"] / mu, min=option["const_right"])
+        y_clipped = torch.minimum(torch.maximum(y_new, i_left), i_right[:, None])
+        dual_clipping = ~torch.all(y_new == y_clipped, dim=-1)
+
+        # ---- combine branches ------------------------------------------
+        status = torch.where(
+            converged,
+            INNER_CONVERGED,
+            torch.where(
+                infeasible,
+                INNER_PRIMAL_INFEASIBLE,
+                torch.where(accepted, INNER_SUCCESSFUL, INNER_UNSUCCESSFUL),
+            ),
+        )
+        take_new_x = converged | ((~infeasible) & accepted)
+        x_next = _lanes(take_new_x, x_new, x)
+        y_next = _lanes(
+            converged, y_new, _lanes((~infeasible) & accepted, y_clipped, y)
+        )
+        tr_next = torch.where(
+            converged,
+            tr_radius,
+            torch.where(infeasible, option["gamma"] * normdx, tr_updated),
+        )
+
+        inner_count = state.inner_count + 1
+        # inner_maxiter budget: reset to the inner loop's initial values and
+        # force an outer transition.
+        if inner_maxiter is not None:
+            forced = (~converged) & (inner_count >= inner_maxiter)
+        else:
+            forced = torch.zeros_like(converged)
+        exit_inner = converged | forced
+
+        x_next = _lanes(forced, state.inner_x0, x_next)
+        y_next = _lanes(forced, state.inner_y0, y_next)
+        tr_next = torch.where(forced, state.inner_tr0, tr_next)
+        status = torch.where(forced, INNER_MAX_ITER, status)
+
+        # ---- outer transition on inner exit ----------------------------
+        mu_next = torch.where(exit_inner, _outer_update(option, mu), mu)
+        tr_next = torch.where(
+            exit_inner,
+            torch.clamp(tr_next, min=option["minimal_initial_TR_radius"]),
+            tr_next,
+        )
+        outer_iter = state.outer_iter + exit_inner.to(state.outer_iter.dtype)
+        inner_count = torch.where(exit_inner, 0, inner_count)
+
+        new_state = RiptrmState(
+            x=x_next,
+            y=y_next,
+            mu=mu_next,
+            tr_radius=tr_next,
+            outer_iter=outer_iter,
+            inner_count=inner_count,
+            inner_x0=_lanes(exit_inner, x_next, state.inner_x0),
+            inner_y0=_lanes(exit_inner, y_next, state.inner_y0),
+            inner_tr0=torch.where(exit_inner, tr_next, state.inner_tr0),
+            cache_valid=torch.zeros_like(state.cache_valid),
+            h_lam=state.h_lam,
+            h_q=state.h_q,
+            c_vec=state.c_vec,
+        )
+
+        info = evaluation(problem, x, x_next, y_next)
+        skipped = converged | infeasible | forced
+        has_ineq = problem.has_ineq
+        inf = torch.full_like(normdx, math.inf)
+        info.update(
+            mu=mu,  # mu of the step that was just taken
+            inner_status=status,
+            num_inner=state.inner_count + 1,
+            TR_radius=tr_radius,  # radius used this step (pre-update)
+            dxtype=dxtype,
+            normdx=normdx,
+            minxfeasi=torch.amin(c_new, dim=-1) if has_ineq else inf,
+            minyfeasi=torch.amin(y_new, dim=-1) if has_ineq else inf,
+            compl=compl,
+            mineigvalHw=mineig,
+            ared_pred=ared / pred,
+            radius_update=torch.where(skipped, -1, radius_update_code),
+            dual_clipping=torch.where(
+                skipped, -1, torch.where(accepted, dual_clipping.to(torch.int64), -1)
+            ),
+            maxabsLagmult=(
+                torch.amax(torch.abs(y_next), dim=-1) if has_ineq
+                else torch.zeros_like(normdx)
+            ),
+            converged=converged,
+            exit_inner=exit_inner,
+            outer_iter=outer_iter,
+            tcg_iters=tcg_iters.to(torch.int32),
+        )
+        return new_state, info
+
+    return step
+
+
+def make_force_outer(option):
+    """Host-triggered inner-budget reset (``inner_maxtime``): revert to the
+    inner loop's initial values and apply the outer barrier update."""
+
+    def force_outer(state: RiptrmState):
+        tr = torch.clamp(state.inner_tr0, min=option["minimal_initial_TR_radius"])
+        return dataclasses.replace(
+            state,
+            x=state.inner_x0,
+            y=state.inner_y0,
+            tr_radius=tr,
+            mu=_outer_update(option, state.mu),
+            outer_iter=state.outer_iter + 1,
+            inner_count=torch.zeros_like(state.inner_count),
+            inner_tr0=tr,
+            cache_valid=torch.zeros_like(state.cache_valid),
+        )
+
+    return force_outer
+
+
+def init_state(problem, option):
+    """One-lane initial state at (problem.x0, problem.y0)."""
+    check_slice(option)
+    x0 = problem.x0[None]
+    y0 = torch.as_tensor(problem.y0)[None]
+    dt, dev = y0.dtype, y0.device
+    if option["initial_TR_radius"] is None:
+        tr0 = problem.manifold.typical_dist / 8.0
+    else:
+        tr0 = option["initial_TR_radius"]
+    tr0 = torch.full((1,), tr0, dtype=dt, device=dev)
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    return RiptrmState(
+        x=x0,
+        y=y0,
+        mu=torch.full((1,), option["initial_barrier_parameter"], dtype=dt, device=dev),
+        tr_radius=tr0,
+        outer_iter=zero,
+        inner_count=zero,
+        inner_x0=x0,
+        inner_y0=y0,
+        inner_tr0=tr0,
+        cache_valid=torch.zeros(1, dtype=torch.bool, device=dev),
+        h_lam=torch.zeros((1, 0), dtype=dt, device=dev),
+        h_q=torch.zeros((1, 0, 0), dtype=dt, device=dev),
+        c_vec=torch.zeros((1, 0), dtype=dt, device=dev),
+    )
+
+
+_INT_INFO = ("inner_status", "num_inner", "dxtype", "radius_update",
+             "dual_clipping", "outer_iter", "tcg_iters")
+_BOOL_INFO = ("converged", "exit_inner")
+
+
+def info_to_host(info: dict) -> dict:
+    """Lane 0 of an info dict as Python numbers, in ONE device->host copy
+    (the values are stacked into one float64 tensor first)."""
+    keys = list(info)
+    vals = torch.stack(
+        [torch.as_tensor(info[k]).reshape(-1)[0].to(torch.float64) for k in keys]
+    ).cpu().tolist()
+    out = {}
+    for k, v in zip(keys, vals):
+        out[k] = int(v) if k in _INT_INFO else bool(v) if k in _BOOL_INFO else v
+    return out
+
+
+class RIPTRM:
+    """Host-facing solver with the reference's run protocol."""
+
+    def __init__(self, option=None):
+        self.option = merge_options(default_option(), option or {})
+        self.name = f"RIPTRM_{self.option['TRS_solver']}"
+
+    # ------------------------------------------------------------------
+    def run(self, problem) -> Output:
+        """Wall-clock-budgeted host loop: one step per iteration (one lane),
+        per-iteration logging, the reference's stopping semantics (residual
+        check at outer transitions, budget resets)."""
+        option = self.option
+        log = LogAccumulator()
+        state = init_state(problem, option)
+        step = make_step(problem, option)
+        if option["use_fused_tcg"] and state.x.is_cuda:
+            kernels._build.load()  # build before the clock starts
+        force_outer = (
+            make_force_outer(option) if option["inner_maxtime"] is not None else None
+        )
+        clock = WallClock(option["maxtime"])
+        inner_start = clock.elapsed()
+
+        eval0 = info_to_host(evaluation(problem, state.x, state.x, state.y))
+        # iteration-0 row (outer loop first evaluation)
+        status0 = {
+            "mu": float(state.mu[0]),
+            "num_inner": None,
+            "inner_status": None,
+            "TR_radius": None,
+            "dxtype": None,
+            "normdx": None,
+            "minxfeasi": None,
+            "minyfeasi": None,
+            "compl": None,
+            "mineigvalHw": None,
+            "ared/pred": None,
+            "radius_update": None,
+            "dual_clipping": None,
+            "maxabsLagmult": (
+                float(torch.amax(torch.abs(state.y))) if problem.has_ineq else 0.0
+            ),
+        }
+        log.add(0, 0.0, eval0, status0)
+
+        stop_reason = None
+        if eval0["residual"] <= option["tolresid"]:
+            stop_reason = (
+                f"KKT residual tolerance reached; current residual={eval0['residual']} "
+                f"and tolresid={option['tolresid']}"
+            )
+
+        while stop_reason is None:
+            try:
+                state, info = step(state)
+                info = info_to_host(info)  # one device->host transfer per step
+            except Exception as e:  # do_exit_on_error
+                if option["do_exit_on_error"]:
+                    print(f"Error: {e}")
+                    break
+                raise
+            converged = info["converged"]
+            residual = info["residual"]
+            outer_iter = info["outer_iter"]
+            # Rows are logged under the *current* outer iteration (1-based);
+            # outer_iter counts completed outer iterations.
+            row_iter = outer_iter if info["exit_inner"] else outer_iter + 1
+            row_time = clock.elapsed()
+            if option["save_inner_iteration"] or info["exit_inner"]:
+                log.add(row_iter, row_time, self._format_info(info))
+
+            if option["verbosity"] >= 1 and converged:
+                print(
+                    f"Outer iteration: {outer_iter}, Cost: {info['cost']}, "
+                    f"KKT residual: {residual}, mu: {info['mu']}"
+                )
+            elif option["verbosity"] > 1:
+                print(
+                    f"Iter: {row_iter}-{info['num_inner']}, "
+                    f"Cost: {info['cost']:.3e}, KKT resid: {residual:.3e}, "
+                    f"TR: {info['TR_radius']:.3e}, "
+                    f"Stat: {INNER_STATUS_NAMES[info['inner_status']]}"
+                )
+
+            # Wall-clock budget: revert to the inner loop's initial point
+            # and stop.
+            if clock.exceeded():
+                state = dataclasses.replace(
+                    state, x=state.inner_x0, y=state.inner_y0,
+                    tr_radius=state.inner_tr0,
+                )
+                stop_reason = (
+                    f"Max time exceeded; runtime={clock.elapsed():.2f} and "
+                    f"maxtime={option['maxtime']}"
+                )
+                break
+
+            # inner_maxtime budget: reset the inner loop and force the outer
+            # transition.
+            if (
+                option["inner_maxtime"] is not None
+                and not info["exit_inner"]
+                and clock.elapsed() - inner_start >= option["inner_maxtime"]
+            ):
+                state = force_outer(state)
+                inner_start = clock.elapsed()
+            elif info["exit_inner"]:
+                inner_start = clock.elapsed()
+            if converged and residual <= option["tolresid"]:
+                stop_reason = (
+                    "KKT residual tolerance reached; current residual="
+                    f"{residual} and tolresid={option['tolresid']}"
+                )
+                break
+            if outer_iter >= option["maxiter"]:
+                stop_reason = (
+                    f"Max iteration count reached; maxiter={option['maxiter']} "
+                    f"after {clock.elapsed():.2f} seconds"
+                )
+                break
+
+        self.option["stoppingcriterion"] = stop_reason
+        opt_out = {k: v for k, v in self.option.items() if not callable(v)}
+        return Output(
+            name=self.name,
+            x=state.x[0],
+            ineqLagmult=state.y[0],
+            eqLagmult=state.x.new_zeros(0),
+            option=copy.deepcopy(opt_out),
+            log=log.as_dict(),
+        )
+
+    @staticmethod
+    def _format_info(info) -> dict:
+        """Map status codes to the reference's string log values."""
+        out = {}
+        for k, v in info.items():
+            if k in ("converged", "exit_inner", "outer_iter", "tcg_iters"):
+                # measurement metadata, not reference log columns
+                continue
+            out[k] = v
+        out["inner_status"] = INNER_STATUS_NAMES[info["inner_status"]]
+        dxt = info["dxtype"]
+        out["dxtype"] = TCG_NAMES[dxt - 10] if dxt >= 10 else TRS_NAMES[dxt]
+        out["radius_update"] = RADIUS_NAMES[info["radius_update"]]
+        dc = info["dual_clipping"]
+        out["dual_clipping"] = None if dc < 0 else bool(dc)
+        out["ared/pred"] = out.pop("ared_pred")
+        return out
+
+    # ------------------------------------------------------------------
+    def _solve_loop(self, problem, max_steps: int):
+        """solve(state, target) -> (state, steps, done, best) on every lane
+        of ``state``, through ``base.compiled_best_while``."""
+        option = self.option
+        step = make_step(problem, option)
+        tolresid = option["tolresid"]
+        maxiter = option["maxiter"]
+
+        def step1(st):
+            new_st, info = step(st)
+            # The protocol metric counts only inner-converged steps.
+            stop = (info["converged"] & (info["residual"] <= tolresid)) | (
+                new_st.outer_iter >= maxiter
+            )
+            return new_st, info["residual"], info["converged"], stop
+
+        def solve(state, target):
+            best0 = compute_residual(problem, state.x, state.y)[0]
+            return compiled_best_while(step1, state, target, max_steps, best0)
+
+        return solve
+
+    # ------------------------------------------------------------------
+    def solve_compiled(self, problem, max_steps: int):
+        """Fixed-budget solve over the lanes of a state.
+
+        The JAX package compiles this loop into one ``lax.while_loop``; the
+        port's counterpart is a Python loop over device tensors with one
+        host check of "every lane done" per step (CUDA graphs are left to a
+        later change).  Returns solve(state) -> (state, steps [B])."""
+        inner = self._solve_loop(problem, max_steps)
+
+        def solve(state):
+            st, k, _, _ = inner(state, -math.inf)
+            return st, k
+
+        return solve
+
+    # ------------------------------------------------------------------
+    def solve_compiled_best(self, problem, max_steps: int):
+        """Fixed-budget solve tracking the protocol metric: the best KKT
+        residual over inner-converged steps.  Returns solve(state, target)
+        -> (state, steps, best); a lane also stops once its best <= target."""
+        inner = self._solve_loop(problem, max_steps)
+
+        def solve(state, target):
+            st, k, _, best = inner(state, target)
+            return st, k, best
+
+        return solve

@@ -1,0 +1,46 @@
+"""The PyTorch port imports without JAX."""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+MODULES = [
+    "riptrm_torch",
+    "riptrm_torch.config",
+    "riptrm_torch.manifolds",
+    "riptrm_torch.problems",
+    "riptrm_torch.ops",
+    "riptrm_torch.ops.kernels",
+    "riptrm_torch.solvers",
+    "riptrm_torch.parallel",
+    "riptrm_torch.utils",
+]
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_import_leaves_jax_out(module):
+    code = (
+        f"import sys, {module}; "
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'riptrm_tpu'))); "
+        "assert not bad, bad"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_no_jax_import_in_sources():
+    for path in (REPO / "riptrm_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.split()
+            assert not (
+                words[:1] in (["import"], ["from"]) and len(words) > 1
+                and words[1].split(".")[0] in ("jax", "riptrm_tpu")
+            ), f"{path}: {line}"
