@@ -2,52 +2,76 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (RIPTRM, tCG mode, first-order stopping, on
-NonnegPCA) on the card at the size of the system's own benchmark, n = 1000,
-through its user entry points, and checks the three hand-written kernels
-of ``riptrm_torch/csrc/sphere_tcg.cu`` against their plain PyTorch
-versions.  One line per phase; a failed check raises and the script exits
-non-zero.  It refuses to run without CUDA.  The line before the last is a
-JSON object with one entry per kernel (launches on the main path, error
-against the plain version, CUDA-event medians of kernel and plain version);
-the last line is ``{"ok": true, "device": {...}}``.
+Drives the port's two paths (RIPTRM, tCG mode, first-order stopping) on
+the card through their user entry points: NonnegPCA on the sphere at the
+size of the system's own benchmark, n = 1000, and BoundedPCA on St(128, 8)
+at the size of the JAX package's own chip sweeps.  Checks the four
+hand-written kernels (``riptrm_torch/csrc/sphere_tcg.cu``: K1-K3;
+``riptrm_torch/csrc/stiefel_tcg.cu``: the Stiefel-bound tCG) against their
+plain PyTorch versions.  One line per phase; a failed check raises and the
+script exits non-zero.  It refuses to run without CUDA.  The line before
+the last is a JSON object with one entry per kernel (launches on its path,
+error against the plain version, CUDA-event medians of kernel and plain
+version); the last line is ``{"ok": true, "device": {...}}``.
 
 Phases:
   1. build the kernels with nvcc; the card's name and power limit;
   2. K1 chained_barrier_matvec (64 iterations) against its plain version;
   3. K2 fused tCG on one n = 1000 subproblem against its plain version;
   4. K3 batched fused tCG at B = 16 and B = 128, mixed radii;
-  -- launch counters reset: the main path starts here --
+  4b. the Stiefel-bound kernel at St(128, 8), B = 1, 16 and 128, and at
+     St(512, 32), B = 16, against its plain version;
+  -- launch counters reset: the NonnegPCA path starts here --
   5. golden solve: RIPTRM.run on dataset/NonnegPCA/1 point a, float64,
      plain tCG (residual <= 1e-8, cost -1.537809 +- 1e-4), then fused;
   6. bench.py's headline op (K1 at the initial state) and the single-lane
      n = 1000 float32 solve through RIPTRM.run and solve_compiled, fused;
   7. batched_riptrm_solve at n = 1000, B = 16 and B = 128, fused, and
      B = 16 with the plain tCG;
-  -- launch counters read --
+  -- launch counters read (K1-K3), then reset: the BoundedPCA path --
+  5b. golden solves: RIPTRM.run on dataset/BoundedPCA/1 points a and b,
+     float64, plain tCG and fused (residual <= 1e-8, cost -5.2090815 +- 1e-6);
+  6b. the single-lane St(128, 8) float32 solve through RIPTRM.run and
+     solve_compiled, fused;
+  7b. batched_riptrm_solve at St(128, 8), B = 16 and B = 128, fused, and
+     B = 16 with the plain tCG;
+  -- launch counters read (the Stiefel-bound kernel) --
   8. CUDA-event medians of each kernel and its plain version.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 N = 1000
 SOLVE_STEPS = 400
-DATASET = os.path.join(os.path.dirname(os.path.abspath(__file__)), "dataset", "NonnegPCA", "1")
-SOURCE = "riptrm_torch/csrc/sphere_tcg.cu"
-REPLACES = {
-    "chained_barrier_matvec": "riptrm_tpu/ops/pallas_kernels.py:747",
-    "fused_tcg_sphere_quadratic": "riptrm_tpu/ops/pallas_kernels.py:217",
-    "fused_tcg_sphere_quadratic_batched": "riptrm_tpu/ops/pallas_kernels.py:423",
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DATASET = os.path.join(ROOT, "dataset", "NonnegPCA", "1")
+BPCA_DATASET = os.path.join(ROOT, "dataset", "BoundedPCA", "1")
+# the JAX chip sweeps' BoundedPCA instance and starts at St(128, 8)
+BPCA_CACHE = os.path.join(ROOT, "dataset", "_cache", "BoundedPCA_s128_seed0_b{}.npz")
+BPCA_GOLDEN_COST = -5.2090815
+PALLAS = "riptrm_tpu/ops/pallas_kernels.py"
+SPHERE_SRC = "riptrm_torch/csrc/sphere_tcg.cu"
+STIEFEL_SRC = "riptrm_torch/csrc/stiefel_tcg.cu"
+# kernel -> (CUDA source, the TPU kernel(s) it replaces)
+KERNELS = {
+    "chained_barrier_matvec": (SPHERE_SRC, f"{PALLAS}:747"),
+    "fused_tcg_sphere_quadratic": (SPHERE_SRC, f"{PALLAS}:217"),
+    "fused_tcg_sphere_quadratic_batched": (SPHERE_SRC, f"{PALLAS}:423"),
+    "fused_tcg_stiefel_bound_batched": (STIEFEL_SRC, f"{PALLAS}:997, {PALLAS}:1237"),
 }
+SPHERE_KERNELS = tuple(KERNELS)[:3]
+STIEFEL_KERNEL = "fused_tcg_stiefel_bound_batched"
 
 
 class SmokeFailure(AssertionError):
@@ -63,16 +87,19 @@ def say(*parts):
     print(*parts, flush=True)
 
 
-def bench_option():
+def bench_option(compl_floor=2e-4):
     """bench.py's solver options: float32 forcing floors (the reference's
-    1e-14 floors assume float64)."""
+    1e-14 floors assume float64).  The JAX chip sweep raises the
+    complementarity floor with the number of constraints m, to
+    2e-4 sqrt(m / 200) (``chip_sweep.py:555-570``)."""
     return {
         "maxiter": 60,
         "tolresid": 3e-4,
         "TRS_solver": "tCG",
         "second_order_stationarity": False,
         "forcing_function_Lagrangian": lambda mu: torch.clamp(mu, min=1e-4),
-        "forcing_function_complementarity": lambda mu: torch.clamp(1e-3 * mu, min=2e-4),
+        "forcing_function_complementarity": lambda mu: torch.clamp(1e-3 * mu,
+                                                                   min=compl_floor),
         "do_exit_on_error": False,
     }
 
@@ -132,7 +159,7 @@ class Smoke:
             theta=self.option["tCG_theta"],
             kappa=self.option["tCG_kappa"],
         )
-        self.report = {name: {} for name in REPLACES}
+        self.report = {name: {} for name in SPHERE_KERNELS}
         # first and final states of the main path's solves, for phase 8
         self.start = {"single": self.state0}
         self.final = {}
@@ -366,17 +393,298 @@ class Smoke:
                     kern = lambda a=a: k.fused_tcg_sphere_quadratic_batched(*a, **self.tcg_kw)
                 rows.append((name, shape, kern, lambda a=a: k.fused_tcg_plain(*a, **self.tcg_kw)))
         for name, shape, kern, plain in rows:
-            # plain, kernel, kernel, plain: the two kernel and two plain
-            # medians are averaged
-            p1, k1, k2, p2 = (event_ms(f, dev) for f in (plain, kern, kern, plain))
-            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-            iters = ""
-            if name != "chained_barrier_matvec":
-                it_k, it_p = int(kern()[2].max()), int(plain()[2].max())
-                iters = f", tCG iterations (max over lanes) kernel {it_k}, plain {it_p}"
-            say(f"phase 8 {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                f"(CUDA-event medians; runs {k1:.4f}/{k2:.4f} and {p1:.4f}/{p2:.4f}){iters}")
-            self.report[name].update(ms=ms, plain_ms=plain_ms, shape=shape)
+            self.report[name].update(time_row(name, shape, kern, plain, dev))
+
+
+class StiefelSmoke:
+    """The BoundedPCA path at St(128, 8) (the JAX chip sweeps' instance and
+    starts, ``BPCA_CACHE``) and the Stiefel-bound kernel."""
+
+    def __init__(self, device, lanes=(16, 128), steps=SOLVE_STEPS, seed=0):
+        from riptrm_torch.problems import bounded_pca
+        from riptrm_torch.solvers.riptrm import RIPTRM, init_state
+
+        self.device, self.lanes, self.steps = device, lanes, steps
+        self.gen = torch.Generator(device).manual_seed(seed)
+        self.f32 = dict(dtype=torch.float32, device=device)
+        self.starts = {b: torch.tensor(np.load(BPCA_CACHE.format(b))["b_xs0"], **self.f32)
+                       for b in lanes}
+        z = np.load(BPCA_CACHE.format(max(lanes)))["Z"]
+        self.problem = bounded_pca.make_problem(z, self.starts[max(lanes)][0], **self.f32)
+        m = self.problem.num_ineq
+        self.option = RIPTRM(bench_option(2e-4 * max(1.0, (m / 200) ** 0.5))).option
+        self.state0 = init_state(self.problem, self.option)
+        self.report = {}
+        # first and final states of the main path's solves, and phase 4b's
+        # St(512, 32) subproblem, for phase 8
+        self.start = {"single": self.state0}
+        self.final = {}
+        self.wide = None
+
+    def tcg_kw(self, problem):
+        return dict(maxinner=problem.manifold.dim, mininner=self.option["tCG_mininner"],
+                    theta=self.option["tCG_theta"], kappa=self.option["tCG_kappa"])
+
+    def pieces(self, problem, xs, ys, mu, radii):
+        """The kernel's arguments for the tCG subproblem at (xs, ys, mu)."""
+        from riptrm_torch.ops import kernels as k
+        from riptrm_torch.solvers.riptrm import _barrier_ops
+
+        c, _, cx = _barrier_ops(problem, xs, ys, mu)
+        zs, d = problem.structure["Zs"], problem.structure["d"]
+        ws, ss = k.stiefel_bound_pieces(zs, d, xs, ys, c)
+        return zs, d, xs, ws, ss, cx, radii
+
+    def subproblem(self, st):
+        """The tCG subproblem the solver's step poses at state ``st``."""
+        return self.pieces(self.problem, st.x, st.y, st.mu, st.tr_radius)
+
+    def drawn_subproblem(self, problem, xs):
+        """Subproblems at the frames ``xs``: multipliers 3 (0.5 + U(0, 1)) from
+        the seeded generator, mu = 0.01, radii cycling 0.3, 3, 30, 300.  At
+        St(128, 8) they stop on negative curvature, on the trust region and
+        on the target within 1 to ~20 iterations."""
+        b = xs.shape[0]
+        ys = 3.0 * (0.5 + torch.rand(b, problem.num_ineq, generator=self.gen, **self.f32))
+        mu = torch.full((b,), 0.01, **self.f32)
+        radii = torch.tensor([0.3, 3.0, 30.0, 300.0] * b, **self.f32)[:b]
+        return self.pieces(problem, xs, ys, mu, radii)
+
+    # -- phase 4b: the kernel against its plain version -------------------
+    def phase_kernel(self):
+        """Every lane must stop at the plain version's iteration with its
+        stop code, with eta within 1e-4 and Heta within 1e-3 (relative,
+        per lane).  A float64 tCG on the same inputs is printed beside them:
+        the kernel must be no further from it than 1e-4 or twice the plain
+        version's distance."""
+        from riptrm_torch.problems import bounded_pca
+
+        xs128 = self.starts[max(self.lanes)]
+        cases = [(self.problem, xs128[:b]) for b in (1, 16, 128)]
+        z = bounded_pca.generate_instance(self.gen, 512, **self.f32)["Z"]
+        xs512 = torch.stack([bounded_pca.generate_initialpoint(self.gen, 512, 32, **self.f32)
+                             for _ in range(16)])
+        wide = bounded_pca.make_problem(z, xs512[0], **self.f32)
+        cases.append((wide, xs512))
+        mae_all = 0.0
+        for problem, xs in cases:
+            args = self.drawn_subproblem(problem, xs)
+            mae_all = max(mae_all, self.compare(problem, args))
+        self.wide = (wide, args)
+        self.report["max_abs_err"] = mae_all
+
+    def compare(self, problem, args):
+        from riptrm_torch.manifolds import Stiefel
+        from riptrm_torch.ops import kernels as k
+        from riptrm_torch.ops.tcg import truncated_cg
+
+        def rel(a, b):
+            a, b = a.double().flatten(1), b.double().flatten(1)
+            return torch.linalg.vector_norm(a - b, dim=-1) / torch.linalg.vector_norm(b, dim=-1)
+
+        kw = self.tcg_kw(problem)
+        etas, hetas, iters, codes = k.fused_tcg_stiefel_bound_batched(*args, **kw)
+        e_p, h_p, it_p, code_p = k.fused_tcg_stiefel_bound_plain(*args, **kw)
+        zs, d, xs, ws, ss, gs, radii = (t.double() for t in args)
+        b, n, p = xs.shape
+        e64, _, it64, code64 = truncated_cg(Stiefel(n, p), xs, k.stiefel_hw(zs, d, xs, ws, ss),
+                                            gs, radii, **kw)
+        sync(self.device)
+        same = (iters == it_p) & (codes == code_p)
+        err_e, err_h = rel(etas, e_p), rel(hetas, h_p)
+        err_k64, err_p64 = rel(etas, e64), rel(e_p, e64)
+        mae = float(torch.max(torch.abs(etas - e_p)))
+        say(f"phase 4b Stiefel-bound tCG St({n}, {p}) B={b}: {int((~same).sum())} lanes "
+            f"stop differently; iterations {int(iters.min())}-{int(iters.max())}, codes "
+            f"{sorted(set(codes.tolist()))}; eta rel err worst {float(err_e.max()):.3e} "
+            f"(limit 1e-4), Heta {float(err_h.max()):.3e} (limit 1e-3), eta max abs err "
+            f"{mae:.3e}; against float64: kernel {float(err_k64.max()):.3e}, plain "
+            f"{float(err_p64.max()):.3e}")
+        for i in torch.nonzero(~same).flatten().tolist():
+            say(f"  lane {i}: kernel (iters {int(iters[i])}, code {int(codes[i])}), plain "
+                f"(iters {int(it_p[i])}, code {int(code_p[i])}), float64 (iters {int(it64[i])}, "
+                f"code {int(code64[i])})")
+        check(bool(same.all()), f"St({n}, {p}) B={b}: lanes stop differently")
+        check(float(err_e.max()) <= 1e-4, f"St({n}, {p}) B={b}: eta disagrees")
+        check(float(err_h.max()) <= 1e-3, f"St({n}, {p}) B={b}: Heta disagrees")
+        check(float(err_k64.max()) <= max(1e-4, 2.0 * float(err_p64.max())),
+              f"St({n}, {p}) B={b}: kernel further from float64 than the plain version")
+        return mae
+
+    # -- phases 5b-7b: the BoundedPCA path --------------------------------
+    def phase_golden(self):
+        from riptrm_torch.ops.kernels import launch_counts
+        from riptrm_torch.problems import bounded_pca
+        from riptrm_torch.solvers.riptrm import RIPTRM
+
+        opt = {"maxtime": 120, "maxiter": 40, "tolresid": 1e-8, "TRS_solver": "tCG",
+               "second_order_stationarity": False, "do_exit_on_error": False}
+        for point in "ab":
+            p = bounded_pca.load_problem(BPCA_DATASET, point, dtype=torch.float64,
+                                         device=self.device)
+            for fused in (False, True):
+                before = launch_counts()[STIEFEL_KERNEL]
+                out, t = wall(lambda: RIPTRM(opt | {"use_fused_tcg": fused}).run(p), self.device)
+                res, cost = out.log["residual"][-1], out.log["cost"][-1]
+                steps = len(out.log["residual"]) - 1
+                launches = launch_counts()[STIEFEL_KERNEL] - before
+                x = out.x
+                orth = float(torch.linalg.matrix_norm(x.mT @ x - torch.eye(3, dtype=x.dtype,
+                                                                           device=x.device)))
+                say(f"phase 5b golden solve (dataset/BoundedPCA/1 {point}, St(30, 3), float64, "
+                    f"{'fused' if fused else 'plain'} tCG): residual {res:.3e}, cost "
+                    f"{cost:.7f}, {steps} steps, kernel launches {launches}, {t:.2f} s")
+                check(res <= 1e-8, f"golden residual {res} > 1e-8")
+                check(abs(cost - BPCA_GOLDEN_COST) <= 1e-6, f"golden cost {cost}")
+                check(orth < 1e-10 and float(torch.abs(x).max()) < 0.8,
+                      "golden point off St(30, 3) or infeasible")
+                check(launches == (steps if fused else 0), "golden solve: wrong launch count")
+
+    def stalled(self, residual, outer_done):
+        """The reference's known failure (ROADMAP.md queue 3): a float32 lane
+        whose inner loop never converges at the first barrier parameter,
+        mu = 0.1, so it completes no outer iteration and its residual stays
+        at ||y c|| = ||mu 1|| = 0.1 sqrt(m) = 4.525."""
+        stuck = 0.1 * math.sqrt(self.problem.num_ineq)
+        return outer_done == 0 and abs(residual - stuck) <= 1e-2 * stuck
+
+    def phase_single(self):
+        """``RIPTRM.run`` (capped at 20 s: a stalled lane never stops) and
+        ``solve_compiled`` (400 steps) from the sweeps' first start.  Both
+        must take the same trajectory and launch the kernel once per step;
+        the lane must reach residual 1e-3 or stall as the reference's
+        laggard does."""
+        from riptrm_torch.ops import kernels as k
+        from riptrm_torch.ops.kkt import compute_residual
+        from riptrm_torch.solvers.riptrm import RIPTRM
+
+        solver = RIPTRM(self.option | {"use_fused_tcg": True, "maxtime": 20})
+        before = k.launch_counts()[STIEFEL_KERNEL]
+        out, t_run = wall(lambda: solver.run(self.problem), self.device)
+        steps = len(out.log["residual"]) - 1
+        launches = k.launch_counts()[STIEFEL_KERNEL] - before
+        # the log's rows carry the current outer iteration, 1-based
+        res, outer = out.log["residual"][-1], out.log["iteration"][-1]
+        lag = self.stalled(res, outer - 1)
+        say(f"phase 6b RIPTRM.run St(128, 8) float32 fused: residual {res:.3e}, {steps} steps, "
+            f"{outer} outer, kernel launches {launches}, {t_run:.3f} s"
+            f"{' (stalled at mu = 0.1, as the reference laggard; maxtime)' if lag else ''}")
+        check(math.isfinite(res) and launches == steps, "single-lane run failed")
+        check(res <= 1e-3 or lag, f"single-lane run neither converged nor stalled: {res}")
+
+        solve = solver.solve_compiled(self.problem, self.steps)
+        before = k.launch_counts()[STIEFEL_KERNEL]
+        (st, kk), t_sc = wall(lambda: solve(self.state0), self.device)
+        self.final["single"] = st
+        launches = k.launch_counts()[STIEFEL_KERNEL] - before
+        res_sc = float(compute_residual(self.problem, st.x, st.y)[0][0])
+        kk = int(kk[0])
+        say(f"phase 6b solve_compiled St(128, 8) float32 fused max_steps={self.steps}: "
+            f"residual {res_sc:.3e}, {kk} steps, outer {int(st.outer_iter[0])}, "
+            f"kernel launches {launches}, {t_sc:.3f} s")
+        check(launches == kk, "single-lane solve_compiled: wrong launch count")
+        if kk <= steps:
+            same = out.log["residual"][kk]
+            say(f"  RIPTRM.run's residual after {kk} steps: {same:.3e}")
+            check(abs(same - res_sc) <= 1e-5 * abs(same),
+                  "solve_compiled left RIPTRM.run's trajectory")
+
+    def phase_sweep(self):
+        """The JAX chip sweeps' starts with y = 1.  No lane may stop above
+        residual 1e-3 (a lane above it must still be running when the step
+        budget ends), and the fused sweeps' median must reach 1e-3, as the
+        JAX chip sweeps' does through its kernel.  The lanes that stall at
+        the first barrier parameter, the reference's known float32
+        failure, are counted.  The plain route's median is reported only:
+        the JAX package's own plain float32 tCG stalls 9 of these 16 lanes
+        on the CPU."""
+        from riptrm_torch.ops import kernels as k
+        from riptrm_torch.parallel.sweep import batched_riptrm_solve, init_state_from
+
+        medians = {}
+        for b in self.lanes:
+            xs = self.starts[b]
+            ys = torch.ones(b, self.problem.num_ineq, **self.f32)
+            self.start[b] = init_state_from(self.problem, self.option, xs, ys)
+            for fused in ((True, False) if b == self.lanes[0] else (True,)):
+                solve = batched_riptrm_solve(
+                    self.problem, self.option | {"use_fused_tcg": fused}, self.steps
+                )
+                before = k.launch_counts()[STIEFEL_KERNEL]
+                (st, steps, res), t = wall(lambda: solve(xs, ys), self.device)
+                launches = k.launch_counts()[STIEFEL_KERNEL] - before
+                med = float(torch.median(res))
+                medians[(b, fused)] = med
+                above = torch.nonzero(res > 1e-3).flatten().tolist()
+                lag = [self.stalled(float(res[i]), int(st.outer_iter[i])) for i in above]
+                orth = torch.linalg.matrix_norm(
+                    st.x.mT @ st.x - torch.eye(8, **self.f32)).max()
+                say(f"phase 7b batched_riptrm_solve St(128, 8) B={b} "
+                    f"{'fused' if fused else 'plain'} tCG: median residual {med:.3e}, "
+                    f"max {float(res.max()):.3e}, lanes above 1e-3 {above} "
+                    f"({sum(lag)} of them stalled at mu = 0.1), steps max "
+                    f"{int(steps.max())} median {float(steps.float().median()):.0f}, "
+                    f"kernel launches {launches}, {t:.3f} s ({t / b * 1e3:.2f} ms per solve), "
+                    f"max ||x'x - I|| {float(orth):.2e}")
+                check(bool(torch.all(torch.isfinite(res))), "sweep residuals not finite")
+                check(all(int(steps[i]) == self.steps for i in above),
+                      f"batched sweep B={b}: a lane stopped above residual 1e-3")
+                if fused:
+                    self.final[b] = st
+                    check(med <= 1e-3, f"batched sweep B={b}: median residual {med}")
+                    check(launches > 0, f"batched sweep B={b}: kernel not launched")
+        b = self.lanes[0]
+        say(f"phase 7b B={b} median residual: fused {medians[(b, True)]:.3e}, "
+            f"plain {medians[(b, False)]:.3e}")
+
+    # -- phase 8: timings --------------------------------------------------
+    def phase_timings(self):
+        """The kernel against its plain version on phase 4b's St(512, 32)
+        subproblem, then on the subproblems of the first and the last step
+        of the B = 1, 16 and 128 solves.  The JSON line keeps the last row:
+        B = 128, last step."""
+        from riptrm_torch.ops import kernels as k
+
+        wide, args = self.wide
+        rows = [("St(512, 32) B=16 phase 4b", wide, args)]
+        for b in ("single",) + tuple(self.lanes):
+            for when, st in (("first", self.start[b]), ("last", self.final[b])):
+                lanes = 1 if b == "single" else b
+                rows.append((f"St(128, 8) B={lanes} {when} step", self.problem,
+                             self.subproblem(st)))
+        for shape, problem, a in rows:
+            kw = self.tcg_kw(problem)
+            self.report.update(time_row(
+                STIEFEL_KERNEL, shape,
+                lambda a=a, kw=kw: k.fused_tcg_stiefel_bound_batched(*a, **kw),
+                lambda a=a, kw=kw: k.fused_tcg_stiefel_bound_plain(*a, **kw),
+                self.device,
+            ))
+
+
+def time_row(name, shape, kern, plain, device):
+    """CUDA-event medians of a kernel and its plain version, in the order
+    plain, kernel, kernel, plain; the two medians of each are averaged."""
+    p1, k1, k2, p2 = (event_ms(f, device) for f in (plain, kern, kern, plain))
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    iters = ""
+    if name != "chained_barrier_matvec":
+        it_k, it_p = int(kern()[2].max()), int(plain()[2].max())
+        iters = f", tCG iterations (max over lanes) kernel {it_k}, plain {it_p}"
+    say(f"phase 8 {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+        f"(CUDA-event medians; runs {k1:.4f}/{k2:.4f} and {p1:.4f}/{p2:.4f}){iters}")
+    return dict(ms=ms, plain_ms=plain_ms, shape=shape)
+
+
+def read_counts(path, names, report):
+    """Launch counts of ``path``'s run: each of its kernels must have run."""
+    from riptrm_torch.ops import kernels as k
+
+    counts = k.launch_counts()
+    say(f"{path} path launch counts {counts}")
+    for name in names:
+        check(counts[name] > 0, f"{name} was not launched on the {path} path")
+        report[name]["launches"] = counts[name]
 
 
 def nvidia_smi_line():
@@ -414,26 +722,34 @@ def main():
     smi = nvidia_smi_line()
 
     smoke = Smoke(device)
+    stiefel = StiefelSmoke(device)
+    report = smoke.report | {STIEFEL_KERNEL: stiefel.report}
     smoke.phase_k1()
     smoke.phase_k2()
     smoke.phase_k3()
+    stiefel.phase_kernel()
 
-    k.reset_launch_counts()  # the main path starts here
-    t_main = time.perf_counter()
+    k.reset_launch_counts()  # the NonnegPCA path starts here
+    t_path = time.perf_counter()
     smoke.phase_golden()
     smoke.phase_single()
     smoke.phase_sweep()
-    counts = k.launch_counts()
-    say(f"main path launch counts {counts}, {time.perf_counter() - t_main:.1f} s")
-    for name, n_launch in counts.items():
-        check(n_launch > 0, f"{name} was not launched on the main path")
-        smoke.report[name]["launches"] = n_launch
+    read_counts("NonnegPCA", SPHERE_KERNELS, report)
+    say(f"NonnegPCA path: {time.perf_counter() - t_path:.1f} s")
+
+    k.reset_launch_counts()  # the BoundedPCA path starts here
+    t_path = time.perf_counter()
+    stiefel.phase_golden()
+    stiefel.phase_single()
+    stiefel.phase_sweep()
+    read_counts("BoundedPCA", (STIEFEL_KERNEL,), report)
+    say(f"BoundedPCA path: {time.perf_counter() - t_path:.1f} s")
 
     smoke.phase_timings()
+    stiefel.phase_timings()
     kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         **smoke.report[name]}
-        for name in REPLACES
+        {"name": name, "route": "cuda", "source": src, "replaces": replaces, **report[name]}
+        for name, (src, replaces) in KERNELS.items()
     ]
     say(smi)
     say(json.dumps({"kernels": kernels}))

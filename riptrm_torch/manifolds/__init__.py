@@ -1,4 +1,5 @@
-from riptrm_torch.manifolds.base import Manifold
+from riptrm_torch.manifolds.base import Manifold, skew, sym
 from riptrm_torch.manifolds.sphere import Sphere
+from riptrm_torch.manifolds.stiefel import Stiefel
 
-__all__ = ["Manifold", "Sphere"]
+__all__ = ["Manifold", "Sphere", "Stiefel", "skew", "sym"]

@@ -6,9 +6,9 @@ independent solve per lane); every scalar-valued operation returns ``[B]``.
 The JAX package gets its lanes from ``vmap``; here they are written out,
 so one step function serves the host runner (B = 1) and the batched sweep.
 
-The closed-form tangent bases (``basis``/``to_coords``/``from_coords``) and
-``orthonormal_completion`` belong to exact mode and are not ported yet
-(ROADMAP.md queue 1, item 8).
+The closed-form tangent bases (``basis``/``to_coords``/``from_coords``),
+``orthonormal_completion`` and ``_skew_basis`` belong to exact mode and are
+not ported yet (ROADMAP.md queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -70,3 +70,13 @@ class Manifold:
 
     def random_tangent(self, x, generator: torch.Generator):
         raise NotImplementedError
+
+
+def sym(a):
+    """Symmetric part over the last two axes, e.g. of lane-batched [B, p, p]."""
+    return 0.5 * (a + a.mT)
+
+
+def skew(a):
+    """Skew-symmetric part over the last two axes."""
+    return 0.5 * (a - a.mT)

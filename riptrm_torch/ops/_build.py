@@ -1,7 +1,7 @@
 """Build and load the CUDA kernels of ``riptrm_torch/csrc``.
 
 At first use ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
-with a plain C interface, ``riptrm_torch/_build/sphere_tcg_<hash>.so``,
+with a plain C interface, ``riptrm_torch/_build/kernels_<hash>.so``,
 keyed by a hash of the sources and the flags, and ``ctypes`` loads it.
 Pointers and the stream are passed as ``c_void_p``, ints as ``c_int``.
 This takes seconds, where a build that includes PyTorch's headers takes
@@ -35,6 +35,9 @@ _SIGNATURES = {
     # zs, xs, ws, grads, corrs, radii, targets, flags, etas, hetas, stats,
     # b, n, maxinner, mininner, device, stream
     "sphere_tcg_launch": [_P] * 11 + [_I] * 5 + [_P],
+    # zs, d, xs, ws, ss, grads, radii, targets, flags, etas, hetas, stats,
+    # scratch, b, n, p, maxinner, mininner, mode, device, stream
+    "stiefel_tcg_launch": [_P] * 13 + [_I] * 7 + [_P],
 }
 
 
@@ -61,7 +64,7 @@ def library_path():
     for src in _sources():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
-    return os.path.join(BUILD_DIR, f"sphere_tcg_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"kernels_{h.hexdigest()[:16]}.so")
 
 
 def build():

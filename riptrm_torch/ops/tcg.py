@@ -28,24 +28,26 @@ def _safe_div(a, b):
     return a / torch.where(b == 0, torch.ones_like(b), b)
 
 
-def _col(s):
-    """[B] -> [B, 1] for broadcasting a per-lane scalar over a vector."""
-    return s[:, None]
-
-
 def truncated_cg(manifold, x, hess, grad, radius, *, theta=1.0, kappa=0.1,
                  mininner=1, maxinner=None):
     """Minimise m(eta) = <grad, eta> + 0.5 <eta, hess(eta)> s.t. ||eta|| <= radius,
     independently on each lane.
 
-    ``x``/``grad`` are [B, n], ``radius`` is [B] (or a scalar), ``hess`` maps
-    [B, n] -> [B, n].  Returns (eta [B, n], Heta [B, n], iterations [B],
-    stop_code [B]), the counts as int32.
+    ``x``/``grad`` are lane-batched points and tangents ``[B, ...]`` (``[B, n]``
+    on the sphere, ``[B, n, p]`` on Stiefel), ``radius`` is [B] (or a
+    scalar), ``hess`` maps tangents to tangents.  Returns (eta, Heta,
+    iterations [B], stop_code [B]), the counts as int32.
     """
     if maxinner is None:
         maxinner = manifold.dim
     inner = lambda u, v: manifold.inner(x, u, v)
     b = x.shape[0]
+    tail = (1,) * (x.ndim - 1)
+
+    def _col(s):
+        """[B] -> [B, 1, ...] for broadcasting a per-lane scalar over a point."""
+        return s.reshape(s.shape + tail)
+
     radius = torch.broadcast_to(torch.as_tensor(radius, dtype=grad.dtype,
                                                 device=grad.device), (b,))
     rad2 = radius**2

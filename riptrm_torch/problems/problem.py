@@ -1,9 +1,11 @@
 """Constrained Riemannian problem with stacked constraints, over lanes.
 
 Counterpart of ``riptrm_tpu/problems/problem.py``.  The user supplies
-per-lane functions (``cost_fn: [n] -> scalar``, ``ineq_fn: [n] -> [m]``,
-...); every method here takes lane-batched points ``[B, n]`` and maps the
-per-lane functions with ``torch.func.vmap``.  Derivatives come from
+per-lane functions of one point (``cost_fn: point -> scalar``,
+``ineq_fn: point -> [m]``, ...), where a point is a vector ``[n]`` on the
+sphere or a frame ``[n, p]`` on Stiefel; every method here takes
+lane-batched points ``[B, ...]`` and maps the per-lane functions with
+``torch.func.vmap``.  Constraint values are always flat, ``[B, m]``.  Derivatives come from
 ``torch.func.grad``/``vjp``/``jvp``.
 
 Sign conventions (as in the reference):
@@ -34,21 +36,21 @@ from riptrm_torch.manifolds.base import Manifold
 @dataclasses.dataclass(frozen=True)
 class Problem:
     manifold: Manifold
-    cost_fn: Callable[[torch.Tensor], torch.Tensor]  # per lane: [n] -> scalar
-    ineq_fn: Optional[Callable] = None  # per lane: [n] -> [m], feasible <= 0
-    eq_fn: Optional[Callable] = None  # per lane: [n] -> [l]
-    x0: Any = None  # [n]
+    cost_fn: Callable[[torch.Tensor], torch.Tensor]  # per lane: point -> scalar
+    ineq_fn: Optional[Callable] = None  # per lane: point -> [m], feasible <= 0
+    eq_fn: Optional[Callable] = None  # per lane: point -> [l]
+    x0: Any = None  # one point, [n] or [n, p]
     y0: Any = None  # [m]
     z0: Any = None  # [l]
     num_ineq: int = 0
     num_eq: int = 0
-    # Manifold-constraint violation per lane, [n] -> scalar (residual term)
+    # Manifold-constraint violation per lane, point -> scalar (residual term)
     manvio_fn: Optional[Callable] = None
     # Extra per-iteration metrics, (problem, x, y, z, eval_dict) -> eval_dict
     callback: Optional[Callable] = None
-    # Structure metadata for fused fast paths, e.g.
-    # {"kind": "sphere_quadratic", "Zs": <sym matrix>} routes the tCG to
-    # the hand-written kernels (ops/kernels.py).
+    # Structure metadata for fused fast paths: {"kind": "sphere_quadratic",
+    # "Zs": ...} or {"kind": "stiefel_bound", "Zs", "bound", "d"} routes the
+    # tCG to a hand-written kernel (ops/kernels.py).
     structure: Optional[dict] = None
 
     @property

@@ -4,8 +4,9 @@ mode with first-order stopping.
 Counterpart of ``riptrm_tpu/solvers/riptrm.py``.  As there, the inner x
 outer loop nest is one ``step``: an inner trust-region iteration whose
 "converged" branch also applies the outer barrier-parameter update.  The
-step acts on every lane of a ``RiptrmState`` at once (``x``/``y`` [B, n],
-per-lane scalars [B]); each lane follows exactly the JAX step's branches
+step acts on every lane of a ``RiptrmState`` at once (``x`` [B, n] on the
+sphere or [B, n, p] on Stiefel, ``y`` [B, m], per-lane scalars [B]); each
+lane follows exactly the JAX step's branches
 (``torch.where`` in place of ``jnp.where``).  The same step powers the host
 runner (``RIPTRM.run``, B = 1) and the fixed-budget loop
 (``solve_compiled``, any B; ``parallel/sweep.py``).
@@ -17,9 +18,11 @@ Not ported yet, and refused with ``NotImplementedError`` when asked for
 ``wandb_logging`` (item 12).  The defaults stay the JAX ones, so a caller
 passes ``TRS_solver='tCG'`` and ``second_order_stationarity=False``.
 
-``use_fused_tcg`` (the JAX ``use_pallas_tcg``) routes the tCG of a
-``sphere_quadratic`` problem to the fused kernels of ``ops/kernels.py``:
-K2 at B = 1, K3 at B > 1, on any n.
+``use_fused_tcg`` (the JAX ``use_pallas_tcg``) routes the tCG to a fused
+kernel by the problem's structure: a ``sphere_quadratic`` problem to
+``ops/kernels.py`` (K2 at B = 1, K3 at B > 1), a ``stiefel_bound`` problem
+to the Stiefel-bound kernel of the same module (one kernel for K4a and
+K4b, at every B).
 """
 
 from __future__ import annotations
@@ -107,7 +110,8 @@ def default_option():
         "const_right": 1e20,
         "checkTRSoptimality": False,
         # Run the whole tCG as one hand-written kernel when the problem
-        # carries sphere_quadratic structure (float32 inside).
+        # carries sphere_quadratic or stiefel_bound structure (float32
+        # inside).
         "use_fused_tcg": False,
         "compensated_reductions": False,
         "verbosity": 0,
@@ -153,7 +157,8 @@ def check_slice(option):
 
 @dataclasses.dataclass
 class RiptrmState:
-    """Solver state over lanes: vectors [B, n], scalars [B]."""
+    """Solver state over lanes: points [B, ...], multipliers [B, m],
+    scalars [B]."""
 
     x: torch.Tensor
     y: torch.Tensor
@@ -184,10 +189,12 @@ _INT_FIELDS = ("outer_iter", "inner_count")
 
 def state_from_numpy(d, device=None, dtype=None) -> RiptrmState:
     """Port's state from a dict of arrays, e.g. ``jax.device_get(state)
-    ._asdict()`` of a JAX ``RiptrmState``.  An unbatched state (``x`` [n])
-    becomes one lane; a vmapped one (``x`` [B, n]) keeps its lanes.  Float
-    fields take ``dtype`` (default: the dtype of ``x``)."""
-    batched = np.ndim(d["x"]) == 2
+    ._asdict()`` of a JAX ``RiptrmState``.  An unbatched state becomes one
+    lane; a vmapped one keeps its lanes.  Which it is follows from ``y``,
+    which is [m] or [B, m] whatever the point's rank (a vector [n] on the
+    sphere, a frame [n, p] on Stiefel).  Float fields take ``dtype``
+    (default: the dtype of ``x``)."""
+    batched = np.ndim(d["y"]) == 2
     if dtype is None:
         dtype = torch.from_numpy(np.array(d["x"])).dtype
     out = {}
@@ -268,16 +275,22 @@ def make_step(problem, option):
         mininner=option["tCG_mininner"],
         maxinner=dim,
     )
-    fused = bool(
-        option["use_fused_tcg"]
-        and problem.structure
-        and problem.structure.get("kind") == "sphere_quadratic"
-    )
+    kind = (problem.structure or {}).get("kind")
+    fused = kind if option["use_fused_tcg"] and kind in (
+        "sphere_quadratic", "stiefel_bound") else None
 
     def direction(x, y, c, hw, cx, tr_radius):
-        if not fused:
+        if fused is None:
             return truncated_cg(man, x, hw, cx, tr_radius, **tcg_kw)
         zs = problem.structure["Zs"]
+        if fused == "stiefel_bound":
+            # one kernel at every B (a single lane is B = 1, as in JAX)
+            d = problem.structure["d"]
+            ws, ss = kernels.stiefel_bound_pieces(zs, d, x, y, c)
+            dx, h_dx, it, code = kernels.fused_tcg_stiefel_bound_batched(
+                zs, d, x, ws, ss, cx, tr_radius, **tcg_kw
+            )
+            return dx.to(x.dtype), h_dx.to(x.dtype), it, code
         w = y / c
         if x.shape[0] == 1:
             dx, h_dx, it, code = kernels.fused_tcg_sphere_quadratic(

@@ -126,6 +126,7 @@ def test_cpu_tensors_take_the_plain_path(setup):
         "chained_barrier_matvec": 0,
         "fused_tcg_sphere_quadratic": 0,
         "fused_tcg_sphere_quadratic_batched": 0,
+        "fused_tcg_stiefel_bound_batched": 0,
     }
 
 
