@@ -2,21 +2,34 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths (RIPTRM, tCG mode, first-order stopping) on
-the card through their user entry points: NonnegPCA on the sphere at the
-size of the system's own benchmark, n = 1000, and BoundedPCA on St(128, 8)
-at the size of the JAX package's own chip sweeps.  Checks the four
-hand-written kernels (``riptrm_torch/csrc/sphere_tcg.cu``: K1-K3;
-``riptrm_torch/csrc/stiefel_tcg.cu``: the Stiefel-bound tCG) against their
-plain PyTorch versions.  One line per phase; a failed check raises and the
+Drives the port's three paths on the card through their user entry
+points: RIPTRM (tCG mode, first-order stopping) on NonnegPCA on the sphere
+at the size of the system's own benchmark, n = 1000, and on BoundedPCA on
+St(128, 8) at the size of the JAX package's own chip sweeps; and the
+roofline (``python -m riptrm_torch.experiment.roofline``) at its default
+shapes.  Checks the six hand-written kernels
+(``riptrm_torch/csrc/sphere_tcg.cu``: K1-K3;
+``riptrm_torch/csrc/stiefel_tcg.cu``: the Stiefel-bound tCG;
+``riptrm_torch/csrc/matvec_chain.cu``: K5 and K6) against their plain
+PyTorch versions.  One line per phase; a failed check raises and the
 script exits non-zero.  It refuses to run without CUDA.  The line before
 the last is a JSON object with one entry per kernel (launches on its path,
 error against the plain version, CUDA-event medians of kernel and plain
-version); the last line is ``{"ok": true, "device": {...}}``.
+version, the card's bound for the same work, the time of one PyTorch call
+computing the same product where there is one); the last line is
+``{"ok": true, "device": {...}}``.
 
 Phases:
   1. build the kernels with nvcc; the card's name and power limit;
   2. K1 chained_barrier_matvec (64 iterations) against its plain version;
+  2b. K5 bare_matvec_chain (64 passes) against its plain version on the
+     roofline's inputs: left [16, 1000] and [128, 1000] 'highest',
+     [16, 1000] 'high' and 'default'; right [128, 128] and [128, 1024]
+     'highest' in groups of 8 columns; then one pass in each precision,
+     left [16, 1000] and right [128, 1024], each nearer its own rounding
+     rule's plain version than the limit and further from the others';
+  2c. K6 chained_barrier_matvec_hbm (64 iterations) against its plain
+     version and K1's kernel at n = 1000, and at n = 4000 (Zs 64 MB);
   3. K2 fused tCG on one n = 1000 subproblem against its plain version;
   4. K3 batched fused tCG at B = 16 and B = 128, mixed radii;
   4b. the Stiefel-bound kernel at St(128, 8), B = 1, 16 and 128, and at
@@ -36,7 +49,14 @@ Phases:
   7b. batched_riptrm_solve at St(128, 8), B = 16 and B = 128, fused, and
      B = 16 with the plain tCG;
   -- launch counters read (the Stiefel-bound kernel) --
-  8. CUDA-event medians of each kernel and its plain version.
+  8. CUDA-event medians of each kernel and its plain version, each with
+     its bound (``riptrm_torch/experiment/roofline.py``'s accounting) and,
+     for K1, K5 and K6, K times one ``torch.matmul`` of an iteration's
+     product (TF32 off), timed beside the kernel only;
+  -- launch counters reset: the roofline path --
+  9. ``roofline.main`` at its default shapes (K3, K4, K5, and K6 at
+     n = 4000);
+  -- launch counters read (K3, K4, K5, K6; K5's and K6's are kept) --
 """
 
 from __future__ import annotations
@@ -45,7 +65,6 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -63,15 +82,43 @@ BPCA_GOLDEN_COST = -5.2090815
 PALLAS = "riptrm_tpu/ops/pallas_kernels.py"
 SPHERE_SRC = "riptrm_torch/csrc/sphere_tcg.cu"
 STIEFEL_SRC = "riptrm_torch/csrc/stiefel_tcg.cu"
+CHAIN_SRC = "riptrm_torch/csrc/matvec_chain.cu"
 # kernel -> (CUDA source, the TPU kernel(s) it replaces)
 KERNELS = {
     "chained_barrier_matvec": (SPHERE_SRC, f"{PALLAS}:747"),
     "fused_tcg_sphere_quadratic": (SPHERE_SRC, f"{PALLAS}:217"),
     "fused_tcg_sphere_quadratic_batched": (SPHERE_SRC, f"{PALLAS}:423"),
     "fused_tcg_stiefel_bound_batched": (STIEFEL_SRC, f"{PALLAS}:997, {PALLAS}:1237"),
+    "bare_matvec_chain": (CHAIN_SRC, f"{PALLAS}:600"),
+    "chained_barrier_matvec_hbm": (CHAIN_SRC, f"{PALLAS}:706"),
 }
 SPHERE_KERNELS = tuple(KERNELS)[:3]
 STIEFEL_KERNEL = "fused_tcg_stiefel_bound_batched"
+BARE_CHAIN, HBM_CHAIN = "bare_matvec_chain", "chained_barrier_matvec_hbm"
+TCG_KERNELS = SPHERE_KERNELS[1:] + (STIEFEL_KERNEL,)
+CHAIN_ITERS = 64
+# K5's checks over CHAIN_ITERS passes: (left, precision, rows or columns,
+# group), with max abs error limits on unit rows (entries ~0.03) or columns
+# (~0.09), a few times the largest error read on the card (PERF.md): the
+# same float32 products summed in another order ('highest', 'high'), or an
+# operand one float32 ulp apart in the two versions rounding to another
+# bf16 value ('default').
+K5_CASES = (
+    (True, "highest", 16, None), (True, "highest", 128, None),
+    (True, "high", 16, None), (True, "default", 16, None),
+    (False, "highest", 128, 8), (False, "highest", 1024, 8),
+)
+K5_LIMITS = {"highest": 1e-5, "high": 1e-4, "default": 3e-3}
+# Over many passes a chain contracts its rounding differences, so no limit
+# there separates the rounding rules ('default' lies about as far from
+# 'highest' as from another summation order of itself).  One pass does:
+# relative 2-norm, the same rule agrees to a few 1e-7, while 'high' is
+# ~4e-6 from 'highest' and 'default' ~2e-3 from both
+# (tests/test_torch_matvec_chain.py).  Each precision's one-pass output
+# must lie within ONE_PASS_REL of its own rule's plain version and beyond
+# it from the other two.
+ONE_PASS_CASES = ((True, 16, None), (False, 1024, 8))
+ONE_PASS_REL = 1e-6
 
 
 class SmokeFailure(AssertionError):
@@ -372,28 +419,29 @@ class Smoke:
         path poses at the first and at the last step of its solves (late
         steps run far more tCG iterations).  The JSON line keeps the last
         row of each kernel: the last step, and K3's largest batch."""
+        from riptrm_torch.experiment.roofline import chain_work, sphere_tcg_work
         from riptrm_torch.ops import kernels as k
 
-        dev = self.device
+        dev, n = self.device, self.n
         zs, x, w, v0 = self.chain_inputs()
-        rows = [
-            ("chained_barrier_matvec", f"n={self.n} K=64 at x0",
-             lambda: k.chained_barrier_matvec(zs, x, w, v0, 64),
-             lambda: k.chained_barrier_matvec_plain(zs, x, w, v0, 64)),
-        ]
+        self.report["chained_barrier_matvec"].update(time_row(
+            "chained_barrier_matvec", f"n={n} K={CHAIN_ITERS} at x0",
+            lambda: k.chained_barrier_matvec(zs, x, w, v0, CHAIN_ITERS),
+            lambda: k.chained_barrier_matvec_plain(zs, x, w, v0, CHAIN_ITERS),
+            dev, lambda out: chain_work(n, CHAIN_ITERS), lambda: torch.matmul(zs, v0)))
+        tcg_work = lambda out: sphere_tcg_work(n, torch.atleast_1d(out[2]).tolist())
         for b in ("single",) + tuple(self.lanes):
             for when, st in (("first", self.start[b]), ("last", self.final[b])):
                 a = self.subproblem(st)
                 if b == "single":
-                    name, shape = "fused_tcg_sphere_quadratic", f"n={self.n} B=1 {when} step"
+                    name, shape = "fused_tcg_sphere_quadratic", f"n={n} B=1 {when} step"
                     one = (a[0], a[1][0], a[2][0], a[3][0], a[4][0])
                     kern = lambda one=one: k.fused_tcg_sphere_quadratic(*one, **self.tcg_kw)
                 else:
-                    name, shape = "fused_tcg_sphere_quadratic_batched", f"n={self.n} B={b} {when} step"
+                    name, shape = "fused_tcg_sphere_quadratic_batched", f"n={n} B={b} {when} step"
                     kern = lambda a=a: k.fused_tcg_sphere_quadratic_batched(*a, **self.tcg_kw)
-                rows.append((name, shape, kern, lambda a=a: k.fused_tcg_plain(*a, **self.tcg_kw)))
-        for name, shape, kern, plain in rows:
-            self.report[name].update(time_row(name, shape, kern, plain, dev))
+                plain = lambda a=a: k.fused_tcg_plain(*a, **self.tcg_kw)
+                self.report[name].update(time_row(name, shape, kern, plain, dev, tcg_work))
 
 
 class StiefelSmoke:
@@ -643,6 +691,7 @@ class StiefelSmoke:
         subproblem, then on the subproblems of the first and the last step
         of the B = 1, 16 and 128 solves.  The JSON line keeps the last row:
         B = 128, last step."""
+        from riptrm_torch.experiment.roofline import stiefel_tcg_work
         from riptrm_torch.ops import kernels as k
 
         wide, args = self.wide
@@ -654,45 +703,186 @@ class StiefelSmoke:
                              self.subproblem(st)))
         for shape, problem, a in rows:
             kw = self.tcg_kw(problem)
+            n, p = problem.manifold.n, problem.manifold.p
             self.report.update(time_row(
                 STIEFEL_KERNEL, shape,
                 lambda a=a, kw=kw: k.fused_tcg_stiefel_bound_batched(*a, **kw),
                 lambda a=a, kw=kw: k.fused_tcg_stiefel_bound_plain(*a, **kw),
-                self.device,
+                self.device, lambda out, n=n, p=p: stiefel_tcg_work(n, p, out[2].tolist()),
             ))
 
 
-def time_row(name, shape, kern, plain, device):
+class ChainSmoke:
+    """K5 and K6 at the shapes and on the inputs of their path, the
+    roofline: K5 left on its sphere rows' Zs (n = 1000, a random symmetric
+    Z, on which 64 passes do not converge), right on its Stiefel rows'
+    St(128, 8) Zs in groups of p = 8 columns; K6 on the NonnegPCA chain at
+    x0 and on the roofline's n = 4000 chain."""
+
+    def __init__(self, smoke, hbm_n=4000):
+        from riptrm_torch.experiment.roofline import chain_case, sphere_case, stiefel_case
+
+        self.device, self.smoke = smoke.device, smoke
+        self.zs_left = sphere_case(smoke.n, 1, self.device)[0]
+        self.zs_right = stiefel_case(128, 1, 8, self.device)[0]
+        self.gen = torch.Generator(self.device).manual_seed(7)
+        self.hbm = chain_case(hbm_n, self.device)
+        self.report = {BARE_CHAIN: {}, HBM_CHAIN: {}}
+
+    def k5_case(self, left, vecs):
+        zs = self.zs_left if left else self.zs_right
+        n = zs.shape[0]
+        shape = (vecs, n) if left else (n, vecs)
+        v0 = torch.randn(shape, generator=self.gen, dtype=torch.float32, device=self.device)
+        return zs, v0
+
+    def phase_k5(self):
+        from riptrm_torch.ops import kernels as k
+
+        mae_all = 0.0
+        for left, precision, vecs, group in K5_CASES:
+            zs, v0 = self.k5_case(left, vecs)
+            out = k.bare_matvec_chain(zs, v0, CHAIN_ITERS, precision, left, group=group)
+            ref = k.bare_matvec_chain_plain(zs, v0, CHAIN_ITERS, precision, left)
+            sync(self.device)
+            mae = float(torch.max(torch.abs(out - ref)))
+            mae_all = max(mae_all, mae)
+            say(f"phase 2b K5 bare_matvec_chain {'left' if left else 'right'} "
+                f"{list(v0.shape)} {precision!r}{'' if group is None else f' group {group}'} "
+                f"K={CHAIN_ITERS}: max abs err {mae:.3e} (limit {K5_LIMITS[precision]:.0e})")
+            check(bool(torch.all(torch.isfinite(out))), "K5 output not finite")
+            check(mae <= K5_LIMITS[precision], f"K5 disagrees with its plain version: {mae}")
+        precisions = tuple(K5_LIMITS)
+        for left, vecs, group in ONE_PASS_CASES:
+            zs, v0 = self.k5_case(left, vecs)
+            plain = {p: k.bare_matvec_chain_plain(zs, v0, 1, p, left) for p in precisions}
+            for p in precisions:
+                out = k.bare_matvec_chain(zs, v0, 1, p, left, group=group)
+                sync(self.device)
+                errs = {q: rel_err(out, plain[q]) for q in precisions}
+                others = min(e for q, e in errs.items() if q != p)
+                say(f"phase 2b K5 one pass {'left' if left else 'right'} {list(v0.shape)} "
+                    f"{p!r}: rel err against the plain " + ", ".join(
+                        f"{q!r} {e:.3e}" for q, e in errs.items())
+                    + f" (own <= {ONE_PASS_REL:.0e} < others)")
+                check(errs[p] <= ONE_PASS_REL, f"K5 {p!r} one pass disagrees: {errs[p]}")
+                check(others > ONE_PASS_REL, f"K5 {p!r} one pass follows another rounding rule")
+        self.report[BARE_CHAIN]["max_abs_err"] = mae_all
+
+    def phase_k6(self):
+        from riptrm_torch.ops import kernels as k
+
+        mae_all = 0.0
+        cases = (("n=%d at x0" % self.smoke.n, self.smoke.chain_inputs(), True),
+                 ("n=%d" % self.hbm[0].shape[0], self.hbm, False))
+        for label, args, against_k1 in cases:
+            out = k.chained_barrier_matvec_hbm(*args, CHAIN_ITERS)
+            refs = [("plain", k.chained_barrier_matvec_plain(*args, CHAIN_ITERS))]
+            if against_k1:
+                refs.append(("K1's kernel", k.chained_barrier_matvec(*args, CHAIN_ITERS)))
+            sync(self.device)
+            check(bool(torch.all(torch.isfinite(out))), "K6 output not finite")
+            for what, ref in refs:
+                err, mae = rel_err(out, ref), float(torch.max(torch.abs(out - ref)))
+                mae_all = max(mae_all, mae)
+                say(f"phase 2c K6 chained_barrier_matvec_hbm {label} K={CHAIN_ITERS} against "
+                    f"{what}: rel 2-norm err {err:.3e}, max abs err {mae:.3e} (limit 1e-3 rel)")
+                check(err <= 1e-3, f"K6 disagrees with {what}: {err}")
+        self.report[HBM_CHAIN]["max_abs_err"] = mae_all
+
+    def phase_timings(self):
+        """K5 at the roofline's matvec shapes, 'highest'; K6 at n = 1000 and
+        at n = 4000.  The JSON line keeps the last row of each."""
+        from riptrm_torch.experiment.roofline import bare_chain_work, chain_work
+        from riptrm_torch.ops import kernels as k
+
+        dev = self.device
+        for left, vecs, group in ((True, 16, None), (True, 128, None), (False, 128, 8),
+                                  (False, 1024, 8)):
+            zs, v0 = self.k5_case(left, vecs)
+            n = zs.shape[0]
+            self.report[BARE_CHAIN].update(time_row(
+                BARE_CHAIN, f"{'left' if left else 'right'} {list(v0.shape)} 'highest'"
+                f"{'' if group is None else f' group {group}'} K={CHAIN_ITERS}",
+                lambda zs=zs, v0=v0, left=left, group=group: k.bare_matvec_chain(
+                    zs, v0, CHAIN_ITERS, "highest", left, group=group),
+                lambda zs=zs, v0=v0, left=left: k.bare_matvec_chain_plain(
+                    zs, v0, CHAIN_ITERS, "highest", left),
+                dev, lambda out, n=n, vecs=vecs: bare_chain_work(n, vecs, CHAIN_ITERS),
+                (lambda zs=zs, v0=v0: torch.matmul(v0, zs)) if left
+                else (lambda zs=zs, v0=v0: torch.matmul(zs, v0))))
+        for args in (self.smoke.chain_inputs(), self.hbm):
+            zs, v0, n = args[0], args[3], args[0].shape[0]
+            self.report[HBM_CHAIN].update(time_row(
+                HBM_CHAIN, f"n={n} K={CHAIN_ITERS}",
+                lambda args=args: k.chained_barrier_matvec_hbm(*args, CHAIN_ITERS),
+                lambda args=args: k.chained_barrier_matvec_plain(*args, CHAIN_ITERS),
+                dev, lambda out, n=n: chain_work(n, CHAIN_ITERS),
+                lambda zs=zs, v0=v0: torch.matmul(zs, v0)))
+
+
+def phase_roofline(report):
+    """Phase 9: the roofline entry point at its default shapes."""
+    from riptrm_torch.experiment import roofline
+    from riptrm_torch.ops import kernels as k
+
+    k.reset_launch_counts()  # the roofline path starts here
+    t0 = time.perf_counter()
+    rows = roofline.main([])
+    for row in rows:
+        pct = (f"{row['pct_of_bare_matvec_chain']:.1f} % of the bare chain, "
+               if "pct_of_bare_matvec_chain" in row else "")
+        say(f"phase 9 roofline {row['kernel']} n={row['n']}"
+            f"{'' if 'B' not in row else ' B=%d' % row['B']}: {pct}"
+            f"{row['pct_of_bound']:.2f} % of its bound ({row['bound_by']}), "
+            f"{row['achieved_tflops']:.3f} TFLOP/s")
+        check(all(math.isfinite(v) for v in row.values() if isinstance(v, float)),
+              "roofline row not finite")
+        if "mean_tcg_iters_per_call" in row:
+            check(row["mean_tcg_iters_per_call"] > 0, "roofline row ran no tCG iteration")
+    read_counts("roofline", ("fused_tcg_sphere_quadratic_batched", STIEFEL_KERNEL, BARE_CHAIN,
+                             HBM_CHAIN), report, keep=(BARE_CHAIN, HBM_CHAIN))
+    say(f"roofline path: {len(rows)} rows, {time.perf_counter() - t0:.1f} s")
+
+
+def time_row(name, shape, kern, plain, device, work, library_step=None):
     """CUDA-event medians of a kernel and its plain version, in the order
-    plain, kernel, kernel, plain; the two medians of each are averaged."""
+    plain, kernel, kernel, plain; the two medians of each are averaged.
+    ``work(out)`` gives the (operations, bytes) of the kernel's call from
+    its output (a tCG call's work follows its lanes' iterations), whence
+    the card's bound; ``library_step`` is one PyTorch call computing an
+    iteration's product, timed CHAIN_ITERS times over for ``library_ms``."""
+    from riptrm_torch.experiment.roofline import roofline_bound
+
     p1, k1, k2, p2 = (event_ms(f, device) for f in (plain, kern, kern, plain))
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    out = kern()
+    bound_us, bound_by = roofline_bound(*work(out))
+    library_ms = None if library_step is None else CHAIN_ITERS * event_ms(library_step, device)
     iters = ""
-    if name != "chained_barrier_matvec":
-        it_k, it_p = int(kern()[2].max()), int(plain()[2].max())
+    if name in TCG_KERNELS:
+        it_k, it_p = int(out[2].max()), int(plain()[2].max())
         iters = f", tCG iterations (max over lanes) kernel {it_k}, plain {it_p}"
+    library = "none" if library_ms is None else f"{library_ms:.4f} ms"
     say(f"phase 8 {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-        f"(CUDA-event medians; runs {k1:.4f}/{k2:.4f} and {p1:.4f}/{p2:.4f}){iters}")
-    return dict(ms=ms, plain_ms=plain_ms, shape=shape)
+        f"(CUDA-event medians; runs {k1:.4f}/{k2:.4f} and {p1:.4f}/{p2:.4f}), bound "
+        f"{bound_us:.3f} us ({bound_by}), library {library}{iters}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_us / 1e3, bound_us=bound_us,
+                bound_by=bound_by, library_ms=library_ms, shape=shape)
 
 
-def read_counts(path, names, report):
-    """Launch counts of ``path``'s run: each of its kernels must have run."""
+def read_counts(path, names, report, keep=None):
+    """Launch counts of ``path``'s run: each of its kernels must have run.
+    The report keeps the counts of ``keep`` (default: all of ``names``), the
+    kernels whose main path this is."""
     from riptrm_torch.ops import kernels as k
 
     counts = k.launch_counts()
     say(f"{path} path launch counts {counts}")
     for name in names:
         check(counts[name] > 0, f"{name} was not launched on the {path} path")
+    for name in names if keep is None else keep:
         report[name]["launches"] = counts[name]
-
-
-def nvidia_smi_line():
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return proc.stdout.strip().splitlines()[0]
 
 
 def main():
@@ -703,7 +893,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from riptrm_torch.ops import _build
     from riptrm_torch.ops import kernels as k
-    from riptrm_torch.utils.devices import cuda_device
+    from riptrm_torch.utils.devices import cuda_device, name_and_power_limit
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -719,12 +909,15 @@ def main():
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
-    smi = nvidia_smi_line()
+    smi = name_and_power_limit()
 
     smoke = Smoke(device)
     stiefel = StiefelSmoke(device)
-    report = smoke.report | {STIEFEL_KERNEL: stiefel.report}
+    chains = ChainSmoke(smoke)
+    report = smoke.report | {STIEFEL_KERNEL: stiefel.report} | chains.report
     smoke.phase_k1()
+    chains.phase_k5()
+    chains.phase_k6()
     smoke.phase_k2()
     smoke.phase_k3()
     stiefel.phase_kernel()
@@ -747,6 +940,8 @@ def main():
 
     smoke.phase_timings()
     stiefel.phase_timings()
+    chains.phase_timings()
+    phase_roofline(report)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces, **report[name]}
         for name, (src, replaces) in KERNELS.items()

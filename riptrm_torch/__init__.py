@@ -2,19 +2,22 @@
 
 The JAX package ``riptrm_tpu`` is the reference; this package mirrors its
 layout and names (``manifolds``, ``problems``, ``ops``, ``solvers``,
-``parallel``, ``utils``) so each module's counterpart sits under the same
-path.  Ported so far: the RIPTRM tCG main path on NonnegPCA (sphere,
-first-order stopping), with hand-written Hopper kernels for the three
-sphere-quadratic Pallas kernels (``ops/kernels.py``, ``csrc/``).
+``parallel``, ``experiment``, ``utils``) so each module's counterpart sits
+under the same path.  Ported so far: the RIPTRM tCG path (first-order
+stopping) on NonnegPCA (sphere) and BoundedPCA (Stiefel), and the roofline
+entry point, with a hand-written Hopper kernel for every Pallas kernel of
+the JAX package (``ops/kernels.py``, ``csrc/``).
 
 Conventions:
 
 * Solver states and manifold points carry a leading lane axis: ``x`` and
   ``y`` are ``[B, n]``, per-lane scalars are ``[B]``.  The host runner uses
   B = 1, the batched sweep B > 1; one step function serves both.
-* Every constructor takes an explicit ``device`` and ``dtype``; random draws
-  take an explicit ``torch.Generator``.  The package never picks a device on
-  its own and never imports JAX.
+* Every constructor takes ``device`` and ``dtype``: by default CUDA device
+  0 and float64 (``config.resolve``), which raises where CUDA is absent,
+  never falling back to the CPU; pass ``device="cpu"`` for the CPU.  Random
+  draws take an explicit ``torch.Generator``.  The package never imports
+  JAX.
 * Nothing is compiled at import time: the CUDA kernels are built with
   ``nvcc`` at their first launch on a CUDA tensor (``ops/_build.py``).
 """

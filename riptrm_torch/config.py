@@ -2,8 +2,10 @@
 
 There is no global configuration: every entry point takes ``device`` and
 ``dtype``.  The defaults are the reference protocol's float64 (tolerances
-down to 1e-15) on the CPU; a caller that wants the card passes
-``device="cuda"`` (``utils/devices.py::cuda_device``).
+down to 1e-15) on the card: ``device=None`` means CUDA device 0
+(``utils/devices.py::cuda_device``), and raises where CUDA is absent; it
+never falls back to the CPU.  A caller that wants the CPU, as the tests
+do, passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -11,21 +13,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from riptrm_torch.utils.devices import cuda_device
+
 DEFAULT_DTYPE = torch.float64
-DEFAULT_DEVICE = torch.device("cpu")
 
 
 def resolve(dtype=None, device=None):
-    """(dtype, device) with the package defaults filled in."""
+    """(dtype, device) with the package defaults filled in: float64, and
+    CUDA device 0 (raises without CUDA)."""
     return (
         DEFAULT_DTYPE if dtype is None else dtype,
-        DEFAULT_DEVICE if device is None else torch.device(device),
+        cuda_device() if device is None else torch.device(device),
     )
 
 
 def as_tensor(a, dtype=None, device=None) -> torch.Tensor:
     """numpy array, tensor or nested list -> tensor of the given dtype and
-    device (float64 on the CPU by default; a tensor keeps its own dtype and
+    device (float64 on the card by default; a tensor keeps its own dtype and
     device unless they are given)."""
     if isinstance(a, torch.Tensor):
         return a.to(

@@ -17,6 +17,8 @@ import dataclasses
 
 import torch
 
+from riptrm_torch.config import resolve
+
 
 @dataclasses.dataclass(frozen=True)
 class Manifold:
@@ -70,6 +72,16 @@ class Manifold:
 
     def random_tangent(self, x, generator: torch.Generator):
         raise NotImplementedError
+
+
+def randn_on(generator, shape, dtype=None, device=None):
+    """Standard normal draws of ``shape`` from ``generator``, on ``device``
+    (default: the card, ``config.resolve``).  The draw is made on the
+    generator's own device and then moved, since a CPU generator cannot
+    feed a CUDA draw."""
+    dtype, device = resolve(dtype, device)
+    return torch.randn(shape, generator=generator, dtype=dtype,
+                       device=generator.device).to(device)
 
 
 def sym(a):

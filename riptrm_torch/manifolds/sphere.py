@@ -11,8 +11,7 @@ import math
 
 import torch
 
-from riptrm_torch.config import resolve
-from riptrm_torch.manifolds.base import Manifold
+from riptrm_torch.manifolds.base import Manifold, randn_on
 
 
 def _dot(u, v):
@@ -51,8 +50,7 @@ class Sphere(Manifold):
         return self.proj(x, ehess) - _dot(x, egrad)[..., None] * v
 
     def random_point(self, generator, lanes=1, *, dtype=None, device=None):
-        dtype, device = resolve(dtype, device)
-        v = torch.randn(lanes, self.n, generator=generator, dtype=dtype, device=device)
+        v = randn_on(generator, (lanes, self.n), dtype, device)
         return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
 
     def random_tangent(self, x, generator):

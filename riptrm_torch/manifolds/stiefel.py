@@ -14,8 +14,7 @@ import math
 
 import torch
 
-from riptrm_torch.config import resolve
-from riptrm_torch.manifolds.base import Manifold, sym
+from riptrm_torch.manifolds.base import Manifold, randn_on, sym
 
 
 def _frob(u, v):
@@ -66,9 +65,7 @@ class Stiefel(Manifold):
         return self.proj(x, ehess - v @ sym(x.mT @ egrad))
 
     def random_point(self, generator, lanes=1, *, dtype=None, device=None):
-        dtype, device = resolve(dtype, device)
-        a = torch.randn(lanes, self.n, self.p, generator=generator, dtype=dtype,
-                        device=device)
+        a = randn_on(generator, (lanes, self.n, self.p), dtype, device)
         q, _ = torch.linalg.qr(a)
         return q
 

@@ -38,6 +38,15 @@ _SIGNATURES = {
     # zs, d, xs, ws, ss, grads, radii, targets, flags, etas, hetas, stats,
     # scratch, b, n, p, maxinner, mininner, mode, device, stream
     "stiefel_tcg_launch": [_P] * 13 + [_I] * 7 + [_P],
+    # zt, v0, out, r, n, n_iters, prec, device, stream
+    "matvec_chain_left_launch": [_P] * 3 + [_I] * 5 + [_P],
+    # zt, v0, out, n, c, g, n_iters, prec, zs_shared, device, stream
+    "matvec_chain_right_launch": [_P] * 3 + [_I] * 7 + [_P],
+    # n, device -> grid (or minus a CUDA error code)
+    "chain_hbm_grid": [_I] * 2,
+    # zs, x, w, v0, corr, hv scratch, partial scratch, out, n, n_iters, grid,
+    # device, stream
+    "chain_hbm_launch": [_P] * 8 + [_I] * 4 + [_P],
 }
 
 

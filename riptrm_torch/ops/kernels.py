@@ -1,10 +1,11 @@
-"""The fused-tCG kernels: wrappers, plain versions, launch counters.
+"""The hand-written kernels: wrappers, plain versions, launch counters.
 
-Counterparts of the Pallas kernels the RIPTRM tCG paths run in
-``riptrm_tpu/ops/pallas_kernels.py``.  The CUDA sources are
-``riptrm_torch/csrc/sphere_tcg.cu`` (the sphere-quadratic kernels below)
-and ``riptrm_torch/csrc/stiefel_tcg.cu`` (the Stiefel-bound kernel, at the
-end of this module), built into one library by ``ops/_build.py``.
+Counterparts of the Pallas kernels of ``riptrm_tpu/ops/pallas_kernels.py``.
+The CUDA sources are ``riptrm_torch/csrc/sphere_tcg.cu`` (the
+sphere-quadratic kernels), ``riptrm_torch/csrc/stiefel_tcg.cu`` (the
+Stiefel-bound kernel) and ``riptrm_torch/csrc/matvec_chain.cu`` (the two
+chains at the end of this module), built into one library by
+``ops/_build.py``.
 
 * ``chained_barrier_matvec`` replaces ``chained_barrier_matvec``
   (``_chain_kernel``): K normalised barrier-Hessian applications.
@@ -18,6 +19,12 @@ end of this module), built into one library by ``ops/_build.py``.
   ``pallas_tcg_stiefel_bound_batched`` (K4a, lane-major) and
   ``pallas_tcg_stiefel_bound_batched_pmajor`` (K4b, p-major), which compute
   one function in two TPU layouts: the whole tCG of B lanes on St(n, p).
+* ``bare_matvec_chain`` replaces ``bare_matvec_chain``
+  (``_bare_chain_kernel``, K5): K normalised batched matvecs and nothing
+  else, the roofline's denominator (``experiment/roofline.py``).
+* ``chained_barrier_matvec_hbm`` replaces ``chained_barrier_matvec_hbm``
+  (``_chain_hbm_kernel``, K6): K1's function on a cooperative grid, for an
+  n whose Zs lies beyond the L2.
 
 K2 and K3 are one CUDA kernel (one CTA per lane), K2 being its launch at
 B = 1; each keeps its own wrapper and counter.  What bounds them on an H100
@@ -388,11 +395,164 @@ def fused_tcg_stiefel_bound_batched(zs, d, xs, ws, ss, grads, radii, *, maxinner
 
 fused_tcg_stiefel_bound_batched.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# K5: bare matvec chain
+# ---------------------------------------------------------------------------
+PRECISIONS = {"highest": 0, "high": 1, "default": 2}
+# Threads of a CTA of the right-orientation chain (csrc/matvec_chain.cu);
+# a group has at most this many columns.
+MATVEC_RIGHT_THREADS = 256
+
+
+def bf16_round(a):
+    """float32 values rounded to bfloat16 (nearest even), as float32."""
+    return a.to(torch.bfloat16).to(torch.float32)
+
+
+def _check_chain(zs, v, precision, left):
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {sorted(PRECISIONS)}, got {precision!r}")
+    n = zs.shape[0]
+    if zs.shape != (n, n) or v.ndim != 2 or v.shape[1 if left else 0] != n:
+        raise ValueError(f"shape mismatch: zs {tuple(zs.shape)}, v0 {tuple(v.shape)}, "
+                         f"left={left}")
+
+
+def bare_matvec_chain_plain(zs, v0, n_iters: int, precision: str = "high",
+                            left: bool = True):
+    """Plain version of K5: ``n_iters`` passes of v <- v @ Z (``left``, v
+    [r, n]) or v <- Z @ v (v [n, c]), each row (left) or column then divided
+    by sqrt(sum w^2 + 1e-30).  ``precision`` rounds the operands as the TPU
+    does: 'highest' full float32, 'high' the bf16x3 split hi*hi + hi*lo +
+    lo*hi, 'default' one product of bf16-rounded operands; the products are
+    float32 matmuls (TF32 must be off on the card).  Returns float32."""
+    zs, v = _f32(zs, v0)
+    _check_chain(zs, v, precision, left)
+    mm = (lambda a, b: a @ b) if left else (lambda a, b: b @ a)  # a from v, b from Z
+    z_hi = bf16_round(zs)
+    z_lo = bf16_round(zs - z_hi)
+    for _ in range(n_iters):
+        if precision == "highest":
+            w = mm(v, zs)
+        elif precision == "default":
+            w = mm(bf16_round(v), z_hi)
+        else:
+            v_hi = bf16_round(v)
+            v_lo = bf16_round(v - v_hi)
+            w = mm(v_hi, z_hi) + mm(v_hi, z_lo) + mm(v_lo, z_hi)
+        w2 = torch.sum(w * w, dim=1 if left else 0, keepdim=True)
+        v = w / torch.sqrt(w2 + 1e-30)
+    return v
+
+
+def matvec_right_plan(n: int, g: int):
+    """(Z in shared memory?, dynamic shared-memory bytes) of K5's right
+    orientation, one CTA per group of g columns: Z' (n^2 floats) beside the
+    group's V and W (2 n g) and g norms when they fit, else the group alone
+    with Z' read through L2.  Raises when even the group does not fit."""
+    group = 2 * n * g + g
+    if (n * n + group) * 4 <= MAX_SMEM_BYTES:
+        return True, (n * n + group) * 4
+    if group * 4 <= MAX_SMEM_BYTES:
+        return False, group * 4
+    raise ValueError(f"n={n}, g={g}: a group of columns ({group * 4} bytes) exceeds the "
+                     f"{MAX_SMEM_BYTES} bytes of shared memory a block may use")
+
+
+def bare_matvec_chain(zs, v0, n_iters: int, precision: str = "high", left: bool = True,
+                      *, group=None):
+    """K normalised batched matvecs and nothing else (see the plain
+    version): ``zs`` [n, n], ``v0`` [r, n] (``left``) or [n, c].  Returns
+    float32 of v0's shape.
+
+    Left runs one CTA per row; right one CTA per ``group`` columns (default
+    min(c, 32); the roofline passes p, one lane's frame).  ``group`` sets
+    only how the work is cut, never the result."""
+    if not _on_card(zs, v0):
+        return bare_matvec_chain_plain(zs, v0, n_iters, precision, left)
+    zs, v0 = _f32(zs, v0)
+    _check_chain(zs, v0, precision, left)
+    zt = zs.mT.contiguous()  # the kernels read Z' row-wise (== Zs when symmetric)
+    out = torch.empty_like(v0)
+    if v0.numel() == 0:
+        return out
+    lib = _build.load()
+    dev = v0.device
+    if left:
+        r, n = v0.shape
+        _check_smem(n, 2)
+        err = lib.matvec_chain_left_launch(
+            _ptr(zt), _ptr(v0), _ptr(out), r, n, int(n_iters), PRECISIONS[precision],
+            dev.index or 0, _stream(dev),
+        )
+    else:
+        n, c = v0.shape
+        g = min(c, 32) if group is None else int(group)
+        if not 1 <= g <= min(c, MATVEC_RIGHT_THREADS):
+            raise ValueError(f"group must be in [1, {min(c, MATVEC_RIGHT_THREADS)}], got {g}")
+        zs_shared, _ = matvec_right_plan(n, g)
+        err = lib.matvec_chain_right_launch(
+            _ptr(zt), _ptr(v0), _ptr(out), n, c, g, int(n_iters), PRECISIONS[precision],
+            int(zs_shared), dev.index or 0, _stream(dev),
+        )
+    _build.check(lib, err, "bare_matvec_chain")
+    bare_matvec_chain.launches += 1
+    return out
+
+
+bare_matvec_chain.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: chained barrier-Hessian matvec with Zs beyond the L2
+# ---------------------------------------------------------------------------
+def chained_barrier_matvec_hbm(zs, x, y_over_c, v0, n_iters: int):
+    """K1's function (``chained_barrier_matvec``; its plain version is this
+    one's) for an n whose Zs does not fit near one SM: on the H100, Zs
+    above the 50 MB L2, n >= ~3600 in float32.
+
+    ``zs`` [n, n] (symmetric); ``x``, ``y_over_c``, ``v0`` [n].  Returns [n]
+    float32.  The TPU function's ``block`` (a VMEM budget for its streaming
+    buffers, from ``pick_hbm_block``) and its padding of n to a multiple of
+    128 have no counterpart: a cooperative grid of as many CTAs as are
+    co-resident (at most one warp per row), each owning a contiguous slice
+    of Zs's rows, streams Zs from device memory with two grid-wide steps
+    per iteration (csrc/matvec_chain.cu)."""
+    if not _on_card(zs, x, y_over_c, v0):
+        return chained_barrier_matvec_plain(zs, x, y_over_c, v0, n_iters)
+    zs, x, w, v0 = _f32(zs, x, y_over_c, v0)
+    n = x.shape[0]
+    if zs.shape != (n, n) or w.shape != (n,) or v0.shape != (n,):
+        raise ValueError("chained_barrier_matvec_hbm: shape mismatch")
+    _check_smem(n, 2)
+    corr = barrier_corr(zs, x[None], w[None]).contiguous()
+    lib = _build.load()
+    dev = x.device.index or 0
+    g = lib.chain_hbm_grid(n, dev)
+    if g <= 0:
+        _build.check(lib, -g, "chained_barrier_matvec_hbm grid")
+    hv = torch.empty_like(x)
+    partial = torch.empty(3 * g, dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    err = lib.chain_hbm_launch(
+        _ptr(zs), _ptr(x), _ptr(w), _ptr(v0), _ptr(corr), _ptr(hv), _ptr(partial), _ptr(out),
+        n, int(n_iters), g, dev, _stream(x.device),
+    )
+    _build.check(lib, err, "chained_barrier_matvec_hbm")
+    chained_barrier_matvec_hbm.launches += 1
+    return out
+
+
+chained_barrier_matvec_hbm.launches = 0
+
 KERNEL_WRAPPERS = (
     chained_barrier_matvec,
     fused_tcg_sphere_quadratic,
     fused_tcg_sphere_quadratic_batched,
     fused_tcg_stiefel_bound_batched,
+    bare_matvec_chain,
+    chained_barrier_matvec_hbm,
 )
 
 

@@ -34,6 +34,7 @@ import math
 import numpy as np
 import torch
 
+from riptrm_torch.config import resolve
 from riptrm_torch.ops import kernels
 from riptrm_torch.ops.kkt import compute_residual, evaluation
 from riptrm_torch.ops.tcg import truncated_cg
@@ -193,10 +194,12 @@ def state_from_numpy(d, device=None, dtype=None) -> RiptrmState:
     lane; a vmapped one keeps its lanes.  Which it is follows from ``y``,
     which is [m] or [B, m] whatever the point's rank (a vector [n] on the
     sphere, a frame [n, p] on Stiefel).  Float fields take ``dtype``
-    (default: the dtype of ``x``)."""
+    (default: the dtype of ``x``); every field lands on ``device`` (default:
+    the card, ``config.resolve``)."""
     batched = np.ndim(d["y"]) == 2
     if dtype is None:
         dtype = torch.from_numpy(np.array(d["x"])).dtype
+    _, device = resolve(dtype, device)
     out = {}
     for f in dataclasses.fields(RiptrmState):
         a = np.array(d[f.name])  # a writable copy

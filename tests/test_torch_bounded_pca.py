@@ -48,7 +48,7 @@ def both():
     """Both problems at point a, and two lanes: point a and a second
     feasible frame, with multipliers, a tangent and a constraint-space
     vector per lane."""
-    jp, tp = jb.load_problem(DATA, "a"), tb.load_problem(DATA, "a")
+    jp, tp = jb.load_problem(DATA, "a"), tb.load_problem(DATA, "a", device="cpu")
     n, p = jp.manifold.n, jp.manifold.p
     rng = np.random.default_rng(0)
     while True:
@@ -118,7 +118,7 @@ def test_problem_data_and_structure(both):
     np.testing.assert_array_equal(tp.y0.numpy(), np.asarray(jp.y0))
     # custom weights and the default y0 = 1
     z = tp.structure["Zs"].numpy()
-    tw = tb.make_problem(z, tp.x0.numpy(), weights=[3.0, 2.0, 1.0])
+    tw = tb.make_problem(z, tp.x0.numpy(), weights=[3.0, 2.0, 1.0], device="cpu")
     jw = jb.make_problem(z, np.asarray(jp.x0), weights=[3.0, 2.0, 1.0])
     np.testing.assert_array_equal(tw.structure["d"].numpy(), np.asarray(jw.structure["d"]))
     np.testing.assert_array_equal(tw.y0.numpy(), np.asarray(jw.y0))
@@ -127,15 +127,16 @@ def test_problem_data_and_structure(both):
 def test_generators():
     """The JAX generators' construction and refusals (the draws differ)."""
     g = torch.Generator().manual_seed(0)
-    z = tb.generate_instance(g, 24)["Z"]
+    z = tb.generate_instance(g, 24, device="cpu")["Z"]
     assert z.shape == (24, 24) and z.dtype == torch.float64
-    x0 = tb.generate_initialpoint(g, 24, 3, bound=0.6)
+    x0 = tb.generate_initialpoint(g, 24, 3, bound=0.6, device="cpu")
     np.testing.assert_allclose((x0.T @ x0).numpy(), np.eye(3), atol=1e-12)
     assert float(torch.abs(x0).max()) <= 0.6 - 0.05
     with pytest.raises(ValueError, match="no orthonormal frame"):
-        tb.generate_initialpoint(g, 16, 2, bound=0.3)
+        tb.generate_initialpoint(g, 16, 2, bound=0.3, device="cpu")
     with pytest.raises(ValueError, match="no feasible start"):
-        tb.generate_initialpoint(g, 16, 2, bound=0.33, margin=0.0, max_draws=3)
+        tb.generate_initialpoint(g, 16, 2, bound=0.33, margin=0.0, max_draws=3,
+                                   device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -159,7 +160,7 @@ def test_make_step_matches_jax(both, start):
     j_new, j_info = jstep(st)
     j_new, j_info = jax.device_get(j_new)._asdict(), jax.device_get(j_info)
 
-    t_state = trm.state_from_numpy(d)  # an unbatched [n, p] state: one lane
+    t_state = trm.state_from_numpy(d, device="cpu")  # an unbatched [n, p] state: one lane
     assert t_state.x.shape == (1, 30, 3) and t_state.y.shape == (1, 180)
     t_new, t_info = trm.make_step(tp, trm.RIPTRM(GOLDEN).option)(t_state)
     assert set(t_info) == set(j_info)
@@ -190,7 +191,7 @@ def test_golden_run_tracks_jax(point):
     and the same residual at each to rtol 1e-6 while it is above 1e-6.
     Below that the trajectory is roundoff-sensitive, as on NonnegPCA
     (ROADMAP.md queue 3), so those rows are held to rtol 1e-2."""
-    jp, tp = jb.load_problem(DATA, point), tb.load_problem(DATA, point)
+    jp, tp = jb.load_problem(DATA, point), tb.load_problem(DATA, point, device="cpu")
     j_out, t_out = jrm.RIPTRM(GOLDEN).run(jp), trm.RIPTRM(GOLDEN).run(tp)
     assert t_out.log["residual"][-1] <= 1e-8
     assert t_out.log["cost"][-1] == pytest.approx(GOLDEN_COST, abs=1e-6)
@@ -212,7 +213,7 @@ def test_golden_run_tracks_jax(point):
 def test_golden_run_fused_route(point):
     """``use_fused_tcg``: the Stiefel-bound kernel's plain version (float32
     tCG inside the float64 solve) reaches the same solution."""
-    tp = tb.load_problem(DATA, point)
+    tp = tb.load_problem(DATA, point, device="cpu")
     out = trm.RIPTRM(GOLDEN | {"use_fused_tcg": True}).run(tp)
     assert out.log["residual"][-1] <= 1e-8
     assert out.log["cost"][-1] == pytest.approx(GOLDEN_COST, abs=1e-6)
@@ -232,7 +233,7 @@ def test_batched_sweep_matches_per_lane_solves():
         for i in range(b)
     ])
     ys = np.ones((b, 2 * n * p))
-    tp = tb.make_problem(z, xs[0], bound=bound)
+    tp = tb.make_problem(z, xs[0], bound=bound, device="cpu")
     opt = SLICE | {"maxiter": 40, "tolresid": 1e-7}
     state, steps, res = batched_riptrm_solve(tp, opt, 800)(_t(xs), _t(ys))
     assert steps.shape == (b,) and res.shape == (b,) and state.x.shape == (b, n, p)
@@ -257,7 +258,7 @@ def test_vmapped_jax_state_round_trip(both):
     init = jax.vmap(lambda x, y: j_sweep.init_state_from(jp, opt, x, y))
     j_state = jax.device_get(init(jnp.asarray(xs), jnp.asarray(ys)))._asdict()
     assert np.shape(j_state["x"]) == (2, 30, 3)
-    t_state = trm.state_from_numpy(j_state)
+    t_state = trm.state_from_numpy(j_state, device="cpu")
     assert t_state.lanes == 2 and t_state.x.shape == (2, 30, 3)
     assert t_state.y.shape == (2, 180) and t_state.mu.shape == (2,)
     back = trm.state_to_numpy(t_state)
@@ -273,4 +274,4 @@ def test_vmapped_jax_state_round_trip(both):
 
 def jp_to_t(jp):
     return tb.make_problem(np.asarray(jp.structure["Zs"]), np.asarray(jp.x0),
-                           np.asarray(jp.y0))
+                           np.asarray(jp.y0), device="cpu")

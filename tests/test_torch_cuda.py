@@ -10,7 +10,7 @@ and barrier weights as the solver builds them.  float32; tolerances of
 the CPU parity suite (K1 atol 2e-4; K2/K3 atol 2e-4, rtol 1e-3; the
 Stiefel-bound kernel eta atol 1e-5, rtol 1e-4 and Heta atol 1e-4, rtol
 1e-3, the JAX suite's bounds between its two layouts) with iteration
-counts and stop codes equal.
+counts and stop codes equal; the two chains (K5, K6) as stated below.
 """
 
 import numpy as np
@@ -184,3 +184,118 @@ def test_stiefel_retraction_as_orthonormal_as_on_the_cpu(dev):
     exact = man.retract(torch.tensor(x), torch.tensor(v))
     assert orth_err(on_card) <= 1.5 * orth_err(on_cpu)
     torch.testing.assert_close(on_card.double().cpu(), exact, atol=1e-5, rtol=0)
+
+
+# -- K5 bare_matvec_chain and K6 chained_barrier_matvec_hbm -----------------
+# K5 tolerances over 64 passes (absolute, on unit-norm rows or columns, of
+# entries ~0.03 at n = 1000): 'highest' 1e-5 and 'high' 1e-4 (the same
+# float32 products summed in another order); 'default' 3e-3 (an operand one
+# ulp apart in the two versions can round to another bf16 value), a few
+# times the largest error chip_smoke.py phase 2b reads.  One pass separates
+# the rounding rules (relative 2-norm): the same rule agrees to a few 1e-7,
+# 'high' lies ~4e-6 from 'highest' and 'default' ~2e-3 from both.
+K5_ATOL = {"highest": 1e-5, "high": 1e-4, "default": 3e-3}
+ONE_PASS_REL = 1e-6
+
+
+@pytest.mark.parametrize("precision,left,n,vecs,group", [
+    ("highest", True, 1000, 16, None),
+    ("high", True, 1000, 16, None),
+    ("default", True, 1000, 16, None),
+    ("highest", True, 1001, 3, None),  # the scalar (not float4) row loads
+    ("highest", False, 128, 128, 8),  # Z' in shared memory, St(128, 8) frames
+    ("high", False, 128, 1024, 8),
+    ("default", False, 128, 64, 8),
+    ("highest", False, 200, 12, 5),  # ragged last group
+    ("highest", False, 512, 16, 8),  # Z' through L2
+])
+def test_bare_chain_kernel_matches_plain(dev, precision, left, n, vecs, group):
+    rng = np.random.default_rng(5)
+    z = rng.standard_normal((n, n))
+    zs = torch.tensor(z + z.T, dtype=torch.float32, device=dev)
+    v0 = torch.tensor(rng.standard_normal((vecs, n) if left else (n, vecs)),
+                      dtype=torch.float32, device=dev)
+    tk.reset_launch_counts()
+    out = tk.bare_matvec_chain(zs, v0, 64, precision, left, group=group)
+    assert tk.launch_counts()["bare_matvec_chain"] == 1
+    ref = tk.bare_matvec_chain_plain(zs, v0, 64, precision, left)
+    assert out.shape == v0.shape and bool(torch.all(torch.isfinite(out)))
+    torch.testing.assert_close(out, ref, atol=K5_ATOL[precision], rtol=0)
+
+
+@pytest.mark.parametrize("left,n,vecs,group", [(True, 1000, 16, None), (False, 128, 1024, 8)])
+def test_bare_chain_kernel_rounding_rules(dev, left, n, vecs, group):
+    """One pass in each precision lies within ONE_PASS_REL of its own rule's
+    plain version and beyond it from the other two rules'."""
+    rng = np.random.default_rng(8)
+    z = rng.standard_normal((n, n))
+    zs = torch.tensor(z + z.T, dtype=torch.float32, device=dev)
+    v0 = torch.tensor(rng.standard_normal((vecs, n) if left else (n, vecs)),
+                      dtype=torch.float32, device=dev)
+    plain = {p: tk.bare_matvec_chain_plain(zs, v0, 1, p, left) for p in K5_ATOL}
+    rel = lambda a, b: float(torch.linalg.vector_norm((a - b).double())
+                             / torch.linalg.vector_norm(b.double()))
+    for p in K5_ATOL:
+        out = tk.bare_matvec_chain(zs, v0, 1, p, left, group=group)
+        for q, ref in plain.items():
+            assert (rel(out, ref) <= ONE_PASS_REL) == (q == p), (p, q, rel(out, ref))
+
+
+def test_bare_chain_kernel_nonsymmetric_z(dev):
+    rng = np.random.default_rng(6)
+    z = torch.tensor(rng.standard_normal((96, 96)), dtype=torch.float32, device=dev)
+    for left, shape in ((True, (4, 96)), (False, (96, 8))):
+        v0 = torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+        torch.testing.assert_close(tk.bare_matvec_chain(z, v0, 16, "highest", left),
+                                   tk.bare_matvec_chain_plain(z, v0, 16, "highest", left),
+                                   atol=1e-4, rtol=0)
+
+
+def _hbm_args(n, dev):
+    p = _problem(n, dev)
+    zs, xs, ws, _, _ = _lanes(p, 1)
+    v0 = p.manifold.random_tangent(xs, torch.Generator(dev).manual_seed(2))[0]
+    return zs, xs[0], ws[0], v0
+
+
+@pytest.mark.parametrize("n", [200, 1000, 4000])
+def test_hbm_chain_kernel_matches_plain(dev, n):
+    """n = 4000: Zs is 64 MB, above the 50 MB L2."""
+    args = _hbm_args(n, dev)
+    tk.reset_launch_counts()
+    out = tk.chained_barrier_matvec_hbm(*args, 64)
+    assert tk.launch_counts()["chained_barrier_matvec_hbm"] == 1
+    ref = tk.chained_barrier_matvec_plain(*args, 64)
+    torch.testing.assert_close(out, ref, atol=2e-4, rtol=1e-3)
+    if n == 1000:  # K1's kernel computes the same function
+        torch.testing.assert_close(out, tk.chained_barrier_matvec(*args, 64), atol=2e-4,
+                                   rtol=1e-3)
+
+
+def _hbm_on_grid(zs, x, w, v0, n_iters, grid):
+    """K6's launcher on a grid of ``grid`` CTAs (the wrapper always takes
+    the co-resident capacity); raises on a CUDA error."""
+    from riptrm_torch.ops import _build
+
+    lib = _build.load()
+    corr = tk.barrier_corr(zs, x[None], w[None]).contiguous()
+    hv, out = torch.empty_like(x), torch.empty_like(x)
+    partial = torch.empty(3 * grid, dtype=torch.float32, device=x.device)
+    err = lib.chain_hbm_launch(*(tk._ptr(t) for t in (zs, x, w, v0, corr, hv, partial, out)),
+                               x.shape[0], n_iters, grid, x.device.index or 0,
+                               tk._stream(x.device))
+    _build.check(lib, err, "chain_hbm_launch")
+    return out
+
+
+def test_hbm_chain_kernel_grids(dev):
+    """Any co-resident grid gives the function, each run the same bits;
+    a grid beyond co-residency is refused."""
+    args = _hbm_args(1000, dev)
+    ref = tk.chained_barrier_matvec_plain(*args, 16)
+    for grid in (1, 3, 64):
+        out = _hbm_on_grid(*args, 16, grid)
+        torch.testing.assert_close(out, ref, atol=2e-4, rtol=1e-3)
+        assert torch.equal(out, _hbm_on_grid(*args, 16, grid))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _hbm_on_grid(*args, 16, 1_000_000)

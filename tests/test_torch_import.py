@@ -18,6 +18,8 @@ MODULES = [
     "riptrm_torch.solvers",
     "riptrm_torch.parallel",
     "riptrm_torch.utils",
+    "riptrm_torch.experiment",
+    "riptrm_torch.experiment.roofline",
 ]
 
 

@@ -127,6 +127,8 @@ def test_cpu_tensors_take_the_plain_path(setup):
         "fused_tcg_sphere_quadratic": 0,
         "fused_tcg_sphere_quadratic_batched": 0,
         "fused_tcg_stiefel_bound_batched": 0,
+        "bare_matvec_chain": 0,
+        "chained_barrier_matvec_hbm": 0,
     }
 
 

@@ -26,7 +26,7 @@ RTOL, ATOL = 1e-10, 1e-13
 @pytest.fixture(scope="module")
 def both():
     jp = jn.load_problem(DATA, "a")
-    tp = tn.load_problem(DATA, "a")
+    tp = tn.load_problem(DATA, "a", device="cpu")
     n = int(jp.x0.shape[0])
     rng = np.random.default_rng(0)
     x1 = np.abs(rng.standard_normal(n)) + 0.05
@@ -111,10 +111,10 @@ def test_generators_follow_the_jax_distribution():
     symmetric-spike-plus-noise Z and unit, nonnegative initial points."""
     g = torch.Generator().manual_seed(0)
     n = 40
-    z = tn.generate_instance(g, n)["Z"]
+    z = tn.generate_instance(g, n, device="cpu")["Z"]
     assert z.shape == (n, n) and z.dtype == torch.float64
     spike = z - z.T  # the spike is symmetric: only noise survives
     assert torch.all(torch.diagonal(spike) == 0)
-    x0 = tn.generate_initialpoint(g, n)
+    x0 = tn.generate_initialpoint(g, n, device="cpu")
     assert abs(torch.linalg.vector_norm(x0).item() - 1.0) < 1e-12
     assert torch.all(x0 >= 0)

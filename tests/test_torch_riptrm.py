@@ -31,7 +31,7 @@ GOLDEN = OPT_COMMON | SLICE | {"tolresid": 1e-8}
 
 @pytest.fixture(scope="module")
 def problems():
-    return jn.load_problem(DATA, "a"), tn.load_problem(DATA, "a")
+    return jn.load_problem(DATA, "a"), tn.load_problem(DATA, "a", device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -55,7 +55,7 @@ def test_make_step_matches_jax(problems, start):
     j_new, j_info = jstep(st)
     j_new, j_info = jax.device_get(j_new)._asdict(), jax.device_get(j_info)
 
-    t_state = trm.state_from_numpy(d)
+    t_state = trm.state_from_numpy(d, device="cpu")
     np.testing.assert_array_equal(trm.state_to_numpy(t_state)["x"], d["x"])
     t_new, t_info = trm.make_step(tp, trm.RIPTRM(GOLDEN).option)(t_state)
 
@@ -179,7 +179,7 @@ def test_force_outer_matches_jax(problems):
     want = jax.device_get(jrm.make_force_outer(jopt)(st))._asdict()
     got = trm.state_to_numpy(
         trm.make_force_outer(trm.RIPTRM(GOLDEN).option)(
-            trm.state_from_numpy(jax.device_get(st)._asdict())
+            trm.state_from_numpy(jax.device_get(st)._asdict(), device="cpu")
         )
     )
     for k, v in want.items():

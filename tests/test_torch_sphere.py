@@ -67,7 +67,7 @@ def test_sphere_static_properties():
 def test_random_tangent_unit_and_tangent(b):
     man = TSphere(10)
     g = torch.Generator().manual_seed(1)
-    x = man.random_point(g, b)
+    x = man.random_point(g, b, device="cpu")
     u = man.random_tangent(x, g)
     np.testing.assert_allclose(torch.linalg.vector_norm(x, dim=-1).numpy(), 1.0, atol=ATOL)
     np.testing.assert_allclose(man.norm(x, u).numpy(), 1.0, atol=ATOL)

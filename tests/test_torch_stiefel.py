@@ -90,7 +90,7 @@ def test_sym_skew_match_jax():
 def test_random_point_and_tangent():
     man = TStiefel(N, P)
     g = torch.Generator().manual_seed(1)
-    x = man.random_point(g, B)
+    x = man.random_point(g, B, device="cpu")
     u = man.random_tangent(x, g)
     eye = np.broadcast_to(np.eye(P), (B, P, P))
     np.testing.assert_allclose((x.mT @ x).numpy(), eye, atol=ATOL)
@@ -124,7 +124,7 @@ TCG_ATOL = 1e-10
 
 @pytest.fixture(scope="module")
 def golden():
-    return jb.load_problem(DATA, "a"), tb.load_problem(DATA, "a")
+    return jb.load_problem(DATA, "a"), tb.load_problem(DATA, "a", device="cpu")
 
 
 def _jax_tcg(jp, x, y, mu, radius):

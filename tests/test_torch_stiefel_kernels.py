@@ -41,7 +41,7 @@ def _lanes(n, p, seed, steps, radii):
     key = jax.random.PRNGKey(seed)
     z = np.asarray(jb.generate_instance(jax.random.fold_in(key, 0), n)["Z"])
     x0 = jb.generate_initialpoint(jax.random.fold_in(key, 1), n, p)
-    tp = tb.make_problem(z, x0)
+    tp = tb.make_problem(z, x0, device="cpu")
     opt = trm.RIPTRM({"TRS_solver": "tCG", "second_order_stationarity": False}).option
     step, st, states = trm.make_step(tp, opt), trm.init_state(tp, opt), []
     for k in range(max(steps) + 1):

@@ -38,7 +38,7 @@ def sweep():
     xs = np.abs(rng.standard_normal((B, n))) + 0.01
     xs /= np.linalg.norm(xs, axis=1, keepdims=True)
     ys = np.ones((B, n))
-    tp = tn.make_problem(z, xs[0])
+    tp = tn.make_problem(z, xs[0], device="cpu")
     state, steps, res = t_batched(tp, OPT, MAX_STEPS)(torch.tensor(xs), torch.tensor(ys))
     return z, xs, ys, tp, state, steps, res
 

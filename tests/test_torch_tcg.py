@@ -32,7 +32,7 @@ def fixture():
     z = np.asarray(jn.generate_instance(k1, n)["Z"], np.float64)
     x0 = np.abs(np.asarray(jax.random.normal(k2, (n,)), np.float64))
     x0 /= np.linalg.norm(x0)
-    return jn.make_problem(z, x0), tn.make_problem(z, x0)
+    return jn.make_problem(z, x0), tn.make_problem(z, x0, device="cpu")
 
 
 def _jax_tcg(jp, x, y, mu, radius):
