@@ -8,15 +8,17 @@ at the size of the system's own benchmark, n = 1000, and on BoundedPCA on
 St(128, 8) at the size of the JAX package's own chip sweeps; and the
 roofline (``python -m riptrm_torch.experiment.roofline``) at its default
 shapes.  Checks the six hand-written kernels
-(``riptrm_torch/csrc/sphere_tcg.cu``: K1-K3;
+(``riptrm_torch/csrc/sphere_tcg.cu``: K2-K3;
 ``riptrm_torch/csrc/stiefel_tcg.cu``: the Stiefel-bound tCG;
-``riptrm_torch/csrc/matvec_chain.cu``: K5 and K6) against their plain
+``riptrm_torch/csrc/matvec_chain.cu``: K1, K5 and K6) against their plain
 PyTorch versions.  One line per phase; a failed check raises and the
 script exits non-zero.  It refuses to run without CUDA.  The line before
 the last is a JSON object with one entry per kernel (launches on its path,
 error against the plain version, CUDA-event medians of kernel and plain
-version, the card's bound for the same work, the time of one PyTorch call
-computing the same product where there is one); the last line is
+version, the card's bound for the same work, the time of the PyTorch
+calls computing the same products where there are such: each a median
+over windows of many back-to-back calls, the library's replayed from a
+CUDA graph); the last line is
 ``{"ok": true, "device": {...}}``.
 
 Phases:
@@ -47,12 +49,15 @@ Phases:
   6b. the single-lane St(128, 8) float32 solve through RIPTRM.run and
      solve_compiled, fused;
   7b. batched_riptrm_solve at St(128, 8), B = 16 and B = 128, fused, and
-     B = 16 with the plain tCG;
+     B = 16 with the plain tCG (PLAIN_SWEEP_STEPS steps);
   -- launch counters read (the Stiefel-bound kernel) --
-  8. CUDA-event medians of each kernel and its plain version, each with
-     its bound (``riptrm_torch/experiment/roofline.py``'s accounting) and,
-     for K1, K5 and K6, K times one ``torch.matmul`` of an iteration's
-     product (TF32 off), timed beside the kernel only;
+  8. CUDA-event times of each kernel and its plain version (events around
+     windows of back-to-back calls, divided by the count), each with its
+     bound (``riptrm_torch/experiment/roofline.py``'s accounting) and, for
+     K1, K5 and K6, K calls of ``torch.matmul`` on an iteration's product
+     (TF32 off) captured in one CUDA graph and replayed, beside the same
+     calls timed eagerly and their device-busy share; K1 beside K6
+     at n = 1000, K5 left at [16, 1000], [64, 1000] and [128, 1000];
   -- launch counters reset: the roofline path --
   9. ``roofline.main`` at its default shapes (K3, K4, K5, and K6 at
      n = 4000);
@@ -73,6 +78,8 @@ import torch
 
 N = 1000
 SOLVE_STEPS = 400
+# the step budget of phase 7b's plain-tCG BoundedPCA sweep (host-bound)
+PLAIN_SWEEP_STEPS = 120
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATASET = os.path.join(ROOT, "dataset", "NonnegPCA", "1")
 BPCA_DATASET = os.path.join(ROOT, "dataset", "BoundedPCA", "1")
@@ -85,7 +92,7 @@ STIEFEL_SRC = "riptrm_torch/csrc/stiefel_tcg.cu"
 CHAIN_SRC = "riptrm_torch/csrc/matvec_chain.cu"
 # kernel -> (CUDA source, the TPU kernel(s) it replaces)
 KERNELS = {
-    "chained_barrier_matvec": (SPHERE_SRC, f"{PALLAS}:747"),
+    "chained_barrier_matvec": (CHAIN_SRC, f"{PALLAS}:747"),
     "fused_tcg_sphere_quadratic": (SPHERE_SRC, f"{PALLAS}:217"),
     "fused_tcg_sphere_quadratic_batched": (SPHERE_SRC, f"{PALLAS}:423"),
     "fused_tcg_stiefel_bound_batched": (STIEFEL_SRC, f"{PALLAS}:997, {PALLAS}:1237"),
@@ -94,9 +101,11 @@ KERNELS = {
 }
 SPHERE_KERNELS = tuple(KERNELS)[:3]
 STIEFEL_KERNEL = "fused_tcg_stiefel_bound_batched"
-BARE_CHAIN, HBM_CHAIN = "bare_matvec_chain", "chained_barrier_matvec_hbm"
+K1_CHAIN, BARE_CHAIN, HBM_CHAIN = ("chained_barrier_matvec", "bare_matvec_chain",
+                                   "chained_barrier_matvec_hbm")
 TCG_KERNELS = SPHERE_KERNELS[1:] + (STIEFEL_KERNEL,)
 CHAIN_ITERS = 64
+WINDOW_MS = 20.0  # the least length of a phase-8 timing window
 # K5's checks over CHAIN_ITERS passes: (left, precision, rows or columns,
 # group), with max abs error limits on unit rows (entries ~0.03) or columns
 # (~0.09), a few times the largest error read on the card (PERF.md): the
@@ -160,22 +169,65 @@ def sync(device):
         torch.cuda.synchronize(device)
 
 
-def event_ms(fn, device, reps=7):
-    """Median over ``reps`` calls of the CUDA-event time of one call (ms),
-    after one warm-up call.  Zs stays in L2 between calls, as it does
-    between the solver's steps."""
-    fn()
+def event_ms(fn, device, windows=5):
+    """CUDA-event time of one call (ms): the median over ``windows``
+    windows, each events around a run of back-to-back calls lasting at
+    least WINDOW_MS (one call at least), divided by the count.  A warm-up
+    call, timed alone, sizes the run.  Zs stays in L2 between calls, as it
+    does between the solver's steps.  A call shorter than its host
+    dispatch leaves the device waiting inside the window, and the time is
+    the host's: ``graph_ms`` times such calls."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     sync(device)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    calls = max(1, math.ceil(WINDOW_MS / max(start.elapsed_time(end), 1e-3)))
     times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+    for _ in range(windows):
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def graph_ms(fn, device, calls):
+    """CUDA-event time (``event_ms``) of ``calls`` back-to-back calls of
+    ``fn`` captured in one CUDA graph and replayed: the device's time for
+    them, with no host dispatch between the calls."""
+    fn()  # warm-up outside the capture
+    sync(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return event_ms(graph.replay, device)
+
+
+def kernel_ms(fn, device, calls=200):
+    """The CUDA kernels' own time per call of ``fn`` (ms), summed by
+    torch.profiler over ``calls`` eager calls; None where the profiler
+    records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(device)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            sync(device)
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+    except Exception as e:  # the profiler is a reading, not a check
+        say(f"  torch.profiler failed: {type(e).__name__}: {e}")
+        return None
+    return us / 1e3 / calls if us > 0 else None
 
 
 def wall(fn, device):
@@ -415,20 +467,15 @@ class Smoke:
 
     # -- phase 8: timings --------------------------------------------------
     def phase_timings(self):
-        """Each kernel against its plain version on the subproblems the main
+        """K2 and K3 against their plain version on the subproblems the main
         path poses at the first and at the last step of its solves (late
         steps run far more tCG iterations).  The JSON line keeps the last
-        row of each kernel: the last step, and K3's largest batch."""
-        from riptrm_torch.experiment.roofline import chain_work, sphere_tcg_work
+        row of each kernel: the last step, and K3's largest batch.  (K1 is
+        timed beside K6, ``ChainSmoke.phase_timings``.)"""
+        from riptrm_torch.experiment.roofline import sphere_tcg_work
         from riptrm_torch.ops import kernels as k
 
         dev, n = self.device, self.n
-        zs, x, w, v0 = self.chain_inputs()
-        self.report["chained_barrier_matvec"].update(time_row(
-            "chained_barrier_matvec", f"n={n} K={CHAIN_ITERS} at x0",
-            lambda: k.chained_barrier_matvec(zs, x, w, v0, CHAIN_ITERS),
-            lambda: k.chained_barrier_matvec_plain(zs, x, w, v0, CHAIN_ITERS),
-            dev, lambda out: chain_work(n, CHAIN_ITERS), lambda: torch.matmul(zs, v0)))
         tcg_work = lambda out: sphere_tcg_work(n, torch.atleast_1d(out[2]).tolist())
         for b in ("single",) + tuple(self.lanes):
             for when, st in (("first", self.start[b]), ("last", self.final[b])):
@@ -645,7 +692,8 @@ class StiefelSmoke:
         the first barrier parameter, the reference's known float32
         failure, are counted.  The plain route's median is reported only:
         the JAX package's own plain float32 tCG stalls 9 of these 16 lanes
-        on the CPU."""
+        on the CPU.  The plain route runs PLAIN_SWEEP_STEPS steps: it is
+        host-bound (219-421 s for 400 steps on the card's host, PERF.md)."""
         from riptrm_torch.ops import kernels as k
         from riptrm_torch.parallel.sweep import batched_riptrm_solve, init_state_from
 
@@ -655,8 +703,9 @@ class StiefelSmoke:
             ys = torch.ones(b, self.problem.num_ineq, **self.f32)
             self.start[b] = init_state_from(self.problem, self.option, xs, ys)
             for fused in ((True, False) if b == self.lanes[0] else (True,)):
+                budget = self.steps if fused else min(self.steps, PLAIN_SWEEP_STEPS)
                 solve = batched_riptrm_solve(
-                    self.problem, self.option | {"use_fused_tcg": fused}, self.steps
+                    self.problem, self.option | {"use_fused_tcg": fused}, budget
                 )
                 before = k.launch_counts()[STIEFEL_KERNEL]
                 (st, steps, res), t = wall(lambda: solve(xs, ys), self.device)
@@ -675,15 +724,16 @@ class StiefelSmoke:
                     f"kernel launches {launches}, {t:.3f} s ({t / b * 1e3:.2f} ms per solve), "
                     f"max ||x'x - I|| {float(orth):.2e}")
                 check(bool(torch.all(torch.isfinite(res))), "sweep residuals not finite")
-                check(all(int(steps[i]) == self.steps for i in above),
+                check(all(int(steps[i]) == budget for i in above),
                       f"batched sweep B={b}: a lane stopped above residual 1e-3")
                 if fused:
                     self.final[b] = st
                     check(med <= 1e-3, f"batched sweep B={b}: median residual {med}")
                     check(launches > 0, f"batched sweep B={b}: kernel not launched")
         b = self.lanes[0]
-        say(f"phase 7b B={b} median residual: fused {medians[(b, True)]:.3e}, "
-            f"plain {medians[(b, False)]:.3e}")
+        say(f"phase 7b B={b} median residual: fused {medians[(b, True)]:.3e} ({self.steps} "
+            f"steps), plain {medians[(b, False)]:.3e} "
+            f"({min(self.steps, PLAIN_SWEEP_STEPS)} steps)")
 
     # -- phase 8: timings --------------------------------------------------
     def phase_timings(self):
@@ -791,14 +841,17 @@ class ChainSmoke:
         self.report[HBM_CHAIN]["max_abs_err"] = mae_all
 
     def phase_timings(self):
-        """K5 at the roofline's matvec shapes, 'highest'; K6 at n = 1000 and
-        at n = 4000.  The JSON line keeps the last row of each."""
+        """K5 at the roofline's matvec shapes, 'highest' (left [16, 1000],
+        [64, 1000], [128, 1000]; right [128, 128] and [128, 1024]); K1 and
+        K6 on the NonnegPCA chain at x0 (n = 1000), one beside the other,
+        and K6 at n = 4000.  The JSON line keeps the last row of each: K1
+        at n = 1000, K5 right [128, 1024], K6 at n = 4000."""
         from riptrm_torch.experiment.roofline import bare_chain_work, chain_work
         from riptrm_torch.ops import kernels as k
 
         dev = self.device
-        for left, vecs, group in ((True, 16, None), (True, 128, None), (False, 128, 8),
-                                  (False, 1024, 8)):
+        for left, vecs, group in ((True, 16, None), (True, 64, None), (True, 128, None),
+                                  (False, 128, 8), (False, 1024, 8)):
             zs, v0 = self.k5_case(left, vecs)
             n = zs.shape[0]
             self.report[BARE_CHAIN].update(time_row(
@@ -811,11 +864,15 @@ class ChainSmoke:
                 dev, lambda out, n=n, vecs=vecs: bare_chain_work(n, vecs, CHAIN_ITERS),
                 (lambda zs=zs, v0=v0: torch.matmul(v0, zs)) if left
                 else (lambda zs=zs, v0=v0: torch.matmul(zs, v0))))
-        for args in (self.smoke.chain_inputs(), self.hbm):
+        at_x0 = self.smoke.chain_inputs()
+        rows = ((K1_CHAIN, k.chained_barrier_matvec, at_x0, self.smoke.report),
+                (HBM_CHAIN, k.chained_barrier_matvec_hbm, at_x0, self.report),
+                (HBM_CHAIN, k.chained_barrier_matvec_hbm, self.hbm, self.report))
+        for name, kernel, args, report in rows:
             zs, v0, n = args[0], args[3], args[0].shape[0]
-            self.report[HBM_CHAIN].update(time_row(
-                HBM_CHAIN, f"n={n} K={CHAIN_ITERS}",
-                lambda args=args: k.chained_barrier_matvec_hbm(*args, CHAIN_ITERS),
+            report[name].update(time_row(
+                name, f"n={n} K={CHAIN_ITERS}",
+                lambda kernel=kernel, args=args: kernel(*args, CHAIN_ITERS),
                 lambda args=args: k.chained_barrier_matvec_plain(*args, CHAIN_ITERS),
                 dev, lambda out, n=n: chain_work(n, CHAIN_ITERS),
                 lambda zs=zs, v0=v0: torch.matmul(zs, v0)))
@@ -846,26 +903,42 @@ def phase_roofline(report):
 
 
 def time_row(name, shape, kern, plain, device, work, library_step=None):
-    """CUDA-event medians of a kernel and its plain version, in the order
-    plain, kernel, kernel, plain; the two medians of each are averaged.
+    """CUDA-event times (``event_ms``) of a kernel and its plain version, in
+    the order plain, kernel, kernel, plain; the two times of each are
+    averaged.
     ``work(out)`` gives the (operations, bytes) of the kernel's call from
     its output (a tCG call's work follows its lanes' iterations), whence
     the card's bound; ``library_step`` is one PyTorch call computing an
-    iteration's product, timed CHAIN_ITERS times over for ``library_ms``."""
+    iteration's product: ``library_ms`` is CHAIN_ITERS such calls in one
+    CUDA graph (``graph_ms``).  Beside it the line prints the same calls
+    timed eagerly (``event_ms``, CHAIN_ITERS times one call), their
+    kernels' own time (``kernel_ms``), the share of the eager window the
+    device spends in them, the kernels' own time of one ``kern`` call, and
+    the plain version (the library chain of the whole function, products
+    and normalisations) replayed from a CUDA graph."""
     from riptrm_torch.experiment.roofline import roofline_bound
 
     p1, k1, k2, p2 = (event_ms(f, device) for f in (plain, kern, kern, plain))
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     out = kern()
     bound_us, bound_by = roofline_bound(*work(out))
-    library_ms = None if library_step is None else CHAIN_ITERS * event_ms(library_step, device)
+    library_ms, library = None, "none"
+    if library_step is not None:
+        library_ms = graph_ms(library_step, device, CHAIN_ITERS)
+        eager = CHAIN_ITERS * event_ms(library_step, device)
+        busy, own = kernel_ms(library_step, device), kernel_ms(kern, device, calls=20)
+        busy = ("not measured" if busy is None else
+                f"{CHAIN_ITERS * busy:.4f} ms, {100 * CHAIN_ITERS * busy / eager:.1f} % busy")
+        own = "not measured" if own is None else f"{own:.4f} ms"
+        library = (f"{library_ms:.4f} ms (CUDA graph of {CHAIN_ITERS} calls; eager "
+                   f"{eager:.4f} ms, its kernels {busy}; the port's kernels {own} a call; "
+                   f"the plain version in a CUDA graph {graph_ms(plain, device, 1):.4f} ms)")
     iters = ""
     if name in TCG_KERNELS:
         it_k, it_p = int(out[2].max()), int(plain()[2].max())
         iters = f", tCG iterations (max over lanes) kernel {it_k}, plain {it_p}"
-    library = "none" if library_ms is None else f"{library_ms:.4f} ms"
     say(f"phase 8 {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-        f"(CUDA-event medians; runs {k1:.4f}/{k2:.4f} and {p1:.4f}/{p2:.4f}), bound "
+        f"(CUDA events over windows; runs {k1:.4f}/{k2:.4f} and {p1:.4f}/{p2:.4f}), bound "
         f"{bound_us:.3f} us ({bound_by}), library {library}{iters}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_us / 1e3, bound_us=bound_us,
                 bound_by=bound_by, library_ms=library_ms, shape=shape)

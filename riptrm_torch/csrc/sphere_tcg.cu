@@ -1,4 +1,4 @@
-// Hand-written Hopper (sm_90a) kernels for the sphere-quadratic barrier
+// Hand-written Hopper (sm_90a) kernel for the sphere-quadratic barrier
 // subproblem of RIPTRM on NonnegPCA: minimise -x'Zs x on S^{n-1}, x >= 0.
 //
 // With P = I - x x', corr = 2 x'Zs x + x'y and barrier weights w = y / c,
@@ -6,14 +6,15 @@
 //
 //     Hw(v) = -2 P(Zs v) + corr v + P(w o v).
 //
-//   chain_kernel  replaces riptrm_tpu/ops/pallas_kernels.py::chained_barrier_matvec
-//                 (_chain_kernel): K normalised applications v <- Hw(v)/|Hw(v)|.
-//   tcg_kernel    replaces pallas_tcg_sphere_quadratic (_tcg_kernel, one lane)
+//   tcg_kernel    replaces riptrm_tpu/ops/pallas_kernels.py
+//                 ::pallas_tcg_sphere_quadratic (_tcg_kernel, one lane)
 //                 and pallas_tcg_sphere_quadratic_batched (_tcg_kernel_batched,
 //                 B lanes against one shared Zs): the whole Steihaug-Toint tCG
 //                 of ops/tcg.py::truncated_cg, one CTA per lane.
 //
-// What bounds them on an H100: each tCG iteration reads all of Zs (n^2 * 4
+// (K1, the chained Hw matvec, is chain_resident_kernel in matvec_chain.cu.)
+//
+// What bounds it on an H100: each tCG iteration reads all of Zs (n^2 * 4
 // bytes, 4 MB at n = 1000) once per lane.  Zs does not fit in one SM's
 // shared memory (227 KB) but sits in the 50 MB L2, so each CTA streams it
 // from L2 with coalesced 16-byte loads (one warp per row, lanes across the
@@ -21,15 +22,16 @@
 // bound by one SM's share of L2 bandwidth; B lanes read B copies of Zs per
 // iteration through the shared L2.  The lane's vectors (8 n-vectors, 32 KB
 // at n = 1000) live in shared memory, and every scalar of the loop is a
-// block reduction read back by all threads, so the exit decision is uniform
-// within the block.  The matvec is full float32 with FMA on the CUDA cores
-// (no TF32, no bf16 splitting).
+// block reduction read back by all threads (reduce.cuh), so the exit
+// decision is uniform within the block.  The matvec is full float32 with
+// FMA on the CUDA cores (no TF32, no bf16 splitting).
 //
-// Plain C interface for ctypes (riptrm_torch/ops/_build.py): each launcher
+// Plain C interface for ctypes (riptrm_torch/ops/_build.py): the launcher
 // returns cudaGetLastError() after the launch, 0 on success.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "reduce.cuh"
 
 namespace {
 
@@ -37,37 +39,6 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSums = 3;
 constexpr int kRedSlots = kMaxSums * kWarps + kMaxSums;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Sums N per-thread partials over the block.  Every thread gets the same
-// bits back (read from shared memory after a barrier), so branches on the
-// result are uniform.  `red` holds kRedSlots floats.
-template <int N>
-__device__ __forceinline__ void block_sum(float (&v)[N], float* red) {
-  static_assert(N <= kMaxSums, "too many sums");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    v[k] = warp_sum(v[k]);
-    if (lane == 0) red[k * kWarps + warp] = v[k];
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const float t = warp_sum(lane < kWarps ? red[k * kWarps + lane] : 0.f);
-      if (lane == 0) red[kMaxSums * kWarps + k] = t;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < N; ++k) v[k] = red[kMaxSums * kWarps + k];
-}
 
 // out[i] = sum_j zs[i * n + j] * v[j]; v and out in shared memory.
 __device__ __forceinline__ void matvec(const float* __restrict__ zs, const float* v,
@@ -117,7 +88,7 @@ __device__ __forceinline__ void apply_hw(const float* __restrict__ zs, const flo
     s[0] += x[i] * hv[i];
     s[1] += x[i] * (w[i] * v[i]);
   }
-  block_sum(s, red);
+  block_sum<kWarps, kMaxSums>(s, red);
   for (int i = threadIdx.x; i < n; i += kThreads) {
     const float bar = w[i] * v[i];
     hv[i] = -2.f * (hv[i] - x[i] * s[0]) + corr * v[i] + (bar - x[i] * s[1]);
@@ -125,35 +96,6 @@ __device__ __forceinline__ void apply_hw(const float* __restrict__ zs, const flo
 }
 
 __device__ __forceinline__ float safe_div(float a, float b) { return a / (b == 0.f ? 1.f : b); }
-
-// One CTA: n_iters normalised Hw applications.  Shared memory: 4 n floats.
-__global__ void __launch_bounds__(kThreads)
-chain_kernel(const float* __restrict__ zs, const float* __restrict__ x_g,
-             const float* __restrict__ w_g, const float* __restrict__ v0,
-             const float* __restrict__ corr_g, float* __restrict__ out, int n,
-             int n_iters, int vec4) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float red[kRedSlots];
-  float* x = smem;
-  float* w = x + n;
-  float* v = w + n;
-  float* hv = v + n;
-  const float corr = corr_g[0];
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    x[i] = x_g[i];
-    w[i] = w_g[i];
-    v[i] = v0[i];
-  }
-  for (int it = 0; it < n_iters; ++it) {
-    apply_hw(zs, x, w, v, hv, corr, n, vec4, red);
-    float s[1] = {0.f};
-    for (int i = threadIdx.x; i < n; i += kThreads) s[0] += hv[i] * hv[i];
-    block_sum(s, red);
-    const float nrm = sqrtf(s[0]);
-    for (int i = threadIdx.x; i < n; i += kThreads) v[i] = hv[i] / nrm;
-  }
-  for (int i = threadIdx.x; i < n; i += kThreads) out[i] = v[i];
-}
 
 // One CTA per lane: that lane's whole tCG loop, the stop logic of
 // _tcg_kernel (pallas_kernels.py) and ops/tcg.py::truncated_cg.  A lane
@@ -198,7 +140,7 @@ tcg_kernel(const float* __restrict__ zs, const float* __restrict__ xs,
     delta[i] = -gi;
     s0[0] += gi * gi;
   }
-  block_sum(s0, red);
+  block_sum<kWarps, kMaxSums>(s0, red);
 
   float z_r = s0[0], e_pe = 0.f, d_pd = z_r, e_pd = 0.f, model = 0.f;
   int j = 0, code = 0;
@@ -207,7 +149,7 @@ tcg_kernel(const float* __restrict__ zs, const float* __restrict__ xs,
     apply_hw(zs, x, w, delta, hd, corr, n, vec4, red);
     float s1[1] = {0.f};
     for (int i = threadIdx.x; i < n; i += kThreads) s1[0] += delta[i] * hd[i];
-    block_sum(s1, red);
+    block_sum<kWarps, kMaxSums>(s1, red);
     const float d_hd = s1[0];
     const float alpha = safe_div(z_r, d_hd);
     const float e_pe_new = e_pe + 2.f * alpha * e_pd + alpha * alpha * d_pd;
@@ -225,7 +167,7 @@ tcg_kernel(const float* __restrict__ zs, const float* __restrict__ xs,
       s3[1] += ec * hc;
       s3[2] += rn * rn;
     }
-    block_sum(s3, red);
+    block_sum<kWarps, kMaxSums>(s3, red);
     const float model_c = s3[0] + 0.5f * s3[1];
     const bool model_inc = model_c >= model;
     const float zr_new = s3[2];
@@ -252,7 +194,7 @@ tcg_kernel(const float* __restrict__ zs, const float* __restrict__ xs,
       delta[i] = t;
       s4[0] += x[i] * t;
     }
-    block_sum(s4, red);
+    block_sum<kWarps, kMaxSums>(s4, red);
     for (int i = threadIdx.x; i < n; i += kThreads) delta[i] -= x[i] * s4[0];
 
     if (!done_now) {
@@ -275,32 +217,9 @@ tcg_kernel(const float* __restrict__ zs, const float* __restrict__ xs,
   }
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
-
 }  // namespace
 
 extern "C" {
-
-int sphere_chain_launch(const float* zs, const float* x, const float* w, const float* v0,
-                        const float* corr, float* out, int n, int n_iters, int device,
-                        void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = 4 * (size_t)n * sizeof(float);
-  err = allow_smem(chain_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int vec4 = (n % 4 == 0) && aligned16(zs);
-  chain_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      zs, x, w, v0, corr, out, n, n_iters, vec4);
-  return (int)cudaGetLastError();
-}
 
 int sphere_tcg_launch(const float* zs, const float* xs, const float* ws, const float* grads,
                       const float* corrs, const float* radii, const float* targets,

@@ -30,15 +30,17 @@
 // pointers.  Each thread owns one row of Zs V and a chunk of at most MAXK of
 // its columns in registers, so each Zs entry it loads feeds MAXK FMAs.  The
 // per-lane reductions (the p x p matrix X'U and the Frobenius dots) are
-// block reductions read back by every thread from shared memory after a
-// barrier, so every thread takes the same loop exit; a lane leaves its loop
-// when it stops, which gives the outputs of the TPU kernels' frozen lanes.
+// block reductions (reduce.cuh) read back by every thread from shared
+// memory after a barrier, so every thread takes the same loop exit; a lane
+// leaves its loop when it stops, which gives the outputs of the TPU
+// kernels' frozen lanes.
 //
 // Plain C interface for ctypes (riptrm_torch/ops/_build.py): the launcher
 // returns cudaGetLastError() after the launch, 0 on success.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "reduce.cuh"
 
 namespace {
 
@@ -47,36 +49,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSums = 3;
 constexpr int kRedSlots = kMaxSums * kWarps + kMaxSums;
 enum Placement { kAllShared = 0, kZsGlobal = 1, kFramesGlobal = 2 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Sums N per-thread partials over the block; every thread gets the same
-// bits back (read from shared memory after a barrier).
-template <int N>
-__device__ __forceinline__ void block_sum(float (&v)[N], float* red) {
-  static_assert(N <= kMaxSums, "too many sums");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    v[k] = warp_sum(v[k]);
-    if (lane == 0) red[k * kWarps + warp] = v[k];
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const float t = warp_sum(lane < kWarps ? red[k * kWarps + lane] : 0.f);
-      if (lane == 0) red[kMaxSums * kWarps + k] = t;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < N; ++k) v[k] = red[kMaxSums * kWarps + k];
-}
 
 __device__ __forceinline__ float safe_div(float a, float b) { return a / (b == 0.f ? 1.f : b); }
 
@@ -211,7 +183,7 @@ stiefel_tcg_kernel(const float* __restrict__ zs, const float* __restrict__ dg,
   }
   for (int idx = threadIdx.x; idx < pp; idx += kThreads) S[idx] = ss[(size_t)lane_id * pp + idx];
   for (int k = threadIdx.x; k < p; k += kThreads) d[k] = dg[k];
-  block_sum(s0, red);  // its barriers also publish the loads above
+  block_sum<kWarps, kMaxSums>(s0, red);  // its barriers also publish the loads above
 
   float z_r = s0[0], e_pe = 0.f, d_pd = z_r, e_pd = 0.f, model = 0.f;
   int j = 0, code = 0;
@@ -221,7 +193,7 @@ stiefel_tcg_kernel(const float* __restrict__ zs, const float* __restrict__ dg,
     project(hd, x, cm, part, n, p, segs);
     float s1[1] = {0.f};
     for (int idx = threadIdx.x; idx < np; idx += kThreads) s1[0] += delta[idx] * hd[idx];
-    block_sum(s1, red);
+    block_sum<kWarps, kMaxSums>(s1, red);
     const float d_hd = s1[0];
     const float alpha = safe_div(z_r, d_hd);
     const float e_pe_new = e_pe + 2.f * alpha * e_pd + alpha * alpha * d_pd;
@@ -239,7 +211,7 @@ stiefel_tcg_kernel(const float* __restrict__ zs, const float* __restrict__ dg,
       s3[1] += ec * hc;
       s3[2] += rn * rn;
     }
-    block_sum(s3, red);
+    block_sum<kWarps, kMaxSums>(s3, red);
     const float model_c = s3[0] + 0.5f * s3[1];
     const bool model_inc = model_c >= model;
     const float zr_new = s3[2];

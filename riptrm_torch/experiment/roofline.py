@@ -13,17 +13,23 @@ iterations per call, and states it against
   then no memory of the card holds it from one pass to the next, and it
   counts once per pass;
 * the bare matvec chain (K5, ``ops/kernels.py::bare_matvec_chain``) at the
-  kernel's own matvec shape, orientation, residency and precision ('highest':
-  the port's tCG kernels compute their matvec in full FP32):
-  ``pct_of_bare_matvec_chain`` is tCG iterations/s over chain iterations/s,
-  100 % when the tCG's control flow is free.
+  kernel's own matvec shape, orientation and precision ('highest': the
+  port's tCG kernels compute their matvec in full FP32):
+  ``pct_of_bare_matvec_chain`` is tCG iterations/s over chain iterations/s.
+  The chain is the card's fastest scheme for that product, not the tCG
+  kernel's own: the sphere rows' left chain keeps Z resident across a
+  cooperative grid of all SMs, where K3 streams Zs through one SM per
+  lane, so it reads far below 100 % even with free control flow.
 
 Rows: the sphere kernel (K3) at n in ``--sizes``, B in ``--batches``; the
 Stiefel-bound kernel (K4) at St(``--stiefel-n``, ``--stiefel-p``), B in
 ``--batches`` (one row per B: one Hopper kernel serves both TPU layouts,
 K4a lane-major and K4b p-major); and one row of K6, the chained
 barrier-Hessian matvec on a cooperative grid, at n = ``HBM_N``, where Zs
-(64 MB) is above the L2.  K6 has no other entry point.
+(64 MB) is above the L2.  K6 has no other entry point.  The sphere rows
+take n up to the left chain's resident limit (``matvec_left_plan``:
+2112 on 132 SMs); a larger n in ``--sizes`` is refused before any row
+runs.
 
 Timing: CUDA events around a window of k calls (at least ~50 ms) after a
 warm-up, the median of three windows.  The tCG calls are a data-coupled
@@ -358,6 +364,12 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     device = cuda_device()
+    for n in args.sizes:  # each sphere row's bare chain is K5 left at [B, n]
+        for b in args.batches:
+            try:
+                k.matvec_left_plan(b, n, k._sms(device))
+            except ValueError as e:
+                parser.error(f"--sizes {n}: no bare chain for the sphere row at B={b}: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = []
 

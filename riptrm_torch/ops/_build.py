@@ -1,8 +1,10 @@
 """Build and load the CUDA kernels of ``riptrm_torch/csrc``.
 
-At first use ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
-with a plain C interface, ``riptrm_torch/_build/kernels_<hash>.so``,
-keyed by a hash of the sources and the flags, and ``ctypes`` loads it.
+At first use ``nvcc`` compiles every ``csrc/*.cu`` (one process per
+source, all started together) and links them into one shared library with
+a plain C interface, ``riptrm_torch/_build/kernels_<hash>.so``, keyed by a
+hash of the sources (``*.cuh`` included) and the flags, and ``ctypes``
+loads it.
 Pointers and the stream are passed as ``c_void_p``, ints as ``c_int``.
 This takes seconds, where a build that includes PyTorch's headers takes
 minutes.  Nothing here runs at import time; a missing ``nvcc`` or a failed
@@ -23,23 +25,25 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # zs, x, w, v0, corr, out, n, n_iters, device, stream
-    "sphere_chain_launch": [_P] * 6 + [_I] * 3 + [_P],
+    # zs, x, w, v0, u scratch, out, n, n_iters, grid, rows_per_cta, device,
+    # stream
+    "chain_resident_launch": [_P] * 6 + [_I] * 5 + [_P],
     # zs, xs, ws, grads, corrs, radii, targets, flags, etas, hetas, stats,
     # b, n, maxinner, mininner, device, stream
     "sphere_tcg_launch": [_P] * 11 + [_I] * 5 + [_P],
     # zs, d, xs, ws, ss, grads, radii, targets, flags, etas, hetas, stats,
     # scratch, b, n, p, maxinner, mininner, mode, device, stream
     "stiefel_tcg_launch": [_P] * 13 + [_I] * 7 + [_P],
-    # zt, v0, out, r, n, n_iters, prec, device, stream
-    "matvec_chain_left_launch": [_P] * 3 + [_I] * 5 + [_P],
+    # z, v0, out, wbuf scratch, r, n, n_iters, prec, col_groups, row_groups,
+    # cols, rows_per_group, chunk, device, stream
+    "matvec_chain_left_launch": [_P] * 4 + [_I] * 10 + [_P],
     # zt, v0, out, n, c, g, n_iters, prec, zs_shared, device, stream
     "matvec_chain_right_launch": [_P] * 3 + [_I] * 7 + [_P],
     # n, device -> grid (or minus a CUDA error code)
@@ -86,22 +90,33 @@ def build():
         return path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     cu = [s for s in _sources() if s.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-            capture_output=True, text=True, timeout=600,
-        )
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o") for src in cu]
+        procs = []
+        try:
+            for src, obj in zip(cu, objs):
+                procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                              stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True))
+            log = [proc.communicate(timeout=600)[0] for proc in procs]
+        finally:  # a timeout or a failed start leaves no compiler running
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        failed = [f"{os.path.basename(src)} ({proc.returncode})"
+                  for src, proc in zip(cu, procs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n" + "".join(log))
+        lib = os.path.join(tmp, "kernels.so")
+        proc = subprocess.run([nvcc, "-shared", "-o", lib, *objs], capture_output=True,
+                              text=True, timeout=600)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path, proc.stdout + proc.stderr
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        os.replace(lib, path)  # atomic: a concurrent loader sees all or nothing
+    return path, "".join(log) + proc.stdout + proc.stderr
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,14 +1,15 @@
 """The hand-written kernels: wrappers, plain versions, launch counters.
 
 Counterparts of the Pallas kernels of ``riptrm_tpu/ops/pallas_kernels.py``.
-The CUDA sources are ``riptrm_torch/csrc/sphere_tcg.cu`` (the
-sphere-quadratic kernels), ``riptrm_torch/csrc/stiefel_tcg.cu`` (the
-Stiefel-bound kernel) and ``riptrm_torch/csrc/matvec_chain.cu`` (the two
-chains at the end of this module), built into one library by
-``ops/_build.py``.
+The CUDA sources are ``riptrm_torch/csrc/sphere_tcg.cu`` (the sphere tCG
+kernel), ``riptrm_torch/csrc/stiefel_tcg.cu`` (the Stiefel-bound kernel)
+and ``riptrm_torch/csrc/matvec_chain.cu`` (the chains: K1, K5, K6), with
+the reductions they share in ``csrc/reduce.cuh``, built into one library
+by ``ops/_build.py``.
 
 * ``chained_barrier_matvec`` replaces ``chained_barrier_matvec``
-  (``_chain_kernel``): K normalised barrier-Hessian applications.
+  (``_chain_kernel``): K normalised barrier-Hessian applications, with Zs
+  resident in the shared memory of a cooperative grid.
 * ``fused_tcg_sphere_quadratic`` replaces ``pallas_tcg_sphere_quadratic``
   (``_tcg_kernel``): the whole tCG of one lane.
 * ``fused_tcg_sphere_quadratic_batched`` replaces
@@ -53,6 +54,8 @@ step does).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from riptrm_torch.manifolds import Sphere, Stiefel, sym
@@ -60,9 +63,12 @@ from riptrm_torch.ops import _build
 from riptrm_torch.ops.tcg import truncated_cg
 
 # Dynamic shared memory one block may use on Hopper: 227 KB less 1 KB for
-# the kernels' static reduction scratch.  The chain kernel keeps 4
-# n-vectors there, the tCG kernel 8 (so n <= 7232).
+# the kernels' static reduction scratch.  The tCG kernel keeps 8 n-vectors
+# there (so n <= 7232).
 MAX_SMEM_BYTES = 232448 - 1024
+# SMs of an H100 SXM: the grid plans of K1 and K5 left on the CPU, where
+# no card tells its own count.
+H100_SMS = 132
 
 
 def _on_card(*tensors) -> bool:
@@ -88,6 +94,17 @@ def _ptr(t):
 
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _sms(device) -> int:
+    """SMs of the card a tensor lies on; H100_SMS for the CPU."""
+    if device.type != "cuda":
+        return H100_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def barrier_corr(zs, xs, ws):
@@ -150,24 +167,63 @@ def chained_barrier_matvec_plain(zs, x, y_over_c, v0, n_iters: int):
     return v[0]
 
 
+def chain_resident_plan(n: int, sms: int = H100_SMS):
+    """(grid, rows per CTA, dynamic shared-memory bytes) of K1's cooperative
+    grid: one CTA per SM, cut so every CTA has a row (rows = ceil(n / sms),
+    grid = ceil(n / rows); 125 CTAs of 8 rows at n = 1000 on 132 SMs), the
+    layout ``chain_resident_kernel`` carves (csrc/matvec_chain.cu): its
+    rows of Zs, v and x, each padded to a multiple of 4 floats, w, Hw(v)
+    and its rows' dot products.
+    Raises when that exceeds one block's shared memory (n > 2508 on 132
+    SMs, ``chain_resident_max_n``): K6 takes such an n."""
+    rows = max(1, _ceil(n, sms))
+    ldk = _ceil(n, 4) * 4
+    nbytes = 4 * ((rows + 2) * ldk + 2 * n + rows)
+    if nbytes > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"chained_barrier_matvec: n={n} needs {nbytes} bytes of shared memory per CTA "
+            f"({rows} rows of Zs on each of {sms} SMs), above the {MAX_SMEM_BYTES} a block "
+            "may use; use chained_barrier_matvec_hbm, which streams Zs from device memory"
+        )
+    return _ceil(n, rows), rows, nbytes
+
+
+def chain_resident_max_n(sms: int = H100_SMS) -> int:
+    """The largest n whose Zs K1 holds resident on ``sms`` SMs."""
+    n = 1
+    while True:
+        try:
+            chain_resident_plan(n + 1, sms)
+        except ValueError:
+            return n
+        n += 1
+
+
 def chained_barrier_matvec(zs, x, y_over_c, v0, n_iters: int):
     """K normalised Hw matvecs from v0 at the point x with weights y/c.
 
-    ``zs`` [n, n]; ``x``, ``y_over_c``, ``v0`` [n].  Returns [n] float32.
-    One CTA runs the whole chain; Zs streams from L2 every iteration."""
-    if not _on_card(zs, x, y_over_c, v0):
+    ``zs`` [n, n] (symmetric); ``x``, ``y_over_c``, ``v0`` [n].  Returns
+    [n] float32.  A cooperative grid holds Zs in its CTAs' shared memory,
+    a slice of rows each, for the whole call (``chain_resident_plan``), with
+    one grid-wide step per iteration.  Resident up to n = 2508 on an H100's
+    132 SMs (on a CUDA tensor, the card's own SM count sets the limit); a
+    larger n raises ``ValueError`` on either device, naming
+    ``chained_barrier_matvec_hbm``, which takes it, as the JAX function is
+    bound by VMEM and K6 by device memory."""
+    on_card = _on_card(zs, x, y_over_c, v0)
+    n = x.shape[0]
+    grid, rows, _ = chain_resident_plan(n, _sms(x.device))
+    if not on_card:
         return chained_barrier_matvec_plain(zs, x, y_over_c, v0, n_iters)
     zs, x, w, v0 = _f32(zs, x, y_over_c, v0)
-    n = x.shape[0]
     if zs.shape != (n, n) or w.shape != (n,) or v0.shape != (n,):
         raise ValueError("chained_barrier_matvec: shape mismatch")
-    _check_smem(n, 4)
-    corr = barrier_corr(zs, x[None], w[None]).contiguous()
+    u = torch.empty(2 * n + grid, dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     lib = _build.load()
-    err = lib.sphere_chain_launch(
-        _ptr(zs), _ptr(x), _ptr(w), _ptr(v0), _ptr(corr), _ptr(out),
-        n, int(n_iters), x.device.index or 0, _stream(x.device),
+    err = lib.chain_resident_launch(
+        _ptr(zs), _ptr(x), _ptr(w), _ptr(v0), _ptr(u), _ptr(out),
+        n, int(n_iters), grid, rows, x.device.index or 0, _stream(x.device),
     )
     _build.check(lib, err, "chained_barrier_matvec")
     chained_barrier_matvec.launches += 1
@@ -403,6 +459,10 @@ PRECISIONS = {"highest": 0, "high": 1, "default": 2}
 # Threads of a CTA of the right-orientation chain (csrc/matvec_chain.cu);
 # a group has at most this many columns.
 MATVEC_RIGHT_THREADS = 256
+# The left-orientation chain: threads of a CTA, and a warp's tile of w
+# (rows of v x columns of Z) in registers.
+MATVEC_LEFT_THREADS = 256
+LEFT_TILE = 8
 
 
 def bf16_round(a):
@@ -460,20 +520,71 @@ def matvec_right_plan(n: int, g: int):
                      f"{MAX_SMEM_BYTES} bytes of shared memory a block may use")
 
 
+class LeftPlan(NamedTuple):
+    """K5 left's cooperative grid: ``col_groups`` x ``row_groups`` CTAs; a
+    CTA holds ``cols`` columns of Z and computes them for ``rows`` rows of
+    v, staging ``chunk`` rows at a time; ``smem`` bytes of shared memory."""
+
+    col_groups: int
+    row_groups: int
+    cols: int
+    rows: int
+    chunk: int
+    smem: int
+
+
+def matvec_left_plan(r: int, n: int, sms: int = H100_SMS) -> LeftPlan:
+    """The plan of K5 left for v [r, n] on ``sms`` SMs, one CTA per SM: the
+    r rows cut into min(4, r // 8) row groups, halved until the plan fits,
+    at least 1 (fewer CTAs read each row of v, and at n = 1000 each cut
+    measured faster than the one before, PERF.md), the n columns of Z over
+    the SMs left for each row group (cols = ceil(n / (sms // row_groups)):
+    16 columns, 126 CTAs at n = 1000, r = 16).
+    Shared memory, as ``chain_left_kernel`` carves it
+    (csrc/matvec_chain.cu): the columns transposed and padded ([cols
+    rounded up to 8][n rounded up to 4]), the staged rows of v ([chunk][n
+    rounded up to 4]; chunk a multiple of 8 rows, the group's rows split
+    into as few equal chunks as fit), the group's block of w, its norms and
+    the warps' tiles.  Raises when not even 8 staged rows fit at one row
+    group: n > 2112 on 132 SMs."""
+    for g in (g for g in (4, 2, 1) if g <= max(1, r // 8)):
+        g = min(g, max(r, 1), sms)
+        rows = _ceil(r, g)
+        g = _ceil(r, rows) if rows else 1
+        cols = _ceil(n, sms // g)
+        cp = _ceil(cols, LEFT_TILE) * LEFT_TILE
+        ldk = _ceil(n, 4) * 4
+        fixed = cp * ldk + rows * (cp + 1) + (MATVEC_LEFT_THREADS // 32) * LEFT_TILE * LEFT_TILE
+        most = (MAX_SMEM_BYTES // 4 - fixed) // ldk // LEFT_TILE * LEFT_TILE
+        if most >= LEFT_TILE:
+            chunk = _ceil(_ceil(rows, _ceil(rows, most)), LEFT_TILE) * LEFT_TILE
+            return LeftPlan(_ceil(n, cols), g, cols, rows, chunk, 4 * (fixed + chunk * ldk))
+    raise ValueError(
+        f"bare_matvec_chain left: n={n}, r={r}: the columns of Z a CTA holds and "
+        f"{LEFT_TILE} staged rows of v exceed the {MAX_SMEM_BYTES} bytes of shared memory a "
+        f"block may use on {sms} SMs"
+    )
+
+
 def bare_matvec_chain(zs, v0, n_iters: int, precision: str = "high", left: bool = True,
                       *, group=None):
     """K normalised batched matvecs and nothing else (see the plain
     version): ``zs`` [n, n], ``v0`` [r, n] (``left``) or [n, c].  Returns
     float32 of v0's shape.
 
-    Left runs one CTA per row; right one CTA per ``group`` columns (default
-    min(c, 32); the roofline passes p, one lane's frame).  ``group`` sets
-    only how the work is cut, never the result."""
-    if not _on_card(zs, v0):
+    Left runs on a cooperative grid with Z resident in shared memory
+    (``matvec_left_plan``; n <= 2112 on an H100, a larger n raises on
+    either device), Z read as it is given; right one CTA per ``group``
+    columns (default min(c, 32); the roofline passes p, one lane's frame)
+    on Z transposed.  ``group`` sets only how the work is cut, never the
+    result."""
+    on_card = _on_card(zs, v0)
+    _check_chain(zs, v0, precision, left)
+    if left and v0.numel():
+        plan = matvec_left_plan(*v0.shape, _sms(v0.device))
+    if not on_card:
         return bare_matvec_chain_plain(zs, v0, n_iters, precision, left)
     zs, v0 = _f32(zs, v0)
-    _check_chain(zs, v0, precision, left)
-    zt = zs.mT.contiguous()  # the kernels read Z' row-wise (== Zs when symmetric)
     out = torch.empty_like(v0)
     if v0.numel() == 0:
         return out
@@ -481,10 +592,11 @@ def bare_matvec_chain(zs, v0, n_iters: int, precision: str = "high", left: bool 
     dev = v0.device
     if left:
         r, n = v0.shape
-        _check_smem(n, 2)
+        wbuf = torch.empty((2, r, _ceil(n, 4) * 4), dtype=torch.float32, device=dev)
         err = lib.matvec_chain_left_launch(
-            _ptr(zt), _ptr(v0), _ptr(out), r, n, int(n_iters), PRECISIONS[precision],
-            dev.index or 0, _stream(dev),
+            _ptr(zs), _ptr(v0), _ptr(out), _ptr(wbuf), r, n, int(n_iters),
+            PRECISIONS[precision], plan.col_groups, plan.row_groups, plan.cols, plan.rows,
+            plan.chunk, dev.index or 0, _stream(dev),
         )
     else:
         n, c = v0.shape
@@ -492,6 +604,7 @@ def bare_matvec_chain(zs, v0, n_iters: int, precision: str = "high", left: bool 
         if not 1 <= g <= min(c, MATVEC_RIGHT_THREADS):
             raise ValueError(f"group must be in [1, {min(c, MATVEC_RIGHT_THREADS)}], got {g}")
         zs_shared, _ = matvec_right_plan(n, g)
+        zt = zs.mT.contiguous()  # read row-wise (== Zs when symmetric)
         err = lib.matvec_chain_right_launch(
             _ptr(zt), _ptr(v0), _ptr(out), n, c, g, int(n_iters), PRECISIONS[precision],
             int(zs_shared), dev.index or 0, _stream(dev),

@@ -84,9 +84,13 @@ def test_single_lane_tcg_kernel_matches_plain(dev, n):
     torch.testing.assert_close(eta, e_p[0], atol=2e-4, rtol=1e-3)
 
 
-@pytest.mark.parametrize("n", [64, 250, 1001])
+@pytest.mark.parametrize("n", [64, 250, 1000, 1001, "largest"])
 def test_chain_kernel_matches_plain(dev, n):
-    """n = 1001 takes the kernel's scalar (not float4) matvec path."""
+    """K1 on its cooperative grid; n = 1001 pads the rows of Zs to 1004 in
+    shared memory; "largest" is the largest n the card's SMs hold resident
+    (2508 on an H100's 132)."""
+    if n == "largest":
+        n = tk.chain_resident_max_n(torch.cuda.get_device_properties(dev).multi_processor_count)
     p = _problem(n, dev)
     zs, xs, ws, _, _ = _lanes(p, 1)
     v0 = p.manifold.random_tangent(xs, torch.Generator(dev).manual_seed(2))[0]
@@ -95,6 +99,19 @@ def test_chain_kernel_matches_plain(dev, n):
     assert tk.launch_counts()["chained_barrier_matvec"] == 1
     ref = tk.chained_barrier_matvec_plain(zs, xs[0], ws[0], v0, 16)
     torch.testing.assert_close(out, ref, atol=2e-4, rtol=1e-3)
+    assert torch.equal(out, tk.chained_barrier_matvec(zs, xs[0], ws[0], v0, 16))
+
+
+def test_chain_kernel_refuses_above_resident_limit(dev):
+    """One n past the resident limit of the card's SMs: a ValueError that
+    names K6, before any launch."""
+    n = tk.chain_resident_max_n(torch.cuda.get_device_properties(dev).multi_processor_count) + 1
+    zs = torch.zeros((n, n), device=dev)
+    v = torch.ones(n, device=dev) / n ** 0.5
+    tk.reset_launch_counts()
+    with pytest.raises(ValueError, match="chained_barrier_matvec_hbm"):
+        tk.chained_barrier_matvec(zs, v, v, v, 4)
+    assert tk.launch_counts()["chained_barrier_matvec"] == 0
 
 
 def test_fused_solver_launches_one_kernel_per_step(dev):
@@ -202,7 +219,7 @@ ONE_PASS_REL = 1e-6
     ("highest", True, 1000, 16, None),
     ("high", True, 1000, 16, None),
     ("default", True, 1000, 16, None),
-    ("highest", True, 1001, 3, None),  # the scalar (not float4) row loads
+    ("highest", True, 1001, 3, None),  # n not a multiple of 4: padded rows
     ("highest", False, 128, 128, 8),  # Z' in shared memory, St(128, 8) frames
     ("high", False, 128, 1024, 8),
     ("default", False, 128, 64, 8),
@@ -239,6 +256,63 @@ def test_bare_chain_kernel_rounding_rules(dev, left, n, vecs, group):
         out = tk.bare_matvec_chain(zs, v0, 1, p, left, group=group)
         for q, ref in plain.items():
             assert (rel(out, ref) <= ONE_PASS_REL) == (q == p), (p, q, rel(out, ref))
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("r", [1, 16, 128])
+@pytest.mark.parametrize("n", [250, 1000, 1001])
+def test_left_chain_grid_matches_plain(dev, precision, r, n):
+    """K5 left on its cooperative grid, 64 passes on a non-symmetric Z (v @ Z
+    reads columns of Z as given): r = 128 cuts the rows of v into row
+    groups, n = 1001 pads rows to 1004.  The limits are K5_ATOL's, set for
+    unit rows of n = 1000 (entries ~1/sqrt(n)), scaled with the entries:
+    x sqrt(1000 / n)."""
+    rng = np.random.default_rng(9)
+    zs = torch.tensor(rng.standard_normal((n, n)), dtype=torch.float32, device=dev)
+    v0 = torch.tensor(rng.standard_normal((r, n)), dtype=torch.float32, device=dev)
+    tk.reset_launch_counts()
+    out = tk.bare_matvec_chain(zs, v0, 64, precision, True)
+    assert tk.launch_counts()["bare_matvec_chain"] == 1
+    ref = tk.bare_matvec_chain_plain(zs, v0, 64, precision, True)
+    assert out.shape == v0.shape and bool(torch.all(torch.isfinite(out)))
+    torch.testing.assert_close(out, ref, atol=K5_ATOL[precision] * (1000 / n) ** 0.5, rtol=0)
+
+
+def _left_on_plan(zs, v0, n_iters, precision, plan):
+    """K5 left's launcher on a given plan (the wrapper takes the default
+    one); raises on a CUDA error."""
+    from riptrm_torch.ops import _build
+
+    lib = _build.load()
+    r, n = v0.shape
+    out = torch.empty_like(v0)
+    wbuf = torch.empty((2, r, -(-n // 4) * 4), dtype=torch.float32, device=v0.device)
+    err = lib.matvec_chain_left_launch(
+        *(tk._ptr(t) for t in (zs, v0, out, wbuf)), r, n, n_iters,
+        tk.PRECISIONS[precision], plan.col_groups, plan.row_groups, plan.cols, plan.rows,
+        plan.chunk, v0.device.index or 0, tk._stream(v0.device))
+    _build.check(lib, err, "matvec_chain_left_launch")
+    return out
+
+
+def test_left_chain_grid_plans(dev):
+    """Every row-group cut of the left chain, each reached through the
+    default plan at a shape that selects it, gives the function, each run
+    the same bits; a grid beyond co-residency is refused."""
+    rng = np.random.default_rng(10)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for r, n, groups in ((8, 1000, 1), (16, 1000, 2), (128, 1000, 4), (128, 1500, 2)):
+        zs = torch.tensor(rng.standard_normal((n, n)), dtype=torch.float32, device=dev)
+        v0 = torch.tensor(rng.standard_normal((r, n)), dtype=torch.float32, device=dev)
+        ref = tk.bare_matvec_chain_plain(zs, v0, 16, "highest", True)
+        plan = tk.matvec_left_plan(r, n, sms)
+        assert plan.row_groups == groups
+        out = _left_on_plan(zs, v0, 16, "highest", plan)
+        torch.testing.assert_close(out, ref, atol=1e-5 * (1000 / n) ** 0.5, rtol=0)
+        assert torch.equal(out, _left_on_plan(zs, v0, 16, "highest", plan))
+    wide = tk.matvec_left_plan(*v0.shape, 100 * sms)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _left_on_plan(zs, v0, 16, "highest", wide)
 
 
 def test_bare_chain_kernel_nonsymmetric_z(dev):

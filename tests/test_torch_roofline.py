@@ -117,6 +117,18 @@ def test_tcg_row_arithmetic():
     assert row["pct_of_bare_matvec_chain"] == pytest.approx(50.0)
 
 
+def test_main_refuses_sizes_above_the_left_chain_limit(monkeypatch, tmp_path, capsys):
+    """An n beyond K5 left's resident limit (2112 on 132 SMs) is refused up
+    front, before any row runs or the output is written."""
+    monkeypatch.setattr(rl, "cuda_device", lambda: torch.device("cpu"))
+    monkeypatch.setattr(rl, "sphere_row", lambda *a: pytest.fail("a row ran"))
+    out = tmp_path / "roofline.json"
+    with pytest.raises(SystemExit):
+        rl.main(["--sizes", "1000", "2113", "--out", str(out)])
+    assert "--sizes 2113" in capsys.readouterr().err
+    assert not out.exists()
+
+
 def test_main_refuses_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     out = tmp_path / "roofline.json"
