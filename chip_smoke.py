@@ -26,12 +26,14 @@ Phases:
   2. K1 chained_barrier_matvec (64 iterations) against its plain version;
   2b. K5 bare_matvec_chain (64 passes) against its plain version on the
      roofline's inputs: left [16, 1000] and [128, 1000] 'highest',
-     [16, 1000] 'high' and 'default'; right [128, 128] and [128, 1024]
-     'highest' in groups of 8 columns; then one pass in each precision,
-     left [16, 1000] and right [128, 1024], each nearer its own rounding
-     rule's plain version than the limit and further from the others';
+     [16, 1000] 'high' and 'default'; right 'highest' at [128, 128],
+     [128, 512] and [128, 1024] (clusters of 8, 2 and 1 row slices, the
+     plans printed); then one pass in each precision, left [16, 1000] and
+     right [128, 1024], each nearer its own rounding rule's plain version
+     than the limit and further from the others';
   2c. K6 chained_barrier_matvec_hbm (64 iterations) against its plain
-     version and K1's kernel at n = 1000, and at n = 4000 (Zs 64 MB);
+     version and K1's kernel at n = 1000, and at n = 4000 (Zs 64 MB), the
+     plans printed;
   3. K2 fused tCG on one n = 1000 subproblem against its plain version;
   4. K3 batched fused tCG at B = 16 and B = 128, mixed radii;
   4b. the Stiefel-bound kernel at St(128, 8), B = 1, 16 and 128, and at
@@ -106,16 +108,15 @@ K1_CHAIN, BARE_CHAIN, HBM_CHAIN = ("chained_barrier_matvec", "bare_matvec_chain"
 TCG_KERNELS = SPHERE_KERNELS[1:] + (STIEFEL_KERNEL,)
 CHAIN_ITERS = 64
 WINDOW_MS = 20.0  # the least length of a phase-8 timing window
-# K5's checks over CHAIN_ITERS passes: (left, precision, rows or columns,
-# group), with max abs error limits on unit rows (entries ~0.03) or columns
+# K5's checks over CHAIN_ITERS passes: (left, precision, rows or columns),
+# with max abs error limits on unit rows (entries ~0.03) or columns
 # (~0.09), a few times the largest error read on the card (PERF.md): the
 # same float32 products summed in another order ('highest', 'high'), or an
 # operand one float32 ulp apart in the two versions rounding to another
 # bf16 value ('default').
 K5_CASES = (
-    (True, "highest", 16, None), (True, "highest", 128, None),
-    (True, "high", 16, None), (True, "default", 16, None),
-    (False, "highest", 128, 8), (False, "highest", 1024, 8),
+    (True, "highest", 16), (True, "highest", 128), (True, "high", 16), (True, "default", 16),
+    (False, "highest", 128), (False, "highest", 512), (False, "highest", 1024),
 )
 K5_LIMITS = {"highest": 1e-5, "high": 1e-4, "default": 3e-3}
 # Over many passes a chain contracts its rounding differences, so no limit
@@ -126,7 +127,7 @@ K5_LIMITS = {"highest": 1e-5, "high": 1e-4, "default": 3e-3}
 # (tests/test_torch_matvec_chain.py).  Each precision's one-pass output
 # must lie within ONE_PASS_REL of its own rule's plain version and beyond
 # it from the other two.
-ONE_PASS_CASES = ((True, 16, None), (False, 1024, 8))
+ONE_PASS_CASES = ((True, 16), (False, 1024))
 ONE_PASS_REL = 1e-6
 
 
@@ -766,8 +767,8 @@ class ChainSmoke:
     """K5 and K6 at the shapes and on the inputs of their path, the
     roofline: K5 left on its sphere rows' Zs (n = 1000, a random symmetric
     Z, on which 64 passes do not converge), right on its Stiefel rows'
-    St(128, 8) Zs in groups of p = 8 columns; K6 on the NonnegPCA chain at
-    x0 and on the roofline's n = 4000 chain."""
+    St(128, 8) Zs (the frames of 16, 64 and 128 lanes side by side); K6 on
+    the NonnegPCA chain at x0 and on the roofline's n = 4000 chain."""
 
     def __init__(self, smoke, hbm_n=4000):
         from riptrm_torch.experiment.roofline import chain_case, sphere_case, stiefel_case
@@ -790,24 +791,27 @@ class ChainSmoke:
         from riptrm_torch.ops import kernels as k
 
         mae_all = 0.0
-        for left, precision, vecs, group in K5_CASES:
+        sms = k._sms(self.device)
+        for left, precision, vecs in K5_CASES:
             zs, v0 = self.k5_case(left, vecs)
-            out = k.bare_matvec_chain(zs, v0, CHAIN_ITERS, precision, left, group=group)
+            out = k.bare_matvec_chain(zs, v0, CHAIN_ITERS, precision, left)
             ref = k.bare_matvec_chain_plain(zs, v0, CHAIN_ITERS, precision, left)
             sync(self.device)
             mae = float(torch.max(torch.abs(out - ref)))
             mae_all = max(mae_all, mae)
+            plan = (k.matvec_left_plan(*v0.shape, sms) if left
+                    else k.matvec_right_plan(*v0.shape, sms, precision))
             say(f"phase 2b K5 bare_matvec_chain {'left' if left else 'right'} "
-                f"{list(v0.shape)} {precision!r}{'' if group is None else f' group {group}'} "
-                f"K={CHAIN_ITERS}: max abs err {mae:.3e} (limit {K5_LIMITS[precision]:.0e})")
+                f"{list(v0.shape)} {precision!r} K={CHAIN_ITERS}: max abs err {mae:.3e} "
+                f"(limit {K5_LIMITS[precision]:.0e}); {plan}")
             check(bool(torch.all(torch.isfinite(out))), "K5 output not finite")
             check(mae <= K5_LIMITS[precision], f"K5 disagrees with its plain version: {mae}")
         precisions = tuple(K5_LIMITS)
-        for left, vecs, group in ONE_PASS_CASES:
+        for left, vecs in ONE_PASS_CASES:
             zs, v0 = self.k5_case(left, vecs)
             plain = {p: k.bare_matvec_chain_plain(zs, v0, 1, p, left) for p in precisions}
             for p in precisions:
-                out = k.bare_matvec_chain(zs, v0, 1, p, left, group=group)
+                out = k.bare_matvec_chain(zs, v0, 1, p, left)
                 sync(self.device)
                 errs = {q: rel_err(out, plain[q]) for q in precisions}
                 others = min(e for q, e in errs.items() if q != p)
@@ -827,6 +831,7 @@ class ChainSmoke:
                  ("n=%d" % self.hbm[0].shape[0], self.hbm, False))
         for label, args, against_k1 in cases:
             out = k.chained_barrier_matvec_hbm(*args, CHAIN_ITERS)
+            say(f"phase 2c K6 {label}: {k.chain_hbm_plan(args[0].shape[0], k._sms(self.device))}")
             refs = [("plain", k.chained_barrier_matvec_plain(*args, CHAIN_ITERS))]
             if against_k1:
                 refs.append(("K1's kernel", k.chained_barrier_matvec(*args, CHAIN_ITERS)))
@@ -850,15 +855,14 @@ class ChainSmoke:
         from riptrm_torch.ops import kernels as k
 
         dev = self.device
-        for left, vecs, group in ((True, 16, None), (True, 64, None), (True, 128, None),
-                                  (False, 128, 8), (False, 1024, 8)):
+        for left, vecs in ((True, 16), (True, 64), (True, 128), (False, 128), (False, 1024)):
             zs, v0 = self.k5_case(left, vecs)
             n = zs.shape[0]
             self.report[BARE_CHAIN].update(time_row(
-                BARE_CHAIN, f"{'left' if left else 'right'} {list(v0.shape)} 'highest'"
-                f"{'' if group is None else f' group {group}'} K={CHAIN_ITERS}",
-                lambda zs=zs, v0=v0, left=left, group=group: k.bare_matvec_chain(
-                    zs, v0, CHAIN_ITERS, "highest", left, group=group),
+                BARE_CHAIN, f"{'left' if left else 'right'} {list(v0.shape)} 'highest' "
+                f"K={CHAIN_ITERS}",
+                lambda zs=zs, v0=v0, left=left: k.bare_matvec_chain(
+                    zs, v0, CHAIN_ITERS, "highest", left),
                 lambda zs=zs, v0=v0, left=left: k.bare_matvec_chain_plain(
                     zs, v0, CHAIN_ITERS, "highest", left),
                 dev, lambda out, n=n, vecs=vecs: bare_chain_work(n, vecs, CHAIN_ITERS),

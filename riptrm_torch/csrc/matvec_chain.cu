@@ -62,12 +62,28 @@
 // and each CTA's read of its rows of w from L2 (r n / row_groups floats
 // per pass).  Z is read as it is given.
 //
-// K5 right.  One CTA per group of g columns; Z' (the wrapper's transpose)
-// in shared memory when it fits with the group (4 (n^2 + 2 n g) bytes:
-// 64 KB at n = 128, g = 8), else read through L2; a thread owns a row and a
-// chunk of the group's columns in registers, so each Z' entry feeds up to
-// MAXK FMAs (stiefel_tcg_kernel's product, stiefel_tcg.cu).
-//
+// K5 right.  Each column is its own chain, so no step is ever needed across
+// column groups; the rows of Z are what is cut.  The plan
+// (ops/kernels.py::matvec_right_plan) takes groups of gc = 8 (or 4) columns
+// and cuts the n rows of Z into `slices` row slices of rs rows, so that
+// groups x slices CTAs come near the SM count (16 groups x 8 slices of 16
+// rows at [128, 128]; 128 groups x 1 slice at [128, 1024]); the slices of
+// one group form one thread-block cluster (at most 8, the portable size).
+// A CTA holds its rows of Z in shared memory (read as given, transposed on
+// the copy, and for 'high' split once into hi and lo), or reads them
+// through L2 when they do not fit beside the group's whole v (double-
+// buffered by pass parity).  The product: a thread's 4 x 4 register tile
+// of w (each Z float4 feeds 16 FMAs, v rows read as float4 broadcasts),
+// the inner dimension split over the threads the tiles leave idle, the
+// splits summed in one fixed order.  The exchange: each CTA writes its
+// block of w and its per-column partial sum of squares into every peer's
+// shared memory (distributed shared memory, cluster.map_shared_rank), then
+// ONE cluster barrier per pass; every CTA sums the partials in the same
+// order (the same bits in every CTA), divides, and has the whole next v
+// locally.  With one slice the barrier is the CTA's own.  What bounds it:
+// the FP32 FMAs (2 n^2 c per pass: ~0.5 us at [128, 1024] at the H100's
+// 67 TFLOP/s) and, at [128, 128], the cluster barrier and the DSMEM writes.
+
 // K5's precisions: every one accumulates in FP32 with FMA on the CUDA
 // cores; 'high' and 'default' round the operands as the TPU does: 'high'
 // is the bf16x3 split hi*hi + hi*lo + lo*hi, 'default' one product of
@@ -76,18 +92,25 @@
 //
 // K6.  What bounds it: the bytes of Zs, n^2 * 4 per iteration (64 MB at
 // n = 4000, above the 50 MB L2), read from device memory.  A cooperative
-// grid of G co-resident CTAs (at most the occupancy times the SM count),
-// each streaming its contiguous slice of rows with 16-byte loads, one warp
-// per row.  An iteration has two grid-wide steps:
-//   1. each CTA loads v (n floats) into shared memory, computes its rows of
-//      Zs v and the partial sums x.(Zs v) and x.(w o v);  -- grid sync --
-//   2. every CTA sums the [G] partials in one fixed order, forms Hw(v) on
-//      its rows, writes them to a global vector and its partial |Hw(v)|^2;
-//      -- grid sync --
-// and the next iteration's load divides by the norm summed the same way.
-// The global vector needs no second buffer: it is read only before the
-// first grid step of the next iteration and written only after it.
-//
+// grid of one CTA per SM (ops/kernels.py::chain_hbm_plan).  In each CTA a
+// producer warp claims rows of Zs from a per-iteration counter and streams
+// them through a ring of shared-memory stages with 1-D bulk copies of the
+// Tensor Memory Accelerator (chunks of at most 8 KB, up to 32 stages,
+// full/empty mbarriers); kHbmWarps consumer warps take the dot products
+// with v.  Claiming, not a fixed cut, because every CTA waits at the grid
+// step for the slowest and the SMs draw unequal shares of the memory
+// bandwidth (on an H100, a fixed cut of 30-31 rows at n = 4000 left CTA 0
+// waiting ~5 us of its ~28 us iteration at the step, PERF.md).  Zs does
+// not depend on v, so the producer runs on into the next iteration's rows
+// while the consumers take the iteration's grid-wide step.  An iteration: the chunks' dot
+// products, the CTA's rows of u = Zs v into a global u (by parity);  --
+// grid step --  every CTA reads all of u and forms x.u, x.(w o v), Hw(v)
+// and |Hw(v)|^2 itself in one order (K1's scheme: one step, the same bits
+// everywhere).  The step is hand-rolled (one atomic add per CTA, as
+// grid.sync() takes it) because grid.sync() would block the producer too.
+// Where n % 4 != 0 (or Zs is not 16-byte aligned) the rows are not 16-byte
+// aligned and the consumers load them themselves.
+
 // Plain C interface for ctypes (riptrm_torch/ops/_build.py): each launcher
 // returns cudaGetLastError() (or the launch's error) after the launch, 0 on
 // success.
@@ -95,6 +118,8 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <climits>
 
 #include "reduce.cuh"
 
@@ -109,7 +134,13 @@ constexpr int kLeftWarps = kLeftThreads / 32;
 constexpr int kTileRows = 8, kTileCols = 8;  // a K5-left warp's tile of w
 constexpr int kTile = kTileRows * kTileCols;
 constexpr int kRightThreads = 256;  // ops/kernels.py::MATVEC_RIGHT_THREADS
-constexpr int kLoads = 8;  // float4 loads a lane has in flight per row (rows_dot)
+constexpr int kRightRows = 4, kRightCols = 4;  // a K5-right thread's tile of w
+constexpr int kRightTile = kRightRows * kRightCols;
+constexpr int kHbmWarps = 8;  // K6's consumer warps (ops/kernels.py::HBM_WARPS)
+constexpr int kHbmMaxStages = 32;  // its ring's most stages
+constexpr int kHbmBatch = 16;  // u entries a K6 consumer loads at once
+constexpr int kHbmConsumers = kHbmWarps * 32;
+constexpr int kHbmThreads = kHbmConsumers + 32;  // and one producer warp
 constexpr int kMaxSums = 2;
 constexpr int kRedSlots = kMaxSums * kWarps + kMaxSums;
 enum Precision { kHighest = 0, kHigh = 1, kDefault = 2 };
@@ -154,45 +185,7 @@ __device__ __forceinline__ float mac4(float4 z, float4 v, float acc) {
   return mac<PREC>(h, l, v.w, acc);
 }
 
-// out[k] = sum_j zs[(row0 + k) * n + j] * v[j] for k < rows, one warp per
-// output entry; v in shared memory, zs read through L2 (float4 when vec4).
-// A warp's row is a chain of L2 round trips, so a lane issues its next
-// kLoads float4 loads of the row before the FMAs that use them (one round
-// trip per row up to n = 1024).  The sum runs in the same order as a plain
-// `c += 32` loop.
-__device__ __forceinline__ void rows_dot(const float* __restrict__ zs, const float* v, float* out,
-                                         int row0, int rows, int n, bool vec4) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int k = warp; k < rows; k += kWarps) {
-    const float* zr = zs + (size_t)(row0 + k) * n;
-    float acc = 0.f;
-    if (vec4) {
-      const float4* z4 = reinterpret_cast<const float4*>(zr);
-      const float4* v4 = reinterpret_cast<const float4*>(v);
-      const int n4 = n >> 2;
-      for (int c0 = lane; c0 < n4; c0 += 32 * kLoads) {
-        float4 zb[kLoads];
-#pragma unroll
-        for (int u = 0; u < kLoads; ++u) {
-          const int c = c0 + 32 * u;
-          zb[u] = c < n4 ? __ldg(z4 + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-#pragma unroll
-        for (int u = 0; u < kLoads; ++u) {
-          const int c = c0 + 32 * u;
-          if (c < n4) acc = mac4<kHighest>(zb[u], v4[c], acc);
-        }
-      }
-    } else {
-#pragma unroll 4
-      for (int c = lane; c < n; c += 32) acc = fmaf(__ldg(zr + c), v[c], acc);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) out[k] = acc;
-  }
-}
-
-__device__ __forceinline__ int pad4(int n) { return (n + 3) & ~3; }
+__host__ __device__ __forceinline__ int pad4(int n) { return (n + 3) & ~3; }
 
 // ---------------------------------------------------------------------------
 // K1: Zs resident across a cooperative grid
@@ -500,153 +493,460 @@ chain_left_kernel(const float* __restrict__ z, const float* __restrict__ v0,
 }
 
 // ---------------------------------------------------------------------------
-// K5, right: one CTA per group of g columns of v [n, c]
+// K5, right: row slices of Z across a thread-block cluster
 // ---------------------------------------------------------------------------
-// Shared memory: [zt, n^2 floats, when zs_shared] V [n, g], W [n, g], the
-// g column norms.  Task (i, q) owns row i and columns [q kc, q kc + kc) of
-// the group.
-template <int PREC, int MAXK>
-__global__ void __launch_bounds__(kRightThreads)
-chain_right_kernel(const float* __restrict__ zt, const float* __restrict__ v0,
-                   float* __restrict__ out, int n, int c, int g, int n_iters, int zs_shared,
-                   int groups, int kc) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float part[kRightThreads];
-  const int col0 = blockIdx.x * g;
-  const int gw = min(g, c - col0);  // live columns of this group
-  float* cur = smem;
-  const float* Z = zt;
-  if (zs_shared) {
-    for (int i = threadIdx.x; i < n * n; i += kRightThreads) cur[i] = zt[i];
-    Z = cur;
-    cur += (size_t)n * n;
-  }
-  float* V = cur;
-  float* W = V + (size_t)n * g;
-  float* norms = W + (size_t)n * g;
-  for (int idx = threadIdx.x; idx < n * g; idx += kRightThreads) {
-    const int i = idx / g, k = idx % g;
-    V[idx] = k < gw ? v0[(size_t)i * c + col0 + k] : 0.f;
-  }
-  const int segs = kRightThreads / g > 0 ? kRightThreads / g : 1;
-  for (int it = 0; it < n_iters; ++it) {
+// Every barrier of a pass: the cluster's when the group has several slices,
+// the CTA's own otherwise.
+__device__ __forceinline__ void slices_sync(int slices) {
+  if (slices > 1)
+    cg::this_cluster().sync();
+  else
     __syncthreads();
-    for (int t = threadIdx.x; t < n * groups; t += kRightThreads) {
-      const int i = t % n, k0 = (t / n) * kc;
-      const int cols = min(kc, gw - k0);
-      float acc[MAXK];
+}
+
+// One thread's tile of w = Z v: rows [row0 + 4 rt, +4) of Z (tile % rts = rt)
+// times columns [4 ct, +4) of the group (tile / rts = ct), over the inner
+// indices j = q, q + split, ...  From the slice's rows in shared memory (zh,
+// zl [n][rs], split once for the precision) or from Z in L2.
+template <int PREC, int GC, bool ZS>
+__device__ __forceinline__ void right_tile(float (&acc)[kRightTile], const float* __restrict__ z,
+                                           const float* zh, const float* zl, const float* cur,
+                                           int tile, int q, int nsplit, int n, int rs, int row0,
+                                           int rows) {
+  const int rts = rs / kRightRows, rt = tile % rts, ct = tile / rts;
 #pragma unroll
-      for (int q = 0; q < MAXK; ++q) acc[q] = 0.f;
-      for (int j = 0; j < n; ++j) {
-        float h, l;
-        split<PREC>(Z[(size_t)j * n + i], h, l);  // zt[j, i] = Z[i, j]
-        const float* vj = V + (size_t)j * g + k0;
+  for (int e = 0; e < kRightTile; ++e) acc[e] = 0.f;
+  const float4* v4 = reinterpret_cast<const float4*>(cur) + ct;
+#pragma unroll 4
+  for (int j = q; j < n; j += nsplit) {
+    const float4 vv = v4[(size_t)j * (GC / 4)];
+    float zha[kRightRows], zla[kRightRows];
+    if (ZS) {
+      const float4 h = reinterpret_cast<const float4*>(zh + (size_t)j * rs)[rt];
+      zha[0] = h.x, zha[1] = h.y, zha[2] = h.z, zha[3] = h.w;
+      if (PREC == kHigh) {
+        const float4 l = reinterpret_cast<const float4*>(zl + (size_t)j * rs)[rt];
+        zla[0] = l.x, zla[1] = l.y, zla[2] = l.z, zla[3] = l.w;
+      }
+    } else {
 #pragma unroll
-        for (int q = 0; q < MAXK; ++q)
-          if (q < cols) acc[q] = mac<PREC>(h, l, vj[q], acc[q]);
+      for (int r = 0; r < kRightRows; ++r) {
+        const int i = kRightRows * rt + r;
+        split<PREC>(i < rows ? __ldg(z + (size_t)(row0 + i) * n + j) : 0.f, zha[r], zla[r]);
+      }
+    }
+    float vh[kRightCols] = {vv.x, vv.y, vv.z, vv.w}, vl[kRightCols];
+    if (PREC != kHighest)
+#pragma unroll
+      for (int k = 0; k < kRightCols; ++k) {
+        const float h = bf16_round(vh[k]);
+        vl[k] = bf16_round(vh[k] - h);
+        vh[k] = h;
       }
 #pragma unroll
-      for (int q = 0; q < MAXK; ++q)
-        if (q < cols) W[(size_t)i * g + k0 + q] = acc[q];
-    }
-    __syncthreads();
-    // column sums of squares: `segs` interleaved row segments per column,
-    // then each column's segments in order
-    for (int t = threadIdx.x; t < g * segs; t += kRightThreads) {
-      const int k = t % g, s = t / g;
-      float acc = 0.f;
-      if (k < gw)
-        for (int i = s; i < n; i += segs) acc = fmaf(W[(size_t)i * g + k], W[(size_t)i * g + k], acc);
-      part[t] = acc;
-    }
-    __syncthreads();
-    for (int k = threadIdx.x; k < g; k += kRightThreads) {
-      float acc = 0.f;
-      for (int s = 0; s < segs; ++s) acc += part[s * g + k];
-      norms[k] = sqrtf(acc + 1e-30f);
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < n * g; idx += kRightThreads)
-      if (idx % g < gw) V[idx] = W[idx] / norms[idx % g];
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < n * gw; idx += kRightThreads) {
-    const int i = idx / gw, k = idx % gw;
-    out[(size_t)i * c + col0 + k] = V[(size_t)i * g + k];
+    for (int r = 0; r < kRightRows; ++r)
+#pragma unroll
+      for (int k = 0; k < kRightCols; ++k) {
+        float& a = acc[r * kRightCols + k];
+        a = fmaf(zha[r], vh[k], a);
+        if (PREC == kHigh) a = fmaf(zla[r], vh[k], fmaf(zha[r], vl[k], a));
+      }
   }
 }
 
-// ---------------------------------------------------------------------------
-// K6: Zs streamed from device memory by a cooperative grid
-// ---------------------------------------------------------------------------
-// CTA b owns rows [b rows_per_cta, ...) of Zs.  Shared memory: v (n floats)
-// and the CTA's rows of Zs v / Hw(v).  Scratch: hv_g [n] (Hw(v) of the last
-// iteration), partial [3 G] (x.zv and x.(w o v) per CTA, then |hv|^2 per
-// CTA).
-__global__ void __launch_bounds__(kThreads)
-chain_hbm_kernel(const float* __restrict__ zs, const float* __restrict__ x_g,
-                 const float* __restrict__ w_g, const float* __restrict__ v0,
-                 const float* __restrict__ corr_g, float* hv_g, float* partial,
-                 float* __restrict__ out, int n, int n_iters, int rows_per_cta, int vec4) {
-  cg::grid_group grid = cg::this_grid();
+// CTA (group, slice) of a cluster of `slices` CTAs (slice = block_rank()):
+// the group's GC columns of v (col0 = group GC; a ragged last group is
+// zero-padded) and the slice's rs rows of Z (row0 = slice rs).  Dynamic
+// shared memory (floats), as ops/kernels.py::matvec_right_plan counts it:
+// V [2][np][GC] (the group's whole v by pass parity, np = slices rs rows,
+// the pad rows zero), when ZS the slice's rows of Z transposed, zh [n][rs]
+// and for 'high' zl [n][rs], red [kRightThreads][kRightTile] when the inner
+// dimension is split, part [2][slices][GC] (the slices' column sums of
+// squares by parity).
+template <int PREC, int GC, bool ZS>
+__global__ void __launch_bounds__(kRightThreads)
+chain_right_kernel(const float* __restrict__ z, const float* __restrict__ v0,
+                   float* __restrict__ out, int n, int c, int n_iters, int rs, int slices) {
+  static_assert(GC % kRightCols == 0 && GC <= kRightThreads / 32 && kRightThreads % GC == 0,
+                "a warp per column; a thread's entries in one column");
   extern __shared__ __align__(16) float smem[];
-  __shared__ float red[kRedSlots];
-  const int nb = gridDim.x;
-  const int row0 = blockIdx.x * rows_per_cta;
-  const int rows = max(0, min(n, row0 + rows_per_cta) - row0);
-  float* v = smem;
-  float* hv = v + n;
-  float* dots = partial;         // [G, 2]
-  float* sq = partial + 2 * nb;  // [G]
-  const float corr = corr_g[0];
-  float nrm = 1.f;
-  for (int it = 0; it < n_iters; ++it) {
-    if (it == 0) {
-      for (int i = threadIdx.x; i < n; i += kThreads) v[i] = v0[i];
-    } else {
-      float t[1];
-      grid_total<kWarps, kMaxSums>(sq, nb, t, red);
-      nrm = sqrtf(t[0]);
-      for (int i = threadIdx.x; i < n; i += kThreads) v[i] = __ldcg(hv_g + i) / nrm;
-    }
-    __syncthreads();
-    rows_dot(zs, v, hv, row0, rows, n, vec4);  // Zs v on the CTA's rows
-    __syncthreads();
-    float s[2] = {0.f, 0.f};
-    for (int k = threadIdx.x; k < rows; k += kThreads) {
-      const int i = row0 + k;
-      s[0] += x_g[i] * hv[k];
-      s[1] += x_g[i] * (w_g[i] * v[i]);
-    }
-    block_sum<kWarps, kMaxSums>(s, red);
-    if (threadIdx.x == 0) {
-      dots[2 * blockIdx.x] = s[0];
-      dots[2 * blockIdx.x + 1] = s[1];
-    }
-    grid.sync();
-    float tot[2];
-    grid_total<kWarps, kMaxSums>(dots, nb, tot, red);
-    float s2[1] = {0.f};
-    for (int k = threadIdx.x; k < rows; k += kThreads) {
-      const int i = row0 + k;
-      const float xi = x_g[i], vi = v[i];
-      const float h = -2.f * (hv[k] - xi * tot[0]) + corr * vi + (w_g[i] * vi - xi * tot[1]);
-      hv[k] = h;
-      hv_g[i] = h;
-      s2[0] += h * h;
-    }
-    block_sum<kWarps, kMaxSums>(s2, red);
-    if (threadIdx.x == 0) sq[blockIdx.x] = s2[0];
-    grid.sync();
-  }
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int slice = slices > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int col0 = (blockIdx.x / slices) * GC, row0 = slice * rs;
+  const int gw = min(GC, c - col0);
+  const int rows = max(0, min(n, row0 + rs) - row0);
+  const int np = rs * slices, rts = rs / kRightRows, tiles = rts * (GC / kRightCols);
+  const int nsplit = tiles < kRightThreads ? kRightThreads / tiles : 1;
+  float* V = smem;
+  float* zh = V + 2 * (size_t)np * GC;
+  float* zl = zh + (ZS ? (size_t)n * rs : 0);
+  float* red = zl + (ZS && PREC == kHigh ? (size_t)n * rs : 0);
+  float* part = red + (nsplit > 1 ? kRightThreads * kRightTile : 0);
+
   if (n_iters == 0) {
-    for (int k = threadIdx.x; k < rows; k += kThreads) out[row0 + k] = v0[row0 + k];
+    for (int idx = tid; idx < rows * gw; idx += kRightThreads) {
+      const int i = idx / gw, k = idx - i * gw;
+      out[(size_t)(row0 + i) * c + col0 + k] = v0[(size_t)(row0 + i) * c + col0 + k];
+    }
     return;
   }
-  float t[1];
-  grid_total<kWarps, kMaxSums>(sq, nb, t, red);
-  nrm = sqrtf(t[0]);
-  for (int k = threadIdx.x; k < rows; k += kThreads) out[row0 + k] = hv[k] / nrm;
+  for (int idx = tid; idx < np * GC; idx += kRightThreads) {
+    const int i = idx / GC, k = idx % GC;
+    V[idx] = i < n && k < gw ? v0[(size_t)i * c + col0 + k] : 0.f;
+  }
+  if (ZS)
+    for (int idx = tid; idx < rs * n; idx += kRightThreads) {
+      const int j = idx / rs, i = idx - j * rs;  // neighbouring threads, neighbouring banks
+      float h, l;
+      split<PREC>(i < rows ? z[(size_t)(row0 + i) * n + j] : 0.f, h, l);
+      zh[(size_t)j * rs + i] = h;
+      if (PREC == kHigh) zl[(size_t)j * rs + i] = l;
+    }
+  slices_sync(slices);  // the cluster runs before any CTA writes to a peer
+
+  // From shared memory, neighbouring threads take neighbouring tiles at one
+  // j (V read as a broadcast, Z as consecutive float4s); from L2,
+  // neighbouring j of one tile (a warp reads along rows of Z).
+  const int tile = ZS || nsplit == 1 ? tid % tiles : tid / nsplit;
+  const int q = ZS || nsplit == 1 ? tid / tiles : tid % nsplit;
+  const int kcol = tid % GC;
+  float norm = 1.f;
+  for (int it = 0; it < n_iters; ++it) {
+    const float* cur = V + (size_t)(it & 1) * np * GC;
+    float* nxt = V + (size_t)((it + 1) & 1) * np * GC;
+    float acc[kRightTile];
+    if (nsplit > 1) {
+      if (tid < nsplit * tiles) {
+        right_tile<PREC, GC, ZS>(acc, z, zh, zl, cur, tile, q, nsplit, n, rs, row0, rows);
+        float4* r4 = reinterpret_cast<float4*>(red + (size_t)(q * tiles + tile) * kRightTile);
+#pragma unroll
+        for (int e = 0; e < kRightTile / 4; ++e)
+          r4[e] = make_float4(acc[4 * e], acc[4 * e + 1], acc[4 * e + 2], acc[4 * e + 3]);
+      }
+    } else {
+      for (int t = tid; t < tiles; t += kRightThreads) {
+        right_tile<PREC, GC, ZS>(acc, z, zh, zl, cur, t, 0, 1, n, rs, row0, rows);
+        const int rt = t % rts, ct = t / rts;
+#pragma unroll
+        for (int r = 0; r < kRightRows; ++r)
+          reinterpret_cast<float4*>(nxt + (size_t)(row0 + kRightRows * rt + r) * GC)[ct] =
+              make_float4(acc[4 * r], acc[4 * r + 1], acc[4 * r + 2], acc[4 * r + 3]);
+      }
+    }
+    __syncthreads();
+    // warp k, column k of the slice's block of w: the splits summed in order
+    // into this CTA's V, and the column's sum of squares into every CTA's
+    // part (lane l writes rank l's); then the block into every peer's V
+    float* pp = part + (size_t)((it + 1) & 1) * slices * GC;
+    if (warp < GC) {
+      const int k = warp, e0 = k % kRightCols, ct = k / kRightCols;
+      float ss = 0.f;
+      for (int i = lane; i < rows; i += 32) {
+        const size_t at = (size_t)(row0 + i) * GC + k;
+        float w;
+        if (nsplit > 1) {
+          const float* rp = red + (size_t)(i / kRightRows + rts * ct) * kRightTile +
+                            (i % kRightRows) * kRightCols + e0;
+          w = 0.f;
+          for (int u = 0; u < nsplit; ++u) w += rp[(size_t)u * tiles * kRightTile];
+          nxt[at] = w;
+        } else {
+          w = nxt[at];
+        }
+        ss = fmaf(w, w, ss);
+      }
+      ss = warp_sum(ss);
+      if (lane < slices)
+        (slices > 1 ? cg::this_cluster().map_shared_rank(pp, lane) : pp)[slice * GC + k] = ss;
+    }
+    if (slices > 1) {
+      __syncthreads();
+      const int blk4 = rs * GC / 4;
+      const float4* src = reinterpret_cast<const float4*>(nxt + (size_t)row0 * GC);
+      for (int idx = tid; idx < (slices - 1) * blk4; idx += kRightThreads) {
+        const int p = idx / blk4, e = idx - p * blk4;
+        float* peer = cg::this_cluster().map_shared_rank(nxt, (slice + 1 + p) % slices);
+        reinterpret_cast<float4*>(peer + (size_t)row0 * GC)[e] = src[e];
+      }
+    }
+    slices_sync(slices);  // the one step of the pass across the cluster
+    // a thread's entries all lie in column tid % GC (kRightThreads % GC == 0):
+    // it sums that column's partials itself, in the order every CTA does
+    norm = 0.f;
+    for (int u = 0; u < slices; ++u) norm += pp[u * GC + kcol];
+    norm = sqrtf(norm + 1e-30f);
+    if (it + 1 < n_iters) {
+      for (int idx = tid; idx < np * GC; idx += kRightThreads) nxt[idx] = nxt[idx] / norm;
+      __syncthreads();
+    }
+  }
+  const float* last = V + (size_t)(n_iters & 1) * np * GC;
+  if (kcol < gw)
+    for (int i = tid / GC; i < rows; i += kRightThreads / GC)
+      out[(size_t)(row0 + i) * c + col0 + kcol] = last[(size_t)(row0 + i) * GC + kcol] / norm;
+}
+
+// ---------------------------------------------------------------------------
+// K6: Zs streamed from device memory through a ring of bulk copies
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// to shared memory by the Tensor Memory Accelerator; the barrier's phase
+// completes when they have landed.
+__device__ __forceinline__ void bulk_load(float* dst, const float* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A barrier of the consumer warps alone (the producer never waits on it).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kHbmConsumers) : "memory");
+}
+
+struct ConsumersSync {
+  __device__ __forceinline__ void operator()() const { consumers_sync(); }
+};
+
+// A grid-wide step taken by one thread of each CTA of a co-resident grid
+// (the CTA's other consumers wait for it at consumers_sync), as
+// cooperative_groups' grid.sync() takes it: one atomic add per CTA on one
+// word (zero before the first step), CTA 0 adding 2^31 - (nb - 1) and the
+// others 1, so the word's top bit flips when the last CTA arrives; each CTA
+// spins until it sees its own add's top bit flipped.  The fence publishes
+// what the CTA wrote before the step; the acquiring load makes visible
+// what the others did.
+__device__ __forceinline__ void grid_step(unsigned* bar, unsigned nb) {
+  __threadfence();
+  const unsigned old = atomicAdd(bar, blockIdx.x == 0 ? 0x80000000u - (nb - 1) : 1u);
+  unsigned now;
+  do {
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(now) : "l"(bar) : "memory");
+  } while (((old ^ now) & 0x80000000u) == 0);
+}
+
+// The rows of Zs go to the CTAs as they stream, not by a fixed cut: every
+// CTA waits at the grid step for the slowest, and SMs draw unequal shares of
+// the card's memory bandwidth, so each CTA's producer claims rows one at a
+// time from a per-iteration counter (claims[it], zero on entry), the next
+// claim in flight while the current row's chunks are issued; a CTA claims
+// at most `cap` rows an iteration.  A row is cut into `pieces` chunks of at
+// most `piece` floats (a multiple of 4).  The producer numbers its chunks
+// on across iterations: chunk q lands in stage q % stages (a multiple of
+// kHbmWarps) with a tag (iteration, slot, piece, row), slot being the
+// row's place among the CTA's rows of that iteration, and is consumed by
+// warp q % kHbmWarps, so each stage has one consumer, which sees its
+// phases in order.  After an iteration's rows the producer records their
+// number and issues one empty end chunk per warp.  It claims rows for
+// iteration j only once the consumers have read their rows of j - 2 (the
+// row table and the counts are double-buffered by parity).  Dynamic shared
+// memory (floats), as ops/kernels.py::chain_hbm_plan counts it: the stages
+// [stages][piece], v [n rounded up to 4], dot [cap][pieces] (the chunks'
+// dot products), rowid [2][cap] (ints), and when xw_shared x and w [n
+// rounded up to 4 each] (read from global memory otherwise).  Scratch: u_g
+// [2 n] (Zs v, by iteration parity), bar [1] and claims [n_iters] (zero).
+// v is kept as the last iteration's Hw(v) itself, with its norm nrm: the
+// rows' dot products are divided by nrm, and every CTA forms the next
+// Hw(v) = a + x (2 x.u - x.(w o v)), a = -2 u + (corr + w) o v, from all of
+// u, x and w (K1's scheme), so an iteration takes one grid step.  Without
+// BULK (n % 4 != 0, or Zs not 16-byte aligned) the consumers read the rows
+// from global memory themselves; the producer still claims and tags them.
+template <bool BULK>
+__global__ void __launch_bounds__(kHbmThreads)
+chain_hbm_kernel(const float* __restrict__ zs, const float* __restrict__ x_g,
+                 const float* __restrict__ w_g, const float* __restrict__ v0,
+                 const float* __restrict__ corr_g, float* u_g, unsigned* bar, int* claims,
+                 float* __restrict__ out, int n, int n_iters, int pieces, int piece,
+                 int stages, int cap, int xw_shared) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) uint64_t full[kHbmMaxStages], empty[kHbmMaxStages];
+  __shared__ int4 tag[kHbmMaxStages];  // iteration, slot (-1: the end), piece, row
+  __shared__ float red[kMaxSums * kHbmWarps + kMaxSums];
+  __shared__ int nrows[2];
+  __shared__ int consumer_iter;  // the iteration whose rows the consumers have read
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nb = gridDim.x, b = blockIdx.x;
+  const int ldk = pad4(n);
+  float* stage = smem;
+  float* v = stage + (size_t)stages * piece;
+  float* dot = v + ldk;
+  int* rowid = reinterpret_cast<int*>(dot + (size_t)cap * pieces);
+  float* xs = reinterpret_cast<float*>(rowid + 2 * cap);
+  float* ws = xs + ldk;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    consumer_iter = -1;
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kHbmWarps) {
+    // The producer: claims rows and streams them, iteration after
+    // iteration, as soon as a stage is free.  The copies never wait for v,
+    // so while the consumers take an iteration's grid step the next
+    // iteration's first rows are already landing.
+    if (lane == 0 && n_iters > 0) {
+      int q = 0;
+      auto next_stage = [&](int4 t) {
+        const int s = q % stages;
+        mbar_wait(&empty[s], ((unsigned)(q / stages) & 1u) ^ 1u);
+        tag[s] = t;
+        ++q;
+        return s;
+      };
+      for (int it = 0; it < n_iters; ++it) {
+        while (*(volatile int*)&consumer_iter < it - 2) __nanosleep(64);
+        int count = 0, row = atomicAdd(claims + it, 1);
+        while (row < n) {
+          const int next = count + 1 < cap ? atomicAdd(claims + it, 1) : n;
+          rowid[(it & 1) * cap + count] = row;
+          for (int p = 0; p < pieces; ++p) {
+            const int s = next_stage(make_int4(it, count, p, row));
+            if (BULK) {
+              const int len = min(piece, n - p * piece);
+              bulk_load(stage + (size_t)s * piece, zs + (size_t)row * n + (size_t)p * piece,
+                        4u * len, &full[s]);
+            } else {
+              mbar_arrive(&full[s]);
+            }
+          }
+          ++count;
+          row = next;
+        }
+        nrows[it & 1] = count;
+        for (int k = 0; k < kHbmWarps; ++k) mbar_arrive(&full[next_stage(make_int4(it, -1, 0, 0))]);
+      }
+    }
+    return;
+  }
+
+  const float corr = corr_g[0];
+  float nrm = 1.f;  // |v| (v0 is taken as it is)
+  for (int i = threadIdx.x; i < n; i += kHbmConsumers) {
+    v[i] = v0[i];
+    if (xw_shared) {
+      xs[i] = x_g[i];
+      ws[i] = w_g[i];
+    }
+  }
+  const float* xp = xw_shared ? xs : x_g;
+  const float* wp = xw_shared ? ws : w_g;
+  consumers_sync();
+  int q = warp;  // this warp's next chunk
+  for (int it = 0; it < n_iters; ++it) {
+    for (;; q += kHbmWarps) {  // this iteration's chunks, up to the warp's end chunk
+      const int s = q % stages;
+      mbar_wait(&full[s], (unsigned)(q / stages) & 1u);
+      const int4 t = tag[s];
+      if (t.y >= 0) {
+        const int p = t.z, len = min(piece, n - p * piece);
+        const float* vp = v + (size_t)p * piece;
+        float acc = 0.f;
+        if (BULK) {
+          const float4* z4 = reinterpret_cast<const float4*>(stage + (size_t)s * piece);
+          const float4* v4 = reinterpret_cast<const float4*>(vp);
+#pragma unroll 4
+          for (int k = lane; k < len / 4; k += 32) acc = mac4<kHighest>(z4[k], v4[k], acc);
+        } else {
+          const float* zr = zs + (size_t)t.w * n + (size_t)p * piece;
+#pragma unroll 4
+          for (int k = lane; k < len; k += 32) acc = fmaf(__ldg(zr + k), vp[k], acc);
+        }
+        acc = warp_sum(acc);
+        if (lane == 0) dot[t.y * pieces + p] = acc;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (t.y < 0) {
+        q += kHbmWarps;
+        break;
+      }
+    }
+    consumers_sync();
+    float* u = u_g + (size_t)(it & 1) * n;
+    const int* rid = rowid + (it & 1) * cap;
+    for (int r = threadIdx.x; r < nrows[it & 1]; r += kHbmConsumers) {
+      float zv = 0.f;
+      for (int p = 0; p < pieces; ++p) zv += dot[r * pieces + p];
+      u[rid[r]] = zv / nrm;  // Zs v for v = the kept vector / nrm
+    }
+    consumers_sync();
+    if (threadIdx.x == 0) {
+      *(volatile int*)&consumer_iter = it;  // this iteration's rows are read
+      grid_step(bar, nb);  // the iteration's one step
+    }
+    consumers_sync();
+    // every CTA: the whole Hw(v) from all of u, in the same order; a
+    // thread's loads of u are issued together (one L2 round trip, while
+    // the stream loads the L2, per kHbmBatch entries)
+    float s[2] = {0.f, 0.f};
+    for (int i0 = threadIdx.x; i0 < n; i0 += kHbmBatch * kHbmConsumers) {
+      float uu[kHbmBatch];
+#pragma unroll
+      for (int k = 0; k < kHbmBatch; ++k) {
+        const int i = i0 + k * kHbmConsumers;
+        uu[k] = i < n ? __ldcg(u + i) : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < kHbmBatch; ++k) {
+        const int i = i0 + k * kHbmConsumers;
+        if (i < n) {
+          const float vi = v[i] / nrm, xi = xp[i], wi = wp[i];
+          s[0] += xi * uu[k];
+          s[1] += xi * (wi * vi);
+          v[i] = -2.f * uu[k] + (corr + wi) * vi;
+        }
+      }
+    }
+    block_sum<kHbmWarps, kMaxSums>(s, red, ConsumersSync());
+    const float c = 2.f * s[0] - s[1];
+    float s2[1] = {0.f};
+    for (int i = threadIdx.x; i < n; i += kHbmConsumers) {
+      const float h = fmaf(xp[i], c, v[i]);
+      v[i] = h;
+      s2[0] += h * h;
+    }
+    block_sum<kHbmWarps, kMaxSums>(s2, red, ConsumersSync());  // v whole after it
+    nrm = sqrtf(s2[0]);
+  }
+  const int base = n / nb, extra = n % nb;  // the output: a fixed cut of the rows
+  const int row0 = b * base + min(b, extra), rows = base + (b < extra ? 1 : 0);
+  for (int r = threadIdx.x; r < rows; r += kHbmConsumers)
+    out[row0 + r] = n_iters == 0 ? v0[row0 + r] : v[row0 + r] / nrm;
 }
 
 // ---------------------------------------------------------------------------
@@ -692,38 +992,61 @@ cudaError_t launch_left(const float* z, const float* v0, float* out, float* wbuf
                             smem, stream);
 }
 
-template <int PREC, int MAXK>
-cudaError_t launch_right(const float* zt, const float* v0, float* out, int n, int c, int g,
-                         int n_iters, int zs_shared, int groups, int kc, cudaStream_t stream) {
-  size_t floats = 2 * (size_t)n * g + g;
-  if (zs_shared) floats += (size_t)n * n;
-  const size_t smem = floats * sizeof(float);
-  auto kernel = chain_right_kernel<PREC, MAXK>;
-  const cudaError_t err = allow_smem(kernel, smem);
+// The layout of chain_right_kernel, as ops/kernels.py::matvec_right_plan
+// counts it.
+size_t right_smem(int n, int rs, int slices, int gc, bool zs_shared, int prec) {
+  const int tiles = rs / kRightRows * (gc / kRightCols);
+  const int nsplit = tiles < kRightThreads ? kRightThreads / tiles : 1;
+  size_t floats = 2 * (size_t)rs * slices * gc + 2 * (size_t)slices * gc;
+  if (zs_shared) floats += (size_t)(prec == kHigh ? 2 : 1) * n * rs;
+  if (nsplit > 1) floats += (size_t)kRightThreads * kRightTile;
+  return floats * sizeof(float);
+}
+
+template <int PREC, int GC, bool ZS>
+cudaError_t launch_right(const float* z, const float* v0, float* out, int n, int c, int n_iters,
+                         int rs, int slices, cudaStream_t stream) {
+  auto kernel = chain_right_kernel<PREC, GC, ZS>;
+  const size_t smem = right_smem(n, rs, slices, GC, ZS, PREC);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<(c + g - 1) / g, kRightThreads, smem, stream>>>(zt, v0, out, n, c, g, n_iters,
-                                                           zs_shared, groups, kc);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = slices;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((c + GC - 1) / GC * slices);
+  cfg.blockDim = dim3(kRightThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, z, v0, out, n, c, n_iters, rs, slices);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it: the refusal is reported here, not later
+    return err;
+  }
   return cudaGetLastError();
 }
 
 template <int PREC>
-cudaError_t launch_right_k(const float* zt, const float* v0, float* out, int n, int c, int g,
-                           int n_iters, int zs_shared, cudaStream_t stream) {
-  // Split a row's g columns over `groups` threads when the rows alone leave
-  // threads idle; each thread keeps kc <= MAXK columns (stiefel_tcg.cu).
-  const int max_k = 32;
-  int groups = n < kRightThreads ? kRightThreads / n : 1;
-  if (groups > g) groups = g;
-  if (groups < (g + max_k - 1) / max_k) groups = (g + max_k - 1) / max_k;
-  const int kc = (g + groups - 1) / groups;
-  groups = (g + kc - 1) / kc;
-  if (kc <= 4) return launch_right<PREC, 4>(zt, v0, out, n, c, g, n_iters, zs_shared, groups, kc, stream);
-  if (kc <= 8) return launch_right<PREC, 8>(zt, v0, out, n, c, g, n_iters, zs_shared, groups, kc, stream);
-  if (kc <= 16) return launch_right<PREC, 16>(zt, v0, out, n, c, g, n_iters, zs_shared, groups, kc, stream);
-  return launch_right<PREC, 32>(zt, v0, out, n, c, g, n_iters, zs_shared, groups, kc, stream);
+cudaError_t launch_right_cols(const float* z, const float* v0, float* out, int n, int c,
+                              int n_iters, int gc, int rs, int slices, int zs_shared,
+                              cudaStream_t st) {
+  if (gc == 8)
+    return zs_shared ? launch_right<PREC, 8, true>(z, v0, out, n, c, n_iters, rs, slices, st)
+                     : launch_right<PREC, 8, false>(z, v0, out, n, c, n_iters, rs, slices, st);
+  return zs_shared ? launch_right<PREC, 4, true>(z, v0, out, n, c, n_iters, rs, slices, st)
+                   : launch_right<PREC, 4, false>(z, v0, out, n, c, n_iters, rs, slices, st);
 }
 
-size_t hbm_smem(int n, int rows_per_cta) { return ((size_t)n + rows_per_cta) * sizeof(float); }
+// The layout of chain_hbm_kernel, as ops/kernels.py::chain_hbm_plan counts it.
+size_t hbm_smem(int n, int pieces, int piece, int stages, int cap, int xw_shared) {
+  return ((size_t)stages * piece + (size_t)pad4(n) * (xw_shared ? 3 : 1) +
+          (size_t)cap * (pieces + 2)) *
+         sizeof(float);
+}
 
 }  // namespace
 
@@ -770,58 +1093,52 @@ int matvec_chain_left_launch(const float* z, const float* v0, float* out, float*
   return (int)cudaErrorInvalidValue;
 }
 
-// K5, right: v0 and out [n, c], groups of g columns; zs_shared as
-// ops/kernels.py::matvec_right_plan decides.
-int matvec_chain_right_launch(const float* zt, const float* v0, float* out, int n, int c, int g,
-                              int n_iters, int prec, int zs_shared, int device, void* stream) {
+// K5, right: v0 and out [n, c]; groups of gc (4 or 8) columns, each a
+// cluster of `slices` CTAs of rs rows of Z (the plan of
+// ops/kernels.py::matvec_right_plan); Z in shared memory when zs_shared.
+int matvec_chain_right_launch(const float* z, const float* v0, float* out, int n, int c,
+                              int n_iters, int prec, int gc, int slices, int rs, int zs_shared,
+                              int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (g < 1 || g > c || g > kRightThreads) return (int)cudaErrorInvalidValue;
+  if ((gc != 4 && gc != 8) || slices < 1 || slices > 8 || rs < kRightRows ||
+      rs % kRightRows != 0 || (long long)rs * slices < n || c < 1)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (prec == kHighest) return (int)launch_right_k<kHighest>(zt, v0, out, n, c, g, n_iters, zs_shared, st);
-  if (prec == kHigh) return (int)launch_right_k<kHigh>(zt, v0, out, n, c, g, n_iters, zs_shared, st);
-  if (prec == kDefault) return (int)launch_right_k<kDefault>(zt, v0, out, n, c, g, n_iters, zs_shared, st);
+#define RIGHT_LAUNCH(P) launch_right_cols<P>(z, v0, out, n, c, n_iters, gc, rs, slices, zs_shared, st)
+  if (prec == kHighest) return (int)RIGHT_LAUNCH(kHighest);
+  if (prec == kHigh) return (int)RIGHT_LAUNCH(kHigh);
+  if (prec == kDefault) return (int)RIGHT_LAUNCH(kDefault);
+#undef RIGHT_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
-// K6's grid: the co-resident capacity (occupancy times SMs), cut so each
-// warp has at least one row.  Returns G > 0, or minus a CUDA error code.
-int chain_hbm_grid(int n, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return -(int)err;
-  const size_t smem = hbm_smem(n, n);  // the most any grid needs
-  err = allow_smem(chain_hbm_kernel, smem);
-  if (err != cudaSuccess) return -(int)err;
-  int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_hbm_kernel, kThreads, smem);
-  if (err != cudaSuccess) return -(int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return -(int)err;
-  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
-  int g = per_sm * sms;
-  const int by_rows = (n + kWarps - 1) / kWarps;
-  if (g > by_rows) g = by_rows;
-  const int rows_per_cta = (n + g - 1) / g;
-  return (n + rows_per_cta - 1) / rows_per_cta;
-}
-
-// K6 on a grid of `grid` CTAs: hv_g [n] and partial [3 grid] are scratch.
+// K6 on a cooperative grid of `grid` CTAs (grid <= n; the rows of Zs cut in
+// `pieces` chunks of at most `piece` floats, a multiple of 4, through a
+// ring of `stages` stages, a multiple of the consumer warps; x and w in
+// shared memory when xw_shared: the plan of ops/kernels.py::chain_hbm_plan);
+// u [2 n], bar [1] and claims [n_iters] (both zero) are scratch.
 int chain_hbm_launch(const float* zs, const float* x, const float* w, const float* v0,
-                     const float* corr, float* hv_g, float* partial, float* out, int n,
-                     int n_iters, int grid, int device, void* stream) {
+                     const float* corr, float* u, unsigned* bar, int* claims, float* out,
+                     int n, int n_iters, int grid, int pieces, int piece, int stages,
+                     int xw_shared, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (grid < 1) return (int)cudaErrorInvalidValue;
-  int rows_per_cta = (n + grid - 1) / grid;
-  const size_t smem = hbm_smem(n, rows_per_cta);
-  err = allow_smem(chain_hbm_kernel, hbm_smem(n, n));
+  if (grid < 1 || grid > n || pieces < 1 || piece < 4 || piece % 4 != 0 ||
+      (long long)pieces * piece < n || stages < kHbmWarps || stages > kHbmMaxStages ||
+      stages % kHbmWarps != 0 || (long long)n_iters * (n * (long long)pieces + kHbmWarps) > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int cap = min(n, 2 * ((n + grid - 1) / grid));  // ops/kernels.py::chain_hbm_plan
+  const size_t smem = hbm_smem(n, pieces, piece, stages, cap, xw_shared);
+  const bool bulk = n % 4 == 0 && aligned16(zs);
+  err = bulk ? allow_smem(chain_hbm_kernel<true>, smem) : allow_smem(chain_hbm_kernel<false>, smem);
   if (err != cudaSuccess) return (int)err;
-  int vec4 = (n % 4 == 0) && aligned16(zs);
-  void* args[] = {(void*)&zs, (void*)&x, (void*)&w, (void*)&v0, (void*)&corr, (void*)&hv_g,
-                  (void*)&partial, (void*)&out, (void*)&n, (void*)&n_iters,
-                  (void*)&rows_per_cta, (void*)&vec4};
-  return (int)launch_cooperative((const void*)chain_hbm_kernel, grid, kThreads, args, smem,
-                                 stream);
+  void* args[] = {(void*)&zs,     (void*)&x,      (void*)&w,       (void*)&v0,
+                  (void*)&corr,   (void*)&u,      (void*)&bar,     (void*)&claims,
+                  (void*)&out,    (void*)&n,      (void*)&n_iters, (void*)&pieces,
+                  (void*)&piece,  (void*)&stages, (void*)&cap,     (void*)&xw_shared};
+  const void* kernel = bulk ? (const void*)chain_hbm_kernel<true> : (const void*)chain_hbm_kernel<false>;
+  return (int)launch_cooperative(kernel, grid, kHbmThreads, args, smem, stream);
 }
 
 }  // extern "C"

@@ -22,11 +22,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The barrier of a whole CTA (block_sum's default).
+struct CtaSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+
 // Sums N per-thread partials over a block of WARPS warps: each warp by a
 // shuffle tree, then warp 0 over the warps' sums; every thread reads the
-// totals back from shared memory after a barrier.
-template <int WARPS, int SLOTS, int N>
-__device__ __forceinline__ void block_sum(float (&v)[N], float* red) {
+// totals back from shared memory after a barrier.  `sync` is the barrier
+// of those WARPS warps (the CTA's, or a named barrier of some of its warps).
+template <int WARPS, int SLOTS, int N, typename Sync = CtaSync>
+__device__ __forceinline__ void block_sum(float (&v)[N], float* red, Sync sync = Sync()) {
   static_assert(WARPS <= 32, "one warp sums the warps' partials");
   static_assert(N <= SLOTS, "too many sums");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -35,7 +41,7 @@ __device__ __forceinline__ void block_sum(float (&v)[N], float* red) {
     v[k] = warp_sum(v[k]);
     if (lane == 0) red[k * WARPS + warp] = v[k];
   }
-  __syncthreads();
+  sync();
   if (warp == 0) {
 #pragma unroll
     for (int k = 0; k < N; ++k) {
@@ -43,7 +49,7 @@ __device__ __forceinline__ void block_sum(float (&v)[N], float* red) {
       if (lane == 0) red[SLOTS * WARPS + k] = t;
     }
   }
-  __syncthreads();
+  sync();
 #pragma unroll
   for (int k = 0; k < N; ++k) v[k] = red[SLOTS * WARPS + k];
 }

@@ -313,10 +313,11 @@ def stiefel_row(n, p, b, maxinner, device):
     call, couple = steady_calls(k.fused_tcg_stiefel_bound_batched, case, Stiefel(n, p), xs,
                                 maxinner)
     ms, calls, its = time_tcg_chain(call, couple, grads)
-    # one lane's frame per group of columns, as the kernel runs one CTA per lane
+    # the B lanes' frames side by side, [n, B p]; the chain's own plan cuts
+    # them (matvec_right_plan): the denominator is the card's best scheme for
+    # the product, not the tCG kernel's one CTA per lane
     v0 = grads.permute(1, 0, 2).reshape(n, b * p) + 0.1
-    chain_ms, chain_k = time_chain(
-        lambda it: k.bare_matvec_chain(zs, v0, it, "highest", False, group=p))
+    chain_ms, chain_k = time_chain(lambda it: k.bare_matvec_chain(zs, v0, it, "highest", False))
     return tcg_row("fused_tcg_stiefel_bound_batched (K4: one kernel for K4a lane-major "
                    "and K4b p-major)", n, b, ms, calls, its,
                    lambda it: stiefel_tcg_work(n, p, it), chain_k / (chain_ms / 1e3), p=p)

@@ -44,13 +44,12 @@ _SIGNATURES = {
     # z, v0, out, wbuf scratch, r, n, n_iters, prec, col_groups, row_groups,
     # cols, rows_per_group, chunk, device, stream
     "matvec_chain_left_launch": [_P] * 4 + [_I] * 10 + [_P],
-    # zt, v0, out, n, c, g, n_iters, prec, zs_shared, device, stream
-    "matvec_chain_right_launch": [_P] * 3 + [_I] * 7 + [_P],
-    # n, device -> grid (or minus a CUDA error code)
-    "chain_hbm_grid": [_I] * 2,
-    # zs, x, w, v0, corr, hv scratch, partial scratch, out, n, n_iters, grid,
+    # z, v0, out, n, c, n_iters, prec, cols, slices, rows, zs_shared,
     # device, stream
-    "chain_hbm_launch": [_P] * 8 + [_I] * 4 + [_P],
+    "matvec_chain_right_launch": [_P] * 3 + [_I] * 9 + [_P],
+    # zs, x, w, v0, corr, u scratch, bar and claims scratch, out, n,
+    # n_iters, grid, pieces, piece, stages, xw_shared, device, stream
+    "chain_hbm_launch": [_P] * 9 + [_I] * 8 + [_P],
 }
 
 

@@ -24,8 +24,9 @@ by ``ops/_build.py``.
   (``_bare_chain_kernel``, K5): K normalised batched matvecs and nothing
   else, the roofline's denominator (``experiment/roofline.py``).
 * ``chained_barrier_matvec_hbm`` replaces ``chained_barrier_matvec_hbm``
-  (``_chain_hbm_kernel``, K6): K1's function on a cooperative grid, for an
-  n whose Zs lies beyond the L2.
+  (``_chain_hbm_kernel``, K6): K1's function on a cooperative grid that
+  streams Zs from device memory through bulk copies, for an n whose Zs
+  lies beyond the L2.
 
 K2 and K3 are one CUDA kernel (one CTA per lane), K2 being its launch at
 B = 1; each keeps its own wrapper and counter.  What bounds them on an H100
@@ -66,8 +67,8 @@ from riptrm_torch.ops.tcg import truncated_cg
 # the kernels' static reduction scratch.  The tCG kernel keeps 8 n-vectors
 # there (so n <= 7232).
 MAX_SMEM_BYTES = 232448 - 1024
-# SMs of an H100 SXM: the grid plans of K1 and K5 left on the CPU, where
-# no card tells its own count.
+# SMs of an H100 SXM: the plans of K1, K5 and K6 on the CPU, where no
+# card tells its own count.
 H100_SMS = 132
 
 
@@ -456,9 +457,10 @@ fused_tcg_stiefel_bound_batched.launches = 0
 # K5: bare matvec chain
 # ---------------------------------------------------------------------------
 PRECISIONS = {"highest": 0, "high": 1, "default": 2}
-# Threads of a CTA of the right-orientation chain (csrc/matvec_chain.cu);
-# a group has at most this many columns.
+# The right-orientation chain (csrc/matvec_chain.cu): threads of a CTA and
+# a thread's tile of w (4 rows x 4 columns).
 MATVEC_RIGHT_THREADS = 256
+RIGHT_TILE = 4
 # The left-orientation chain: threads of a CTA, and a warp's tile of w
 # (rows of v x columns of Z) in registers.
 MATVEC_LEFT_THREADS = 256
@@ -504,20 +506,6 @@ def bare_matvec_chain_plain(zs, v0, n_iters: int, precision: str = "high",
         w2 = torch.sum(w * w, dim=1 if left else 0, keepdim=True)
         v = w / torch.sqrt(w2 + 1e-30)
     return v
-
-
-def matvec_right_plan(n: int, g: int):
-    """(Z in shared memory?, dynamic shared-memory bytes) of K5's right
-    orientation, one CTA per group of g columns: Z' (n^2 floats) beside the
-    group's V and W (2 n g) and g norms when they fit, else the group alone
-    with Z' read through L2.  Raises when even the group does not fit."""
-    group = 2 * n * g + g
-    if (n * n + group) * 4 <= MAX_SMEM_BYTES:
-        return True, (n * n + group) * 4
-    if group * 4 <= MAX_SMEM_BYTES:
-        return False, group * 4
-    raise ValueError(f"n={n}, g={g}: a group of columns ({group * 4} bytes) exceeds the "
-                     f"{MAX_SMEM_BYTES} bytes of shared memory a block may use")
 
 
 class LeftPlan(NamedTuple):
@@ -566,22 +554,72 @@ def matvec_left_plan(r: int, n: int, sms: int = H100_SMS) -> LeftPlan:
     )
 
 
-def bare_matvec_chain(zs, v0, n_iters: int, precision: str = "high", left: bool = True,
-                      *, group=None):
+class RightPlan(NamedTuple):
+    """K5 right: ``groups`` groups of ``cols`` columns of v, each a cluster of
+    ``slices`` CTAs holding ``rows`` rows of Z; ``split`` threads share a
+    tile's inner dimension; Z in shared memory when ``zs_shared``, else read
+    through L2; ``smem`` bytes of shared memory per CTA."""
+
+    cols: int
+    groups: int
+    slices: int
+    rows: int
+    split: int
+    zs_shared: bool
+    smem: int
+
+
+def matvec_right_plan(n: int, c: int, sms: int = H100_SMS,
+                      precision: str = "highest") -> RightPlan:
+    """The plan of K5 right for Z [n, n] and v [n, c] on ``sms`` SMs: groups
+    of 8 columns (4 when c <= 4, or when 8 do not fit), each group's n rows
+    of Z cut into the most slices of the cluster sizes 8, 4, 2, 1 that keep
+    groups x slices <= sms (16 groups x 8 slices of 16 rows at [128, 128],
+    128 groups x 1 slice at [128, 1024]); rows = ceil(n / slices) rounded
+    up to 4.
+    Shared memory, as ``chain_right_kernel`` carves it (csrc/matvec_chain.cu):
+    the group's v by pass parity ([2][slices rows][cols]), the slice's rows
+    of Z transposed ([n][rows], twice for 'high': hi and lo) when they fit,
+    the threads' partial tiles when the inner dimension is split and the
+    slices' column sums of squares by parity.  Where Z does
+    not fit, the CTA reads it through L2.  Raises when not even v fits at 4
+    columns (n > 7200 on 132 SMs)."""
+    for cols in ((8, 4) if c > 4 else (4,)):
+        groups = _ceil(c, cols)
+        slices = next(s for s in (8, 4, 2, 1)  # 8: the portable cluster size
+                      if s == 1 or (groups * s <= sms and s <= _ceil(n, RIGHT_TILE)))
+        rows = _ceil(_ceil(n, slices), RIGHT_TILE) * RIGHT_TILE
+        tiles = rows // RIGHT_TILE * (cols // RIGHT_TILE)
+        split = max(1, MATVEC_RIGHT_THREADS // tiles)
+        base = (2 * rows * slices * cols + 2 * slices * cols
+                + (MATVEC_RIGHT_THREADS * RIGHT_TILE * RIGHT_TILE if split > 1 else 0))
+        zs = (2 if precision == "high" else 1) * n * rows
+        for shared, floats in ((True, base + zs), (False, base)):
+            if floats * 4 <= MAX_SMEM_BYTES:
+                return RightPlan(cols, groups, slices, rows, split, shared, floats * 4)
+    raise ValueError(
+        f"bare_matvec_chain right: n={n}: v at 4 columns ({2 * n * 4 * 4} bytes) exceeds the "
+        f"{MAX_SMEM_BYTES} bytes of shared memory a block may use"
+    )
+
+
+def bare_matvec_chain(zs, v0, n_iters: int, precision: str = "high", left: bool = True):
     """K normalised batched matvecs and nothing else (see the plain
     version): ``zs`` [n, n], ``v0`` [r, n] (``left``) or [n, c].  Returns
     float32 of v0's shape.
 
     Left runs on a cooperative grid with Z resident in shared memory
     (``matvec_left_plan``; n <= 2112 on an H100, a larger n raises on
-    either device), Z read as it is given; right one CTA per ``group``
-    columns (default min(c, 32); the roofline passes p, one lane's frame)
-    on Z transposed.  ``group`` sets only how the work is cut, never the
-    result."""
+    either device); right on groups of columns, each a thread-block cluster
+    of row slices of Z exchanging their blocks of w through distributed
+    shared memory (``matvec_right_plan``; n <= 7200 on an H100, a larger n
+    raises on either device).  Both read Z as it is given."""
     on_card = _on_card(zs, v0)
     _check_chain(zs, v0, precision, left)
-    if left and v0.numel():
-        plan = matvec_left_plan(*v0.shape, _sms(v0.device))
+    if v0.numel():
+        sms = _sms(v0.device)
+        plan = (matvec_left_plan(*v0.shape, sms) if left
+                else matvec_right_plan(*v0.shape, sms, precision))
     if not on_card:
         return bare_matvec_chain_plain(zs, v0, n_iters, precision, left)
     zs, v0 = _f32(zs, v0)
@@ -600,14 +638,10 @@ def bare_matvec_chain(zs, v0, n_iters: int, precision: str = "high", left: bool 
         )
     else:
         n, c = v0.shape
-        g = min(c, 32) if group is None else int(group)
-        if not 1 <= g <= min(c, MATVEC_RIGHT_THREADS):
-            raise ValueError(f"group must be in [1, {min(c, MATVEC_RIGHT_THREADS)}], got {g}")
-        zs_shared, _ = matvec_right_plan(n, g)
-        zt = zs.mT.contiguous()  # read row-wise (== Zs when symmetric)
         err = lib.matvec_chain_right_launch(
-            _ptr(zt), _ptr(v0), _ptr(out), n, c, g, int(n_iters), PRECISIONS[precision],
-            int(zs_shared), dev.index or 0, _stream(dev),
+            _ptr(zs), _ptr(v0), _ptr(out), n, c, int(n_iters), PRECISIONS[precision],
+            plan.cols, plan.slices, plan.rows, int(plan.zs_shared), dev.index or 0,
+            _stream(dev),
         )
     _build.check(lib, err, "bare_matvec_chain")
     bare_matvec_chain.launches += 1
@@ -620,6 +654,61 @@ bare_matvec_chain.launches = 0
 # ---------------------------------------------------------------------------
 # K6: chained barrier-Hessian matvec with Zs beyond the L2
 # ---------------------------------------------------------------------------
+# K6's ring (csrc/matvec_chain.cu): consumer warps, the most stages, and
+# the most floats a stage holds (8 KB).
+HBM_WARPS = 8
+HBM_MAX_STAGES = 32
+HBM_PIECE = 2048
+
+
+class HbmPlan(NamedTuple):
+    """K6's cooperative grid: ``grid`` CTAs, each claiming at most ``cap``
+    rows of Zs an iteration, each row streamed in ``pieces`` chunks of at
+    most ``piece`` floats through a ring of ``stages`` stages; x and w in
+    shared memory when ``xw_shared``; ``smem`` bytes of shared memory per
+    CTA."""
+
+    grid: int
+    cap: int
+    pieces: int
+    piece: int
+    stages: int
+    xw_shared: bool
+    smem: int
+
+
+def chain_hbm_plan(n: int, sms: int = H100_SMS) -> HbmPlan:
+    """The plan of K6 at n on ``sms`` SMs: one CTA per SM (grid = min(sms,
+    n)), each claiming up to twice its even share of rows an iteration (cap
+    = min(n, 2 ceil(n / grid))), a row cut into the fewest chunks of at most
+    HBM_PIECE floats, each a multiple of 4 (16 bytes), and as many stages as
+    fit, a multiple of the HBM_WARPS consumer warps, up to HBM_MAX_STAGES.
+    x and w sit in shared memory (read by every CTA on every iteration)
+    where they leave room for two stages per warp, else they are read from
+    global memory (at n = 4000: chunks of 8000 bytes, x and w in shared
+    memory, 16 stages, 128 KB in flight).
+    Shared memory, as ``chain_hbm_kernel`` carves it (csrc/matvec_chain.cu):
+    the stages, v (n rounded up to 4), the claimed rows' chunk sums and row
+    table (cap x (pieces + 2)), and x and w.  Takes every n that two
+    n-vectors leave in one block's shared memory (``_check_smem(n, 2)``: n
+    <= 28928), and raises above."""
+    _check_smem(n, 2)
+    grid = max(1, min(sms, n))
+    cap = min(n, 2 * _ceil(n, grid))
+    pieces = _ceil(n, HBM_PIECE)
+    ldk = _ceil(n, 4) * 4
+    while True:
+        piece = _ceil(_ceil(n, pieces), 4) * 4
+        for xw_shared, least in ((True, 2), (False, 1)):
+            fixed = ldk * (3 if xw_shared else 1) + cap * (pieces + 2)
+            per_warp = (MAX_SMEM_BYTES // 4 - fixed) // (HBM_WARPS * piece)
+            stages = HBM_WARPS * min(per_warp, HBM_MAX_STAGES // HBM_WARPS)
+            if per_warp >= least:
+                return HbmPlan(grid, cap, pieces, piece, stages, xw_shared,
+                               4 * (stages * piece + fixed))
+        pieces += 1
+
+
 def chained_barrier_matvec_hbm(zs, x, y_over_c, v0, n_iters: int):
     """K1's function (``chained_barrier_matvec``; its plain version is this
     one's) for an n whose Zs does not fit near one SM: on the H100, Zs
@@ -628,29 +717,28 @@ def chained_barrier_matvec_hbm(zs, x, y_over_c, v0, n_iters: int):
     ``zs`` [n, n] (symmetric); ``x``, ``y_over_c``, ``v0`` [n].  Returns [n]
     float32.  The TPU function's ``block`` (a VMEM budget for its streaming
     buffers, from ``pick_hbm_block``) and its padding of n to a multiple of
-    128 have no counterpart: a cooperative grid of as many CTAs as are
-    co-resident (at most one warp per row), each owning a contiguous slice
-    of Zs's rows, streams Zs from device memory with two grid-wide steps
-    per iteration (csrc/matvec_chain.cu)."""
+    128 have no counterpart: a cooperative grid of one CTA per SM
+    (``chain_hbm_plan``), each claiming rows of Zs as it goes and streaming
+    them from device memory through a ring of bulk copies that runs on
+    across the iteration's grid-wide step (csrc/matvec_chain.cu).  n <= 28928; a
+    larger n raises on either device."""
+    n = x.shape[0]
+    plan = chain_hbm_plan(n, _sms(x.device))
     if not _on_card(zs, x, y_over_c, v0):
         return chained_barrier_matvec_plain(zs, x, y_over_c, v0, n_iters)
     zs, x, w, v0 = _f32(zs, x, y_over_c, v0)
-    n = x.shape[0]
     if zs.shape != (n, n) or w.shape != (n,) or v0.shape != (n,):
         raise ValueError("chained_barrier_matvec_hbm: shape mismatch")
-    _check_smem(n, 2)
     corr = barrier_corr(zs, x[None], w[None]).contiguous()
-    lib = _build.load()
-    dev = x.device.index or 0
-    g = lib.chain_hbm_grid(n, dev)
-    if g <= 0:
-        _build.check(lib, -g, "chained_barrier_matvec_hbm grid")
-    hv = torch.empty_like(x)
-    partial = torch.empty(3 * g, dtype=torch.float32, device=x.device)
+    u = torch.empty(2 * n, dtype=torch.float32, device=x.device)
+    counters = torch.zeros(1 + max(1, int(n_iters)), dtype=torch.int32, device=x.device)
     out = torch.empty_like(x)
+    lib = _build.load()
     err = lib.chain_hbm_launch(
-        _ptr(zs), _ptr(x), _ptr(w), _ptr(v0), _ptr(corr), _ptr(hv), _ptr(partial), _ptr(out),
-        n, int(n_iters), g, dev, _stream(x.device),
+        _ptr(zs), _ptr(x), _ptr(w), _ptr(v0), _ptr(corr), _ptr(u), _ptr(counters),
+        _ptr(counters[1:]), _ptr(out), n,
+        int(n_iters), plan.grid, plan.pieces, plan.piece, plan.stages, int(plan.xw_shared),
+        x.device.index or 0, _stream(x.device),
     )
     _build.check(lib, err, "chained_barrier_matvec_hbm")
     chained_barrier_matvec_hbm.launches += 1

@@ -1,11 +1,13 @@
-"""The cooperative-grid plans of the PyTorch port's chain kernels
-(``ops/kernels.py``): K1 ``chained_barrier_matvec`` and K5
-``bare_matvec_chain`` in the left orientation.
+"""The plans of the PyTorch port's chain kernels (``ops/kernels.py``): K1
+``chained_barrier_matvec``, K5 ``bare_matvec_chain`` in both orientations
+and K6 ``chained_barrier_matvec_hbm``.
 
-Both kernels hold their matrix in the shared memory of a cooperative grid,
-one CTA per SM, for the whole call (``csrc/matvec_chain.cu``).  The plans
-are pure Python, so their cuts, their shared-memory sizes and their
-refusals are tested here; the kernels themselves on the card in
+K1 and K5 left hold their matrix in the shared memory of a cooperative
+grid, one CTA per SM, for the whole call; K5 right cuts Z into row slices
+across a thread-block cluster per group of columns; K6 streams Zs through a
+ring of shared-memory stages on a cooperative grid (``csrc/matvec_chain.cu``).
+The plans are pure Python, so their cuts, their shared-memory sizes and
+their refusals are tested here; the kernels themselves on the card in
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
@@ -111,3 +113,98 @@ def test_right_orientation_has_no_left_plan():
     beyond the left plan's limit still runs there."""
     out = tk.bare_matvec_chain(torch.eye(2113), torch.ones(2113, 2), 1, "highest", False)
     assert out.shape == (2113, 2)
+
+
+# The right chain's former design, one CTA per group of 8 columns holding
+# the group's V and W (2 n 8 floats) and 8 norms in one block's shared
+# memory, took n up to 3615; the cluster design keeps that range.
+GROUP8_MAX_N = 3615
+
+
+@pytest.mark.parametrize("n,c,precision,plan", [
+    (128, 128, "highest", (8, 16, 8, 16, True)),  # St(128, 8) x 16 lanes: clusters of 8
+    (128, 512, "highest", (8, 64, 2, 64, True)),  # x 64 lanes: clusters of 2
+    (128, 1024, "highest", (8, 128, 1, 128, True)),  # x 128 lanes: one CTA a group
+    (128, 3, "high", (4, 1, 8, 16, True)),  # c <= 4: one group of 4 columns
+    (32, 12, "highest", (8, 2, 8, 4, True)),  # a ragged last group
+    (512, 16, "highest", (8, 2, 8, 64, True)),
+    (512, 16, "high", (8, 2, 8, 64, False)),  # hi and lo do not fit: Z through L2
+    (1000, 16, "highest", (8, 2, 8, 128, False)),
+    (GROUP8_MAX_N, 8, "highest", (4, 2, 8, 452, False)),  # 8 columns of v do not fit
+])
+def test_right_plan(n, c, precision, plan):
+    p = tk.matvec_right_plan(n, c, precision=precision)
+    assert (p.cols, p.groups, p.slices, p.rows, p.zs_shared) == plan
+    assert (p.groups - 1) * p.cols < c <= p.groups * p.cols
+    assert p.rows % tk.RIGHT_TILE == 0 and p.rows * p.slices >= n
+    assert p.rows * (p.slices - 1) < n  # no slice is all padding
+    assert p.slices <= 8  # the portable cluster size
+    assert p.slices == 1 or p.groups * p.slices <= tk.H100_SMS
+    tiles = p.rows // tk.RIGHT_TILE * (p.cols // tk.RIGHT_TILE)
+    assert p.split == max(1, tk.MATVEC_RIGHT_THREADS // tiles)
+    red = tk.MATVEC_RIGHT_THREADS * 16 if p.split > 1 else 0
+    zs = (2 if precision == "high" else 1) * n * p.rows
+    base = 2 * p.rows * p.slices * p.cols + 2 * p.slices * p.cols + red
+    assert p.smem == 4 * (base + (zs if p.zs_shared else 0)) <= tk.MAX_SMEM_BYTES
+    assert p.zs_shared or 4 * (base + zs) > tk.MAX_SMEM_BYTES  # L2 only where Z does not fit
+
+
+@pytest.mark.parametrize("c", [1, 5, 8, 1024])
+def test_right_plan_takes_every_n_up_to_3615(c):
+    """Every n that the former right chain took with a group of 8 columns
+    has a plan, at any c and in every precision."""
+    for precision in tk.PRECISIONS:
+        for n in range(1, GROUP8_MAX_N + 1):
+            p = tk.matvec_right_plan(n, c, precision=precision)
+            assert p.smem <= tk.MAX_SMEM_BYTES and p.rows * p.slices >= n
+
+
+def test_right_plan_refuses_above_its_limit():
+    """v at 4 columns, double-buffered, fills a block's shared memory above
+    n = 7200; the wrapper refuses such an n on either device."""
+    tk.matvec_right_plan(7200, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.matvec_right_plan(7201, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.bare_matvec_chain(torch.zeros(7201, 7201), torch.ones(7201, 2), 1, "highest", False)
+
+
+@pytest.mark.parametrize("n,grid,cap,pieces,piece,stages,xw_shared", [
+    (1, 1, 1, 1, 4, 32, True),
+    (200, 132, 4, 1, 200, 32, True),
+    (1000, 132, 16, 1, 1000, 32, True),
+    (1001, 132, 16, 1, 1004, 32, True),  # n % 4 != 0: the chunk padded to 16 bytes
+    (4000, 132, 62, 2, 2000, 16, True),  # the roofline's n: 16 stages of 8000 bytes
+    (8200, 132, 126, 5, 1640, 16, True),
+    (10000, 132, 152, 5, 2000, 16, False),  # x and w would leave one stage per warp
+    (28928, 132, 440, 15, 1932, 8, False),  # the largest n
+])
+def test_hbm_plan(n, grid, cap, pieces, piece, stages, xw_shared):
+    p = tk.chain_hbm_plan(n)
+    assert tuple(p)[:6] == (grid, cap, pieces, piece, stages, xw_shared)
+    assert p.grid <= min(n, tk.H100_SMS)  # one CTA per SM: co-resident
+    assert p.cap == min(n, 2 * -(-n // p.grid))  # the CTAs' caps cover the rows twice
+    assert p.piece % 4 == 0 and p.piece <= tk.HBM_PIECE
+    assert (p.pieces - 1) * p.piece < n <= p.pieces * p.piece
+    assert p.stages % tk.HBM_WARPS == 0 and tk.HBM_WARPS <= p.stages <= tk.HBM_MAX_STAGES
+    fixed = -(-n // 4) * 4 * (3 if p.xw_shared else 1) + p.cap * (p.pieces + 2)
+    assert p.smem == 4 * (p.stages * p.piece + fixed) <= tk.MAX_SMEM_BYTES
+    # another stage per warp would not fit, unless the most are taken
+    more = 4 * ((p.stages + tk.HBM_WARPS) * p.piece + fixed)
+    assert p.stages == tk.HBM_MAX_STAGES or more > tk.MAX_SMEM_BYTES
+
+
+def test_hbm_plan_takes_every_n_up_to_its_limit():
+    """Every n that two n-vectors leave in one block's shared memory (the
+    range of K6's former design) has a plan; one more is refused, by the wrapper
+    too on the CPU."""
+    largest = tk.MAX_SMEM_BYTES // 8
+    for n in range(1, largest + 1):
+        p = tk.chain_hbm_plan(n)
+        assert p.smem <= tk.MAX_SMEM_BYTES and p.pieces * p.piece >= n
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.chain_hbm_plan(largest + 1)
+    n = largest + 1
+    v = torch.ones(n) / n ** 0.5
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.chained_barrier_matvec_hbm(torch.zeros(1, 1).expand(n, n), v, v, v, 1)

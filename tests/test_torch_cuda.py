@@ -215,33 +215,83 @@ K5_ATOL = {"highest": 1e-5, "high": 1e-4, "default": 3e-3}
 ONE_PASS_REL = 1e-6
 
 
-@pytest.mark.parametrize("precision,left,n,vecs,group", [
-    ("highest", True, 1000, 16, None),
-    ("high", True, 1000, 16, None),
-    ("default", True, 1000, 16, None),
-    ("highest", True, 1001, 3, None),  # n not a multiple of 4: padded rows
-    ("highest", False, 128, 128, 8),  # Z' in shared memory, St(128, 8) frames
-    ("high", False, 128, 1024, 8),
-    ("default", False, 128, 64, 8),
-    ("highest", False, 200, 12, 5),  # ragged last group
-    ("highest", False, 512, 16, 8),  # Z' through L2
+@pytest.mark.parametrize("precision,left,n,vecs", [
+    ("highest", True, 1000, 16),
+    ("high", True, 1000, 16),
+    ("default", True, 1000, 16),
+    ("highest", True, 1001, 3),  # n not a multiple of 4: padded rows
+    ("highest", False, 128, 128),  # St(128, 8) frames of 16 lanes
+    ("high", False, 128, 1024),
+    ("default", False, 128, 64),
+    ("highest", False, 200, 12),  # ragged last group
+    ("highest", False, 1000, 16),  # Z through L2
 ])
-def test_bare_chain_kernel_matches_plain(dev, precision, left, n, vecs, group):
+def test_bare_chain_kernel_matches_plain(dev, precision, left, n, vecs):
     rng = np.random.default_rng(5)
     z = rng.standard_normal((n, n))
     zs = torch.tensor(z + z.T, dtype=torch.float32, device=dev)
     v0 = torch.tensor(rng.standard_normal((vecs, n) if left else (n, vecs)),
                       dtype=torch.float32, device=dev)
     tk.reset_launch_counts()
-    out = tk.bare_matvec_chain(zs, v0, 64, precision, left, group=group)
+    out = tk.bare_matvec_chain(zs, v0, 64, precision, left)
     assert tk.launch_counts()["bare_matvec_chain"] == 1
     ref = tk.bare_matvec_chain_plain(zs, v0, 64, precision, left)
     assert out.shape == v0.shape and bool(torch.all(torch.isfinite(out)))
     torch.testing.assert_close(out, ref, atol=K5_ATOL[precision], rtol=0)
 
 
-@pytest.mark.parametrize("left,n,vecs,group", [(True, 1000, 16, None), (False, 128, 1024, 8)])
-def test_bare_chain_kernel_rounding_rules(dev, left, n, vecs, group):
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("n,c,slices,cols,zs_shared", [
+    (128, 1024, 1, 8, True),  # one CTA a group: the CTA's own barrier
+    (128, 512, 2, 8, True),  # clusters of 2
+    (128, 128, 8, 8, True),  # clusters of 8
+    (128, 3, 8, 4, True),  # one ragged group of 4 columns
+    (200, 12, 8, 8, True),  # a ragged last group of 8; slices of 28 rows
+    (1000, 16, 8, 8, False),  # Z through L2
+    (3615, 8, 8, 4, False),  # the former design's largest n at 8 columns: 4 columns, L2
+])
+def test_right_chain_plans_match_plain(dev, precision, n, c, slices, cols, zs_shared):
+    """K5 right on every kind of plan the card's SM count gives at these
+    shapes, on a symmetric Z as the roofline's (K5_ATOL's limits hold
+    where the chain contracts its rounding differences; the rows of a
+    non-symmetric Z are read in test_right_chain_few_passes): each cluster
+    size the roofline's shapes use, ragged groups, Z through L2, in every
+    precision; each run gives the same bits.  The limits are K5_ATOL's,
+    set for unit columns of n = 1000 (entries ~1/sqrt(n)), scaled down with
+    the entries for a larger n: x sqrt(1000 / n)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = tk.matvec_right_plan(n, c, sms, precision)
+    assert (plan.slices, plan.cols, plan.zs_shared) == (slices, cols, zs_shared)
+    rng = np.random.default_rng(11)
+    z = rng.standard_normal((n, n))
+    zs = torch.tensor(z + z.T, dtype=torch.float32, device=dev)
+    v0 = torch.tensor(rng.standard_normal((n, c)), dtype=torch.float32, device=dev)
+    iters = 64 if n <= 1000 else 8
+    out = tk.bare_matvec_chain(zs, v0, iters, precision, False)
+    ref = tk.bare_matvec_chain_plain(zs, v0, iters, precision, False)
+    assert out.shape == v0.shape and bool(torch.all(torch.isfinite(out)))
+    atol = K5_ATOL[precision] * min(1.0, (1000 / n) ** 0.5)
+    torch.testing.assert_close(out, ref, atol=atol, rtol=0)
+    assert torch.equal(out, tk.bare_matvec_chain(zs, v0, iters, precision, False))
+
+
+@pytest.mark.parametrize("n_iters", [0, 1, 2])
+def test_right_chain_few_passes(dev, n_iters):
+    """No pass returns v0 itself; one and two passes (no and one exchange
+    of normalised v between the slices) match the plain version, on a
+    non-symmetric Z across clusters of 8 row slices."""
+    rng = np.random.default_rng(12)
+    zs = torch.tensor(rng.standard_normal((128, 128)), dtype=torch.float32, device=dev)
+    v0 = torch.tensor(rng.standard_normal((128, 128)), dtype=torch.float32, device=dev)
+    out = tk.bare_matvec_chain(zs, v0, n_iters, "highest", False)
+    ref = tk.bare_matvec_chain_plain(zs, v0, n_iters, "highest", False)
+    if n_iters == 0:
+        assert torch.equal(out, v0)
+    torch.testing.assert_close(out, ref, atol=K5_ATOL["highest"], rtol=0)
+
+
+@pytest.mark.parametrize("left,n,vecs", [(True, 1000, 16), (False, 128, 1024)])
+def test_bare_chain_kernel_rounding_rules(dev, left, n, vecs):
     """One pass in each precision lies within ONE_PASS_REL of its own rule's
     plain version and beyond it from the other two rules'."""
     rng = np.random.default_rng(8)
@@ -253,7 +303,7 @@ def test_bare_chain_kernel_rounding_rules(dev, left, n, vecs, group):
     rel = lambda a, b: float(torch.linalg.vector_norm((a - b).double())
                              / torch.linalg.vector_norm(b.double()))
     for p in K5_ATOL:
-        out = tk.bare_matvec_chain(zs, v0, 1, p, left, group=group)
+        out = tk.bare_matvec_chain(zs, v0, 1, p, left)
         for q, ref in plain.items():
             assert (rel(out, ref) <= ONE_PASS_REL) == (q == p), (p, q, rel(out, ref))
 
@@ -332,42 +382,61 @@ def _hbm_args(n, dev):
     return zs, xs[0], ws[0], v0
 
 
-@pytest.mark.parametrize("n", [200, 1000, 4000])
+@pytest.mark.parametrize("n", [200, 1000, 1001, 4000, 4001])
 def test_hbm_chain_kernel_matches_plain(dev, n):
-    """n = 4000: Zs is 64 MB, above the 50 MB L2."""
+    """n = 4000: Zs is 64 MB, above the 50 MB L2, streamed by bulk copies;
+    n = 1001 and 4001 (n % 4 != 0): the rows are not 16-byte aligned and
+    the consumers load them themselves.  Limits as K1's."""
     args = _hbm_args(n, dev)
     tk.reset_launch_counts()
     out = tk.chained_barrier_matvec_hbm(*args, 64)
     assert tk.launch_counts()["chained_barrier_matvec_hbm"] == 1
     ref = tk.chained_barrier_matvec_plain(*args, 64)
     torch.testing.assert_close(out, ref, atol=2e-4, rtol=1e-3)
+    assert torch.equal(out, tk.chained_barrier_matvec_hbm(*args, 64))
     if n == 1000:  # K1's kernel computes the same function
         torch.testing.assert_close(out, tk.chained_barrier_matvec(*args, 64), atol=2e-4,
                                    rtol=1e-3)
 
 
+@pytest.mark.parametrize("n_iters", [0, 1, 2])
+def test_hbm_chain_kernel_few_iterations(dev, n_iters):
+    """No iteration returns v0; one and two (the ring crossing one
+    iteration boundary) match the plain version, at n = 4000."""
+    args = _hbm_args(4000, dev)
+    out = tk.chained_barrier_matvec_hbm(*args, n_iters)
+    if n_iters == 0:
+        assert torch.equal(out, args[3])
+    ref = tk.chained_barrier_matvec_plain(*args, n_iters)
+    torch.testing.assert_close(out, ref, atol=2e-4, rtol=1e-3)
+
+
 def _hbm_on_grid(zs, x, w, v0, n_iters, grid):
     """K6's launcher on a grid of ``grid`` CTAs (the wrapper always takes
-    the co-resident capacity); raises on a CUDA error."""
+    its plan's, one CTA per SM); raises on a CUDA error."""
     from riptrm_torch.ops import _build
 
     lib = _build.load()
+    n = x.shape[0]
+    plan = tk.chain_hbm_plan(n)
     corr = tk.barrier_corr(zs, x[None], w[None]).contiguous()
-    hv, out = torch.empty_like(x), torch.empty_like(x)
-    partial = torch.empty(3 * grid, dtype=torch.float32, device=x.device)
-    err = lib.chain_hbm_launch(*(tk._ptr(t) for t in (zs, x, w, v0, corr, hv, partial, out)),
-                               x.shape[0], n_iters, grid, x.device.index or 0,
-                               tk._stream(x.device))
+    u, out = torch.empty(2 * n, dtype=torch.float32, device=x.device), torch.empty_like(x)
+    bar, claims = (torch.zeros(k, dtype=torch.int32, device=x.device) for k in (1, n_iters))
+    err = lib.chain_hbm_launch(
+        *(tk._ptr(t) for t in (zs, x, w, v0, corr, u, bar, claims, out)), n, n_iters, grid,
+        plan.pieces, plan.piece, plan.stages, int(plan.xw_shared), x.device.index or 0,
+        tk._stream(x.device))
     _build.check(lib, err, "chain_hbm_launch")
     return out
 
 
 def test_hbm_chain_kernel_grids(dev):
-    """Any co-resident grid gives the function, each run the same bits;
-    a grid beyond co-residency is refused."""
+    """Any grid up to one CTA per row gives the function, each run the same
+    bits (whichever CTA claims a row computes its dot product in the same
+    order); a grid of more CTAs than rows is refused."""
     args = _hbm_args(1000, dev)
     ref = tk.chained_barrier_matvec_plain(*args, 16)
-    for grid in (1, 3, 64):
+    for grid in (1, 3, 64, 132):
         out = _hbm_on_grid(*args, 16, grid)
         torch.testing.assert_close(out, ref, atol=2e-4, rtol=1e-3)
         assert torch.equal(out, _hbm_on_grid(*args, 16, grid))

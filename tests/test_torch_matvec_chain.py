@@ -42,21 +42,20 @@ def _z(n=32, seed=0):
     return z + z.T
 
 
-@pytest.mark.parametrize("precision,left,shape,group", [
-    ("high", True, (4, 32), None),
-    ("highest", False, (32, 8), None),
-    ("default", True, (4, 32), None),
-    ("highest", True, (4, 32), None),
-    ("high", False, (32, 8), None),
-    ("highest", False, (32, 12), 5),  # groups of 5 columns, the last one ragged
+@pytest.mark.parametrize("precision,left,shape", [
+    ("high", True, (4, 32)),
+    ("highest", False, (32, 8)),
+    ("default", True, (4, 32)),
+    ("highest", True, (4, 32)),
+    ("high", False, (32, 8)),
+    ("highest", False, (32, 12)),  # two groups of 8 columns, the last one ragged
 ])
-def test_bare_chain_matches_pallas(precision, left, shape, group):
+def test_bare_chain_matches_pallas(precision, left, shape):
     z = _z()
     v0 = np.random.default_rng(1).standard_normal(shape).astype(np.float32)
     with pltpu.force_tpu_interpret_mode():
         want = pk.bare_matvec_chain(jnp.asarray(z), jnp.asarray(v0), 6, precision, left)
-    got = tk.bare_matvec_chain(torch.tensor(z), torch.tensor(v0), 6, precision, left,
-                               group=group)
+    got = tk.bare_matvec_chain(torch.tensor(z), torch.tensor(v0), 6, precision, left)
     assert got.dtype == torch.float32 and got.shape == shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=K5_ATOL[precision], rtol=0)
 
@@ -112,15 +111,6 @@ def test_bare_chain_refuses_bad_arguments():
         tk.bare_matvec_chain(z, torch.ones(2, 32), 1, "fast")
     with pytest.raises(ValueError, match="shape mismatch"):
         tk.bare_matvec_chain(z, torch.ones(2, 31), 1, "high", True)
-
-
-def test_right_chain_shared_memory_plan():
-    """Z' sits in shared memory beside the group at St(128, 8)'s shape
-    (64 KB + 8 KB), and is read through L2 at n = 512."""
-    assert tk.matvec_right_plan(128, 8) == (True, (128 * 128 + 2 * 128 * 8 + 8) * 4)
-    assert tk.matvec_right_plan(512, 8) == (False, (2 * 512 * 8 + 8) * 4)
-    with pytest.raises(ValueError, match="shared memory"):
-        tk.matvec_right_plan(8192, 32)
 
 
 @pytest.fixture(scope="module", params=[64, 200], ids=["n64", "n200"])

@@ -117,6 +117,26 @@ def test_tcg_row_arithmetic():
     assert row["pct_of_bare_matvec_chain"] == pytest.approx(50.0)
 
 
+def test_stiefel_row_times_the_chains_own_plan(monkeypatch):
+    """The Stiefel rows' denominator is K5 right on the B lanes' frames side
+    by side, [n, B p], cut by the chain's own plan (``matvec_right_plan``),
+    not one group per lane: the card's best scheme for the product."""
+    calls = []
+    real = tk.bare_matvec_chain
+
+    def spy(zs, v0, n_iters, precision="high", left=True, **kw):
+        calls.append((tuple(v0.shape), precision, left, kw))
+        return real(zs, v0, n_iters, precision, left, **kw)
+
+    monkeypatch.setattr(rl.k, "bare_matvec_chain", spy)
+    monkeypatch.setattr(rl, "time_tcg_chain",
+                        lambda call, couple, g0: (1.0, 1, torch.full((1, 4), 6)))
+    monkeypatch.setattr(rl, "time_chain", lambda fn: (fn(2), (1.0, 2))[1])
+    row = rl.stiefel_row(32, 2, 4, 6, "cpu")
+    assert calls == [((32, 8), "highest", False, {})]
+    assert row["bare_chain_iters_per_s"] == pytest.approx(2000.0)
+
+
 def test_main_refuses_sizes_above_the_left_chain_limit(monkeypatch, tmp_path, capsys):
     """An n beyond K5 left's resident limit (2112 on 132 SMs) is refused up
     front, before any row runs or the output is written."""
