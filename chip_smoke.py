@@ -34,10 +34,14 @@ Phases:
   2c. K6 chained_barrier_matvec_hbm (64 iterations) against its plain
      version and K1's kernel at n = 1000, and at n = 4000 (Zs 64 MB), the
      plans printed;
-  3. K2 fused tCG on one n = 1000 subproblem against its plain version;
-  4. K3 batched fused tCG at B = 16 and B = 128, mixed radii;
-  4b. the Stiefel-bound kernel at St(128, 8), B = 1, 16 and 128, and at
-     St(512, 32), B = 16, against its plain version;
+  3. K2 fused tCG on one n = 1000 subproblem against its plain version
+     (Zs resident across a cooperative grid), and on one n = 2113 (one
+     above that route's limit: the streaming route);
+  4. K3 batched fused tCG at B = 16 and B = 128, mixed radii (resident),
+     and at B = 128 on an n = 1025 instance (streaming);
+  4b. the Stiefel-bound kernel at St(128, 8), B = 1, 16 and 128 (clusters
+     of 8, 8 and 1 CTAs), and at St(512, 32), B = 16 (clusters of 8, Zs
+     through L2), against its plain version;
   -- launch counters reset: the NonnegPCA path starts here --
   5. golden solve: RIPTRM.run on dataset/NonnegPCA/1 point a, float64,
      plain tCG (residual <= 1e-8, cost -1.537809 +- 1e-4), then fused;
@@ -64,6 +68,12 @@ Phases:
   9. ``roofline.main`` at its default shapes (K3, K4, K5, and K6 at
      n = 4000);
   -- launch counters read (K3, K4, K5, K6; K5's and K6's are kept) --
+  8b. only with ``--parent DIR`` (a checkout of the parent commit, e.g.
+     its ``git archive``): every phase-8 row's kernel on the same inputs
+     from DIR's package and from this one, one process each, in the order
+     parent, change, change, parent:
+
+    python3 chip_smoke.py --parent DIR
 """
 
 from __future__ import annotations
@@ -129,6 +139,10 @@ K5_LIMITS = {"highest": 1e-5, "high": 1e-4, "default": 3e-3}
 # it from the other two.
 ONE_PASS_CASES = ((True, 16), (False, 1024))
 ONE_PASS_REL = 1e-6
+
+
+# phase 8's rows (kernel wrapper, shape, args, kwargs), for compare_trees
+COMPARE_ROWS = []
 
 
 class SmokeFailure(AssertionError):
@@ -271,25 +285,40 @@ class Smoke:
         v0 = self.problem.manifold.random_tangent(st.x, self.gen)[0]
         return self.zs, x, y / self.problem.slack(st.x)[0], v0
 
-    def subproblem(self, st):
+    def subproblem(self, st, problem=None):
         """The tCG subproblem the solver's step poses at state ``st``."""
         from riptrm_torch.solvers.riptrm import _barrier_ops
 
-        c, _, cx = _barrier_ops(self.problem, st.x, st.y, st.mu)
-        return self.zs, st.x, st.y / c, cx, st.tr_radius
+        problem = problem or self.problem
+        c, _, cx = _barrier_ops(problem, st.x, st.y, st.mu)
+        return problem.structure["Zs"], st.x, st.y / c, cx, st.tr_radius
 
-    def lanes_subproblem(self, b):
+    def lanes_subproblem(self, b, problem=None):
         """B starts with mixed radii, as tests/test_pallas.py builds them."""
         from riptrm_torch.solvers.riptrm import _barrier_ops
 
+        problem = problem or self.problem
+        n = problem.manifold.n
         kw = dict(generator=self.gen, dtype=torch.float32, device=self.device)
-        xs = torch.abs(torch.randn(b, self.n, **kw))
+        xs = torch.abs(torch.randn(b, n, **kw))
         xs = xs / torch.linalg.vector_norm(xs, dim=-1, keepdim=True)
-        ys = 0.5 + torch.abs(torch.randn(b, self.n, **kw))
+        ys = 0.5 + torch.abs(torch.randn(b, n, **kw))
         mu = torch.full((b,), 0.05, dtype=torch.float32, device=self.device)
-        c, _, cx = _barrier_ops(self.problem, xs, ys, mu)
+        c, _, cx = _barrier_ops(problem, xs, ys, mu)
         radii = torch.tensor([0.1, 0.3, 0.5, 0.2] * (b // 4 + 1), device=self.device)[:b]
-        return self.zs, xs, ys / c, cx, radii
+        return problem.structure["Zs"], xs, ys / c, cx, radii
+
+    def above_resident(self, b):
+        """A NonnegPCA instance one n above the resident limit of b lanes on
+        the card's SMs (``tcg_plan``): K2/K3's streaming route."""
+        from riptrm_torch.ops import kernels as k
+        from riptrm_torch.problems import nonneg_pca
+
+        n = k.tcg_resident_max_n(b, k._sms(self.device)) + 1
+        f32 = dict(dtype=torch.float32, device=self.device)
+        z = nonneg_pca.generate_instance(self.gen, n, **f32)["Z"]
+        x0 = torch.abs(torch.randn(n, generator=self.gen, **f32))
+        return nonneg_pca.make_problem(z, x0 / torch.linalg.vector_norm(x0))
 
     # -- phases 2-4: each kernel against its plain version ---------------
     def phase_k1(self):
@@ -307,21 +336,31 @@ class Smoke:
         check(err <= 1e-3, f"K1 disagrees with its plain version: {err}")
 
     def phase_k2(self):
+        """K2 on the solver's first subproblem, on the resident route (n)
+        and on the streaming route (an instance one above the resident
+        limit of one lane)."""
         from riptrm_torch.ops import kernels as k
+        from riptrm_torch.solvers.riptrm import init_state
 
-        zs, x, w, g, tr = self.subproblem(self.state0)
-        eta, heta, it, code = k.fused_tcg_sphere_quadratic(zs, x[0], w[0], g[0], tr[0], **self.tcg_kw)
-        e_p, h_p, it_p, code_p = k.fused_tcg_plain(zs, x, w, g, tr, **self.tcg_kw)
-        sync(self.device)
-        err = rel_err(eta, e_p[0])
-        mae = float(torch.max(torch.abs(eta - e_p[0])))
-        self.report["fused_tcg_sphere_quadratic"]["max_abs_err"] = mae
-        say(f"phase 3 K2 fused tCG n={self.n}: kernel (iters {int(it)}, code {int(code)}), "
-            f"plain (iters {int(it_p[0])}, code {int(code_p[0])}); eta rel err {err:.3e}, "
-            f"max abs err {mae:.3e} (limit 1e-3 rel)")
-        check((int(it), int(code)) == (int(it_p[0]), int(code_p[0])),
-              "K2 iterations/stop code differ from the plain version")
-        check(err <= 1e-3, f"K2 eta disagrees: {err}")
+        mae_all = 0.0
+        for problem in (self.problem, self.above_resident(1)):
+            st = self.state0 if problem is self.problem else init_state(problem, self.option)
+            zs, x, w, g, tr = self.subproblem(st, problem)
+            n, kw = problem.manifold.n, self.tcg_kw | {"maxinner": problem.manifold.dim}
+            eta, heta, it, code = k.fused_tcg_sphere_quadratic(zs, x[0], w[0], g[0], tr[0], **kw)
+            e_p, h_p, it_p, code_p = k.fused_tcg_plain(zs, x, w, g, tr, **kw)
+            sync(self.device)
+            err = rel_err(eta, e_p[0])
+            mae = float(torch.max(torch.abs(eta - e_p[0])))
+            mae_all = max(mae_all, mae)
+            say(f"phase 3 K2 fused tCG n={n} ({k.tcg_plan(n, 1, k._sms(self.device)).route} "
+                f"route): kernel (iters {int(it)}, code {int(code)}), plain (iters "
+                f"{int(it_p[0])}, code {int(code_p[0])}); eta rel err {err:.3e}, max abs err "
+                f"{mae:.3e} (limit 1e-3 rel)")
+            check((int(it), int(code)) == (int(it_p[0]), int(code_p[0])),
+                  "K2 iterations/stop code differ from the plain version")
+            check(err <= 1e-3, f"K2 eta disagrees: {err}")
+        self.report["fused_tcg_sphere_quadratic"]["max_abs_err"] = mae_all
 
     def phase_k3(self):
         """Kernel against plain version per lane.  In float32 at n = 1000 a
@@ -330,7 +369,9 @@ class Smoke:
         as disagreeing, at most 1 of 16 and 6 of 128.  A float64 tCG on the
         same inputs is the arbiter: on lanes with equal iterations and codes
         the kernel must be no further from it than 1e-3 or twice the plain
-        version's worst distance."""
+        version's worst distance.  B = 16 and 128 run on the resident route;
+        the largest B runs again on an instance one n above its resident
+        limit (the streaming route), with that B's allowance."""
         from riptrm_torch.manifolds import Sphere
         from riptrm_torch.ops import kernels as k
         from riptrm_torch.ops.tcg import truncated_cg
@@ -340,14 +381,16 @@ class Smoke:
             return torch.linalg.vector_norm(a - b, dim=-1) / torch.linalg.vector_norm(b, dim=-1)
 
         mae_all = 0.0
-        for b, allowed in zip(self.lanes, (1, 6)):
-            args = self.lanes_subproblem(b)
-            etas, _, iters, codes = k.fused_tcg_sphere_quadratic_batched(*args, **self.tcg_kw)
-            e_p, _, it_p, code_p = k.fused_tcg_plain(*args, **self.tcg_kw)
+        cases = [(b, allowed, self.problem) for b, allowed in zip(self.lanes, (1, 6))]
+        cases.append((self.lanes[-1], 6, self.above_resident(self.lanes[-1])))
+        for b, allowed, problem in cases:
+            n, kw = problem.manifold.n, self.tcg_kw | {"maxinner": problem.manifold.dim}
+            args = self.lanes_subproblem(b, problem)
+            etas, _, iters, codes = k.fused_tcg_sphere_quadratic_batched(*args, **kw)
+            e_p, _, it_p, code_p = k.fused_tcg_plain(*args, **kw)
             zs, xs, ws, gs, radii = (t.double() for t in args)
             hw64 = k.sphere_hw(zs, xs, ws, k.barrier_corr(zs, xs, ws))
-            e64, _, _, _ = truncated_cg(Sphere(self.n), xs, hw64, gs, radii,
-                                        maxinner=self.tcg_kw["maxinner"])
+            e64, _, _, _ = truncated_cg(Sphere(n), xs, hw64, gs, radii, maxinner=kw["maxinner"])
             sync(self.device)
             same_stop = (iters == it_p) & (codes == code_p)
             err_kp, err_k64, err_p64 = rel(etas, e_p), rel(etas, e64), rel(e_p, e64)
@@ -356,8 +399,9 @@ class Smoke:
             worst = float(err_kp[agree].max()) if bool(agree.any()) else float("nan")
             mae = float(torch.max(torch.abs(etas - e_p)[agree])) if bool(agree.any()) else 0.0
             mae_all = max(mae_all, mae)
-            say(f"phase 4 K3 batched fused tCG n={self.n} B={b}: {len(bad)} lanes disagree "
-                f"(allowed {allowed}); iterations kernel {iters.tolist()}")
+            say(f"phase 4 K3 batched fused tCG n={n} B={b} "
+                f"({k.tcg_plan(n, b, k._sms(self.device)).route} route): {len(bad)} lanes "
+                f"disagree (allowed {allowed}); iterations kernel {iters.tolist()}")
             for i in bad:
                 say(f"  lane {i}: kernel (iters {int(iters[i])}, code {int(codes[i])}), "
                     f"plain (iters {int(it_p[i])}, code {int(code_p[i])}); eta rel err "
@@ -483,13 +527,14 @@ class Smoke:
                 a = self.subproblem(st)
                 if b == "single":
                     name, shape = "fused_tcg_sphere_quadratic", f"n={n} B=1 {when} step"
-                    one = (a[0], a[1][0], a[2][0], a[3][0], a[4][0])
-                    kern = lambda one=one: k.fused_tcg_sphere_quadratic(*one, **self.tcg_kw)
+                    args = (a[0], a[1][0], a[2][0], a[3][0], a[4][0])
                 else:
                     name, shape = "fused_tcg_sphere_quadratic_batched", f"n={n} B={b} {when} step"
-                    kern = lambda a=a: k.fused_tcg_sphere_quadratic_batched(*a, **self.tcg_kw)
+                    args = a
+                kern = lambda name=name, args=args: getattr(k, name)(*args, **self.tcg_kw)
                 plain = lambda a=a: k.fused_tcg_plain(*a, **self.tcg_kw)
-                self.report[name].update(time_row(name, shape, kern, plain, dev, tcg_work))
+                self.report[name].update(time_row(name, shape, kern, plain, dev, tcg_work,
+                                                  call=(args, self.tcg_kw)))
 
 
 class StiefelSmoke:
@@ -760,6 +805,7 @@ class StiefelSmoke:
                 lambda a=a, kw=kw: k.fused_tcg_stiefel_bound_batched(*a, **kw),
                 lambda a=a, kw=kw: k.fused_tcg_stiefel_bound_plain(*a, **kw),
                 self.device, lambda out, n=n, p=p: stiefel_tcg_work(n, p, out[2].tolist()),
+                call=(a, kw),
             ))
 
 
@@ -867,7 +913,8 @@ class ChainSmoke:
                     zs, v0, CHAIN_ITERS, "highest", left),
                 dev, lambda out, n=n, vecs=vecs: bare_chain_work(n, vecs, CHAIN_ITERS),
                 (lambda zs=zs, v0=v0: torch.matmul(v0, zs)) if left
-                else (lambda zs=zs, v0=v0: torch.matmul(zs, v0))))
+                else (lambda zs=zs, v0=v0: torch.matmul(zs, v0)),
+                call=((zs, v0, CHAIN_ITERS, "highest", left), {})))
         at_x0 = self.smoke.chain_inputs()
         rows = ((K1_CHAIN, k.chained_barrier_matvec, at_x0, self.smoke.report),
                 (HBM_CHAIN, k.chained_barrier_matvec_hbm, at_x0, self.report),
@@ -879,7 +926,7 @@ class ChainSmoke:
                 lambda kernel=kernel, args=args: kernel(*args, CHAIN_ITERS),
                 lambda args=args: k.chained_barrier_matvec_plain(*args, CHAIN_ITERS),
                 dev, lambda out, n=n: chain_work(n, CHAIN_ITERS),
-                lambda zs=zs, v0=v0: torch.matmul(zs, v0)))
+                lambda zs=zs, v0=v0: torch.matmul(zs, v0), call=((*args, CHAIN_ITERS), {})))
 
 
 def phase_roofline(report):
@@ -906,7 +953,7 @@ def phase_roofline(report):
     say(f"roofline path: {len(rows)} rows, {time.perf_counter() - t0:.1f} s")
 
 
-def time_row(name, shape, kern, plain, device, work, library_step=None):
+def time_row(name, shape, kern, plain, device, work, library_step=None, call=None):
     """CUDA-event times (``event_ms``) of a kernel and its plain version, in
     the order plain, kernel, kernel, plain; the two times of each are
     averaged.
@@ -919,7 +966,8 @@ def time_row(name, shape, kern, plain, device, work, library_step=None):
     kernels' own time (``kernel_ms``), the share of the eager window the
     device spends in them, the kernels' own time of one ``kern`` call, and
     the plain version (the library chain of the whole function, products
-    and normalisations) replayed from a CUDA graph."""
+    and normalisations) replayed from a CUDA graph.  ``call`` (args,
+    kwargs) of the wrapper ``name`` keeps the row for ``compare_trees``."""
     from riptrm_torch.experiment.roofline import roofline_bound
 
     p1, k1, k2, p2 = (event_ms(f, device) for f in (plain, kern, kern, plain))
@@ -941,11 +989,67 @@ def time_row(name, shape, kern, plain, device, work, library_step=None):
     if name in TCG_KERNELS:
         it_k, it_p = int(out[2].max()), int(plain()[2].max())
         iters = f", tCG iterations (max over lanes) kernel {it_k}, plain {it_p}"
+    if call is not None:
+        COMPARE_ROWS.append((name, shape) + tuple(call))
     say(f"phase 8 {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
         f"(CUDA events over windows; runs {k1:.4f}/{k2:.4f} and {p1:.4f}/{p2:.4f}), bound "
         f"{bound_us:.3f} us ({bound_by}), library {library}{iters}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_us / 1e3, bound_us=bound_us,
                 bound_by=bound_by, library_ms=library_ms, shape=shape)
+
+
+def compare_trees(parent):
+    """Phase 8b: each kernel of phase 8's rows, on the same inputs, from the
+    parent's tree (``parent``: a checkout of the parent commit) and from
+    this one, in the order parent, change, change, parent, one process
+    each (``time_tree``): the CUDA-event time of one call (``event_ms``),
+    the two times of each tree averaged."""
+    import subprocess
+    import tempfile
+
+    rows = [(name, shape, [a.cpu() if torch.is_tensor(a) else a for a in args], kw)
+            for name, shape, args, kw in COMPARE_ROWS]
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "rows.pt")
+        torch.save(rows, inputs)
+        for label, tree in (("parent", parent), ("change", ROOT), ("change", ROOT),
+                            ("parent", parent)):
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-tree",
+                                   os.path.abspath(tree), inputs],
+                                  capture_output=True, text=True, timeout=1200)
+            check(proc.returncode == 0, f"phase 8b: timing the {label} tree failed:\n"
+                  f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+            runs.append((label, json.loads(proc.stdout.strip().splitlines()[-1])))
+    for i, (name, shape, _, _) in enumerate(rows):
+        par = [t[i] for label, t in runs if label == "parent"]
+        chg = [t[i] for label, t in runs if label == "change"]
+        say(f"phase 8b {name} {shape}: change {statistics.mean(chg):.4f} ms "
+            f"(runs {chg[0]:.4f}/{chg[1]:.4f}), parent {statistics.mean(par):.4f} ms "
+            f"(runs {par[0]:.4f}/{par[1]:.4f}), parent / change "
+            f"{statistics.mean(par) / statistics.mean(chg):.2f}x")
+
+
+def time_tree(tree, inputs):
+    """The child of ``compare_trees``: the package of ``tree`` times the
+    saved rows; prints their times (ms) as a JSON list on its last line."""
+    sys.path.insert(0, tree)
+    import riptrm_torch
+    from riptrm_torch.ops import _build
+    from riptrm_torch.ops import kernels as k
+
+    check(os.path.dirname(os.path.dirname(os.path.abspath(riptrm_torch.__file__))) == tree,
+          f"imported {riptrm_torch.__file__}, not the package of {tree}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    _build.load()
+    times = []
+    for name, _, args, kw in torch.load(inputs):
+        args = [a.to(device) if torch.is_tensor(a) else a for a in args]
+        fn = getattr(k, name)
+        times.append(event_ms(lambda: fn(*args, **kw), device))
+    print(json.dumps(times), flush=True)
+    return 0
 
 
 def read_counts(path, names, report, keep=None):
@@ -962,11 +1066,14 @@ def read_counts(path, names, report, keep=None):
         report[name]["launches"] = counts[name]
 
 
-def main():
+def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on the GPU",
               file=sys.stderr)
         return 1
+    if argv[:1] == ["--time-tree"]:
+        return time_tree(*argv[1:3])
+    parent = argv[1] if argv[:1] == ["--parent"] else None
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from riptrm_torch.ops import _build
     from riptrm_torch.ops import kernels as k
@@ -1019,6 +1126,8 @@ def main():
     stiefel.phase_timings()
     chains.phase_timings()
     phase_roofline(report)
+    if parent is not None:
+        compare_trees(parent)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces, **report[name]}
         for name, (src, replaces) in KERNELS.items()
@@ -1034,4 +1143,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -661,20 +661,12 @@ chain_right_kernel(const float* __restrict__ z, const float* __restrict__ v0,
     }
     if (slices > 1) {
       __syncthreads();
-      const int blk4 = rs * GC / 4;
-      const float4* src = reinterpret_cast<const float4*>(nxt + (size_t)row0 * GC);
-      for (int idx = tid; idx < (slices - 1) * blk4; idx += kRightThreads) {
-        const int p = idx / blk4, e = idx - p * blk4;
-        float* peer = cg::this_cluster().map_shared_rank(nxt, (slice + 1 + p) % slices);
-        reinterpret_cast<float4*>(peer + (size_t)row0 * GC)[e] = src[e];
-      }
+      copy_to_peers(nxt + (size_t)row0 * GC, rs * GC / 4, slices, slice, kRightThreads);
     }
     slices_sync(slices);  // the one step of the pass across the cluster
     // a thread's entries all lie in column tid % GC (kRightThreads % GC == 0):
     // it sums that column's partials itself, in the order every CTA does
-    norm = 0.f;
-    for (int u = 0; u < slices; ++u) norm += pp[u * GC + kcol];
-    norm = sqrtf(norm + 1e-30f);
+    norm = sqrtf(slice_sum(pp + kcol, GC, slices) + 1e-30f);
     if (it + 1 < n_iters) {
       for (int idx = tid; idx < np * GC; idx += kRightThreads) nxt[idx] = nxt[idx] / norm;
       __syncthreads();

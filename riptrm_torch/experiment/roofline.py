@@ -27,9 +27,9 @@ Stiefel-bound kernel (K4) at St(``--stiefel-n``, ``--stiefel-p``), B in
 K4a lane-major and K4b p-major); and one row of K6, the chained
 barrier-Hessian matvec on a cooperative grid, at n = ``HBM_N``, where Zs
 (64 MB) is above the L2.  K6 has no other entry point.  The sphere rows
-take n up to the left chain's resident limit (``matvec_left_plan``:
-2112 on 132 SMs); a larger n in ``--sizes`` is refused before any row
-runs.
+take n up to the left chain's limit (``left_chain_plan``: resident up to
+2112 on 132 SMs, then the right chain on the transposes up to 7200); a
+larger n in ``--sizes`` is refused before any row runs.
 
 Timing: CUDA events around a window of k calls (at least ~50 ms) after a
 warm-up, the median of three windows.  The tCG calls are a data-coupled
@@ -368,7 +368,7 @@ def main(argv=None):
     for n in args.sizes:  # each sphere row's bare chain is K5 left at [B, n]
         for b in args.batches:
             try:
-                k.matvec_left_plan(b, n, k._sms(device))
+                k.left_chain_plan(b, n, k._sms(device))
             except ValueError as e:
                 parser.error(f"--sizes {n}: no bare chain for the sphere row at B={b}: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -31,16 +31,23 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # zs, x, w, v0, u scratch, out, n, n_iters, grid, rows_per_cta, device,
     # stream
     "chain_resident_launch": [_P] * 6 + [_I] * 5 + [_P],
-    # zs, xs, ws, grads, corrs, radii, targets, flags, etas, hetas, stats,
-    # b, n, maxinner, mininner, device, stream
-    "sphere_tcg_launch": [_P] * 11 + [_I] * 5 + [_P],
-    # zs, d, xs, ws, ss, grads, radii, targets, flags, etas, hetas, stats,
-    # scratch, b, n, p, maxinner, mininner, mode, device, stream
-    "stiefel_tcg_launch": [_P] * 13 + [_I] * 7 + [_P],
+    # zs, xs, ws, grads, corrs, radii, etas, hetas, stats, b, n, maxinner,
+    # mininner, theta, kappa, device, stream
+    "sphere_tcg_launch": [_P] * 9 + [_I] * 4 + [_F] * 2 + [_I, _P],
+    # the same 9 pointers, u_g, delta_g, alive_g scratch, b, n, maxinner,
+    # mininner, theta, kappa, grid, groups, rows, owned, lmax, chunk, device,
+    # stream
+    "sphere_tcg_resident_launch": [_P] * 12 + [_I] * 4 + [_F] * 2 + [_I] * 7 + [_P],
+    # zs, d, xs, ws, ss, grads, radii, etas, hetas, stats, b, n, p, maxinner,
+    # mininner, theta, kappa, slices, rows, splits, zs_shared, device, stream
+    "stiefel_tcg_launch": [_P] * 10 + [_I] * 5 + [_F] * 2 + [_I] * 5 + [_P],
+    # slices, device
+    "stiefel_max_clusters": [_I] * 2,
     # z, v0, out, wbuf scratch, r, n, n_iters, prec, col_groups, row_groups,
     # cols, rows_per_group, chunk, device, stream
     "matvec_chain_left_launch": [_P] * 4 + [_I] * 10 + [_P],

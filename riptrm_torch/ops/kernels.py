@@ -28,10 +28,13 @@ by ``ops/_build.py``.
   streams Zs from device memory through bulk copies, for an n whose Zs
   lies beyond the L2.
 
-K2 and K3 are one CUDA kernel (one CTA per lane), K2 being its launch at
-B = 1; each keeps its own wrapper and counter.  What bounds them on an H100
-is the read of Zs (n^2 * 4 bytes) per tCG iteration and lane, streamed
-through L2 (see the source note in ``sphere_tcg.cu``).
+K2 and K3 share their CUDA kernels, K2 being their launch at B = 1; each
+keeps its own wrapper and counter.  ``tcg_plan`` picks the route before
+any launch: Zs resident across a cooperative grid (``tcg_resident_kernel``:
+n <= 2112 at B = 1, n <= 1056 at B = 128 on 132 SMs), else one CTA per
+lane streaming Zs from L2 (``tcg_kernel``, n <= 7232), else no kernel (the
+solver's plain ``truncated_cg``).  The Stiefel kernel runs each lane on a
+thread-block cluster of row slices (``stiefel_plan``).
 
 Which version runs is decided by where the tensors lie: on the CPU the
 wrapper runs its plain PyTorch version; on a CUDA device it launches the
@@ -55,6 +58,7 @@ step does).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -64,8 +68,8 @@ from riptrm_torch.ops import _build
 from riptrm_torch.ops.tcg import truncated_cg
 
 # Dynamic shared memory one block may use on Hopper: 227 KB less 1 KB for
-# the kernels' static reduction scratch.  The tCG kernel keeps 8 n-vectors
-# there (so n <= 7232).
+# the kernels' static reduction scratch.  The streaming tCG kernel keeps 8
+# n-vectors there (so n <= 7232).
 MAX_SMEM_BYTES = 232448 - 1024
 # SMs of an H100 SXM: the plans of K1, K5 and K6 on the CPU, where no
 # card tells its own count.
@@ -124,15 +128,6 @@ def sphere_hw(zs, xs, ws, corr):
         return -2.0 * proj(v @ zs) + corr[:, None] * v + proj(ws * v)
 
     return hw
-
-
-def tcg_target(grads, theta, kappa):
-    """(target, linear_flag) per lane, as ``truncated_cg`` computes them:
-    target = |r0| min(|r0|^theta, kappa), linear = kappa < |r0|^theta, with
-    |r0| the 2-norm of a lane's gradient (Frobenius on a frame)."""
-    norm_r0 = torch.sqrt(torch.sum(grads * grads, dim=tuple(range(1, grads.ndim))))
-    target = norm_r0 * torch.clamp(norm_r0**theta, max=kappa)
-    return target, (kappa < norm_r0**theta).to(grads.dtype)
 
 
 def _check_smem(n, vectors):
@@ -253,25 +248,131 @@ def fused_tcg_plain(zs, xs, ws, grads, radii, *, maxinner, mininner=1,
     )
 
 
+# The resident sphere tCG (csrc/sphere_tcg.cu::tcg_resident_kernel): a
+# warp's tile of u (8 rows x 8 lanes), the most tiles of a CTA's product
+# (one for each of its 16 warps) and their partial sums, the most lanes a
+# CTA owns.
+TCG_ROW_TILE, TCG_SLOT_TILE = 8, 8
+TCG_MAX_TILES = 16
+TCG_PART = TCG_MAX_TILES * TCG_ROW_TILE * TCG_SLOT_TILE
+TCG_MAX_OWNED = 4
+# The lanes of a product group, the most before the plan cuts the lanes
+# into more groups (a group's lanes are staged together).
+TCG_GROUP_LANES = 32
+
+
+class TcgPlan(NamedTuple):
+    """The route of K2/K3 and its launch: ``route`` "resident" (Zs across a
+    cooperative grid of ``grid`` CTAs: ``groups`` lane groups x grid /
+    groups row blocks of ``rows`` rows; each CTA owns up to ``owned`` lanes;
+    a group's at most ``lmax`` lanes staged ``chunk`` floats at a time
+    through two buffers), "stream" (one CTA per lane, Zs from L2) or
+    "plain" (no kernel: the caller runs ``truncated_cg``); ``smem`` bytes
+    of shared memory per CTA."""
+
+    route: str
+    grid: int
+    groups: int
+    rows: int
+    owned: int
+    lmax: int
+    chunk: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def tcg_plan(n: int, b: int, sms: int = H100_SMS) -> TcgPlan:
+    """The plan of the sphere tCG at n for b lanes on ``sms`` SMs, decided
+    before any launch.
+
+    Resident where it fits: the rows of Zs cut over one CTA per SM (at
+    b = 1 every CTA holds the lane whole and takes ONE grid step an
+    iteration); for b > 1 the lanes cut into ceil(b / 32) product groups,
+    fewer where that does not fit, each group's row blocks sharing the
+    SMs (rows = ceil(n / (sms // groups))), lane l owned by CTA l % grid,
+    and the largest chunk of staged deltas (a multiple of 128 floats, up to
+    the whole n) that fits twice (a ring of two: one chunk lands while the
+    product runs on the other; three stages of half the chunk measured
+    slower on the H100, PERF.md).  Shared memory, as
+    ``tcg_resident_kernel`` carves it (csrc/sphere_tcg.cu): the rows,
+    padded to a multiple of 8, [rows][ldk] (ldk = n rounded up to 4), the
+    owned lanes' 8 vectors [owned][8][ldk], the staged chunks
+    [2][lmax][chunk] (b > 1), the product's partial sums (TCG_PART)
+    and the live-lane list [b].
+    Else the streaming kernel while a lane's 8 n-vectors fit one block
+    (n <= 7232), else "plain": at n = 1000 the resident route takes every
+    b up to 128 on 132 SMs."""
+    ldk = _ceil(n, 4) * 4
+    for groups in (range(min(_ceil(b, TCG_GROUP_LANES), sms), 0, -1) if b > 1 else (1,)):
+        rows = _ceil(n, sms // groups)
+        blocks = _ceil(n, rows)
+        grid = groups * blocks
+        owned = _ceil(b, grid)
+        lmax = _ceil(b, groups)
+        tiles = _ceil(rows, TCG_ROW_TILE) * _ceil(lmax, TCG_SLOT_TILE)
+        if owned > TCG_MAX_OWNED or tiles > TCG_MAX_TILES:
+            continue
+        fixed = _ceil(rows, TCG_ROW_TILE) * TCG_ROW_TILE * ldk + owned * 8 * ldk + TCG_PART + b
+        if b == 1:
+            if 4 * fixed <= MAX_SMEM_BYTES:
+                return TcgPlan("resident", grid, groups, rows, owned, lmax, 0, 4 * fixed)
+            continue
+        chunk = _ceil(ldk, 128) * 128
+        while chunk >= 128 and 4 * (fixed + 2 * lmax * chunk) > MAX_SMEM_BYTES:
+            chunk = chunk // 256 * 128  # halve, a multiple of 128
+        if chunk >= 128:
+            return TcgPlan("resident", grid, groups, rows, owned, lmax, chunk,
+                           4 * (fixed + 2 * lmax * chunk))
+    if 8 * n * 4 <= MAX_SMEM_BYTES:
+        return TcgPlan("stream", b, 0, 0, 0, 0, 0, 8 * n * 4)
+    return TcgPlan("plain", 0, 0, 0, 0, 0, 0, 0)
+
+
+def tcg_resident_max_n(b: int, sms: int = H100_SMS) -> int:
+    """The largest n at which ``tcg_plan`` keeps b lanes resident (0 for
+    none)."""
+    return next((n for n in range(_ceil(MAX_SMEM_BYTES, 32), 0, -1)
+                 if tcg_plan(n, b, sms).route == "resident"), 0)
+
+
 def _launch_tcg(zs, xs, ws, grads, radii, maxinner, mininner, theta, kappa):
     zs, xs, ws, grads, radii = _f32(zs, xs, ws, grads, radii)
     _check_lanes(zs, xs, ws, grads, radii)
     b, n = xs.shape
-    _check_smem(n, 8)
-    corr = barrier_corr(zs, xs, ws).contiguous()
-    target, flag = tcg_target(grads, theta, kappa)
-    target, flag = target.contiguous(), flag.contiguous()
+    dev = xs.device
+    plan = tcg_plan(n, max(b, 1), _sms(dev))
+    if plan.route == "plain":
+        raise ValueError(
+            f"sphere tCG kernel: n={n}: neither the resident nor the streaming plan fits "
+            f"(a lane's 8 float32 vectors exceed the {MAX_SMEM_BYTES} bytes of shared memory "
+            "a block may use); the solver routes such an n to truncated_cg"
+        )
+    # the resident kernel forms one lane's corr itself (a grid step), which
+    # saves the host the few small launches of barrier_corr
+    own_corr = plan.route == "resident" and b == 1
+    corr = None if own_corr else barrier_corr(zs, xs, ws).contiguous()
     etas = torch.empty_like(xs)
     hetas = torch.empty_like(xs)
-    stats = torch.empty((b, 2), dtype=torch.int32, device=xs.device)
+    stats = torch.empty((b, 2), dtype=torch.int32, device=dev)
     if b == 0:
         return etas, hetas, stats[:, 0], stats[:, 1]
     lib = _build.load()
-    err = lib.sphere_tcg_launch(
-        _ptr(zs), _ptr(xs), _ptr(ws), _ptr(grads), _ptr(corr), _ptr(radii),
-        _ptr(target), _ptr(flag), _ptr(etas), _ptr(hetas), _ptr(stats),
-        b, n, int(maxinner), int(mininner), xs.device.index or 0, _stream(xs.device),
-    )
+    common = (_ptr(zs), _ptr(xs), _ptr(ws), _ptr(grads), None if own_corr else _ptr(corr),
+              _ptr(radii), _ptr(etas), _ptr(hetas), _ptr(stats))
+    # the kernel forms truncated_cg's target from each lane's |grad|
+    if plan.route == "stream":
+        err = lib.sphere_tcg_launch(*common, b, n, int(maxinner), int(mininner), float(theta),
+                                    float(kappa), dev.index or 0, _stream(dev))
+    else:
+        ldk = _ceil(n, 4) * 4
+        u = torch.empty((2 if b == 1 else b) * ldk, dtype=torch.float32, device=dev)
+        delta = torch.empty(b * ldk if b > 1 else 4, dtype=torch.float32, device=dev)
+        alive = torch.empty(b, dtype=torch.int32, device=dev)
+        err = lib.sphere_tcg_resident_launch(
+            *common, _ptr(u), _ptr(delta), _ptr(alive), b, n, int(maxinner), int(mininner),
+            float(theta), float(kappa), plan.grid, plan.groups, plan.rows, plan.owned,
+            plan.lmax, plan.chunk, dev.index or 0, _stream(dev),
+        )
     _build.check(lib, err, "sphere tCG kernel")
     return etas, hetas, stats[:, 0], stats[:, 1]
 
@@ -319,33 +420,82 @@ fused_tcg_sphere_quadratic_batched.launches = 0
 # ---------------------------------------------------------------------------
 # K4a / K4b: Stiefel-bound batched fused tCG
 # ---------------------------------------------------------------------------
-# Threads of a CTA of the Stiefel kernel; the shared-memory plan below
-# mirrors the layout ``stiefel_tcg_kernel`` carves out of dynamic shared
-# memory (csrc/stiefel_tcg.cu).
-STIEFEL_THREADS = 256
-# Where a lane's working set lives: Zs and the 8 frames in shared memory;
-# the frames there and Zs read through L2; or the frames in a global
-# scratch tensor [B, 8, n, p] (read through L1/L2) and Zs through L2.
-STIEFEL_ALL_SHARED, STIEFEL_ZS_GLOBAL, STIEFEL_FRAMES_GLOBAL = 0, 1, 2
+# Threads of a CTA of the Stiefel kernel, and the widest frame it takes;
+# the plan below mirrors the layout ``stiefel_tcg_kernel`` carves out of
+# dynamic shared memory (csrc/stiefel_tcg.cu::Layout).
+STIEFEL_THREADS = 512
+STIEFEL_MAX_P = 32
 
 
-def stiefel_smem_plan(n: int, p: int):
-    """(placement, dynamic shared-memory bytes) of the Stiefel kernel at
-    St(n, p): the first placement whose shared part fits.  Always in shared
-    memory: S, sym(X'U) and its partial sums, d (``(2 + segs) p^2 + p``
-    floats, segs = max(1, threads // p^2)).  Raises when even that does not
-    fit."""
-    segs = max(1, STIEFEL_THREADS // (p * p))
-    small = (2 + segs) * p * p + p
-    frames = 8 * n * p
-    for mode, floats in ((STIEFEL_ALL_SHARED, n * n + frames + small),
-                         (STIEFEL_ZS_GLOBAL, frames + small),
-                         (STIEFEL_FRAMES_GLOBAL, small)):
-        if floats * 4 <= MAX_SMEM_BYTES:
-            return mode, floats * 4
+class StiefelPlan(NamedTuple):
+    """The Stiefel kernel's launch: each lane on a thread-block cluster of
+    ``slices`` CTAs holding ``rows`` rows each, the product's inner
+    dimension split ``splits`` ways over the CTA's warps, the slice's Zs in
+    shared memory when ``zs_shared`` (else read through L2), ``smem`` bytes
+    of shared memory per CTA."""
+
+    slices: int
+    rows: int
+    splits: int
+    zs_shared: bool
+    smem: int
+
+
+def _stiefel_cols(p):
+    """p rounded up to 8, 16 or 32: the columns of the kernel's frames."""
+    return 8 if p <= 8 else 16 if p <= 16 else 32
+
+
+def _stiefel_floats(n, p, slices, rows, splits, zs_shared):
+    """The floats of shared memory of csrc/stiefel_tcg.cu::Layout."""
+    pad4 = lambda a: _ceil(a, 4) * 4
+    pc = _stiefel_cols(p)
+    np2 = p * (p + 1) // 2
+    ldr = _ceil(rows, 32) * 32
+    part = splits * rows * (pc + 4) if splits > 1 else 0  # the product's split sums
+    return ((n * ldr if zs_shared else 0) + n * (pc + 4) + pad4(7 * rows * (pc + 1))
+            + 3 * pc * pc + pc + part + slices * (8 + 2 * pad4(np2)) + pad4(np2))
+
+
+@functools.lru_cache(maxsize=None)
+def stiefel_plan(n: int, p: int, b: int, sms: int = H100_SMS,
+                 clusters: tuple | None = None) -> StiefelPlan:
+    """The plan of the Stiefel kernel at St(n, p) for b lanes on ``sms``
+    SMs, decided before any launch: the largest cluster of 8, 4, 2, 1 CTAs
+    (at most n) of which the card holds b at once (``clusters``: the most
+    clusters of 1, 2, 4 and 8 CTAs co-resident, ``stiefel_max_clusters`` on
+    the card; by default sms // slices), so that no lane waits for a second
+    wave; a larger cluster only where nothing fits at the first, rows =
+    ceil(n / slices) per CTA, the product's inner dimension split over the
+    warps its tasks (32 rows by 8 columns) leave spare, halved until their
+    partial sums fit, and the slice's Zs in shared memory where it fits
+    beside the rest.  St(128, 8): B = 128 -> 1 slice, B = 64 -> 2, B = 16 -> 8
+    (where the card holds 16 clusters of 8), all with Zs in shared memory;
+    St(512, 32), B = 16 -> 8 slices of 64 rows, Zs through L2.  Raises for
+    p > 32 and
+    where even Zs through L2 leaves the whole delta and the slice's frames
+    beyond one block's shared memory (on 132 SMs at b = 1: St(n, 8) for
+    n > 2864, St(n, 16) for n > 1568, St(n, 32) for n > 704): the solver
+    routes those to ``truncated_cg``."""
+    if not 1 <= p <= STIEFEL_MAX_P:
+        raise ValueError(f"St({n}, {p}): the Stiefel kernel takes 1 <= p <= {STIEFEL_MAX_P}")
+    most = dict(zip((1, 2, 4, 8), clusters or (sms, sms // 2, sms // 4, sms // 8)))
+    sizes = [s for s in (1, 2, 4, 8) if s == 1 or s <= n]
+    first = max(s for s in sizes if s == 1 or b <= most[s])
+    for slices in (s for s in sizes if s >= first):
+        rows = _ceil(n, slices)
+        # warps over (32 rows, 8 columns) tasks; the spare ones split j
+        tasks = _ceil(rows, 32) * (_stiefel_cols(p) // 8)
+        most = max(1, STIEFEL_THREADS // 32 // tasks)
+        for zs_shared in (True, False):
+            for splits in sorted({max(1, most >> k) for k in range(5)}, reverse=True):
+                nbytes = 4 * _stiefel_floats(n, p, slices, rows, splits, zs_shared)
+                if nbytes <= MAX_SMEM_BYTES:
+                    return StiefelPlan(slices, rows, splits, zs_shared, nbytes)
     raise ValueError(
-        f"St({n}, {p}): the p x p blocks alone ({small * 4} bytes) exceed the "
-        f"{MAX_SMEM_BYTES} bytes of shared memory a block may use"
+        f"St({n}, {p}): the whole delta and a slice's frames exceed the {MAX_SMEM_BYTES} "
+        "bytes of shared memory a block may use, even on a cluster of 8 with Zs read "
+        "through L2"
     )
 
 
@@ -403,29 +553,35 @@ def fused_tcg_stiefel_bound_plain(zs, d, xs, ws, ss, grads, radii, *, maxinner,
     )
 
 
+@functools.lru_cache(maxsize=None)
+def stiefel_clusters(device_index: int) -> tuple:
+    """The most clusters of 1, 2, 4 and 8 CTAs of the Stiefel kernel the
+    card holds at once (``stiefel_plan``'s ``clusters``)."""
+    lib = _build.load()
+    out = tuple(lib.stiefel_max_clusters(s, device_index) for s in (1, 2, 4, 8))
+    if min(out) < 0:
+        _build.check(lib, -min(out), "stiefel_max_clusters")
+    return out
+
+
 def _launch_stiefel(zs, d, xs, ws, ss, grads, radii, maxinner, mininner, theta, kappa):
     zs, d, xs, ws, ss, grads, radii = _f32(zs, d, xs, ws, ss, grads, radii)
     _check_frames(zs, d, xs, ws, ss, grads, radii)
     b, n, p = xs.shape
-    mode, _ = stiefel_smem_plan(n, p)
-    target, flag = tcg_target(grads, theta, kappa)
-    target, flag = target.contiguous(), flag.contiguous()
+    dev = xs.device.index or 0
+    plan = stiefel_plan(n, p, max(b, 1), _sms(xs.device), stiefel_clusters(dev))
     etas = torch.empty_like(xs)
     hetas = torch.empty_like(xs)
     stats = torch.empty((b, 2), dtype=torch.int32, device=xs.device)
     if b == 0:
         return etas, hetas, stats[:, 0], stats[:, 1]
-    scratch = torch.empty(
-        (b, 8, n, p) if mode == STIEFEL_FRAMES_GLOBAL else (0,),
-        dtype=torch.float32, device=xs.device,
-    )
     lib = _build.load()
+    # the kernel forms truncated_cg's target from each lane's |grad|
     err = lib.stiefel_tcg_launch(
         _ptr(zs), _ptr(d), _ptr(xs), _ptr(ws), _ptr(ss), _ptr(grads), _ptr(radii),
-        _ptr(target), _ptr(flag), _ptr(etas), _ptr(hetas), _ptr(stats),
-        _ptr(scratch) if scratch.numel() else None,
-        b, n, p, int(maxinner), int(mininner), mode, xs.device.index or 0,
-        _stream(xs.device),
+        _ptr(etas), _ptr(hetas), _ptr(stats), b, n, p, int(maxinner), int(mininner),
+        float(theta), float(kappa), plan.slices, plan.rows, plan.splits,
+        int(plan.zs_shared), dev, _stream(xs.device),
     )
     _build.check(lib, err, "Stiefel-bound tCG kernel")
     return etas, hetas, stats[:, 0], stats[:, 1]
@@ -603,23 +759,35 @@ def matvec_right_plan(n: int, c: int, sms: int = H100_SMS,
     )
 
 
+def left_chain_plan(r: int, n: int, sms: int = H100_SMS, precision: str = "highest"):
+    """The route of K5 left for v [r, n] on ``sms`` SMs: (True, LeftPlan)
+    while Z fits resident across the left chain's cooperative grid
+    (``matvec_left_plan``, n <= 2112 on 132 SMs), else (False, RightPlan):
+    the right chain on the transposes, Z' v' with Z' = Z^T and v' = v^T,
+    whose column norms are the left chain's row norms and whose bf16
+    splits round both operands alike (``matvec_right_plan``, n <= 7200).
+    Raises above that."""
+    try:
+        return True, matvec_left_plan(r, n, sms)
+    except ValueError:
+        return False, matvec_right_plan(n, r, sms, precision)
+
+
 def bare_matvec_chain(zs, v0, n_iters: int, precision: str = "high", left: bool = True):
     """K normalised batched matvecs and nothing else (see the plain
     version): ``zs`` [n, n], ``v0`` [r, n] (``left``) or [n, c].  Returns
     float32 of v0's shape.
 
     Left runs on a cooperative grid with Z resident in shared memory
-    (``matvec_left_plan``; n <= 2112 on an H100, a larger n raises on
-    either device); right on groups of columns, each a thread-block cluster
-    of row slices of Z exchanging their blocks of w through distributed
-    shared memory (``matvec_right_plan``; n <= 7200 on an H100, a larger n
-    raises on either device).  Both read Z as it is given."""
+    (``matvec_left_plan``; n <= 2112 on an H100) and above that as the
+    right chain on the transposes (``left_chain_plan``); right on groups
+    of columns, each a thread-block cluster of row slices of Z exchanging
+    their blocks of w through distributed shared memory
+    (``matvec_right_plan``; n <= 7200 on an H100, a larger n raises on the
+    card).  Both read Z as it is given.  On the CPU the plain version
+    takes any n."""
     on_card = _on_card(zs, v0)
     _check_chain(zs, v0, precision, left)
-    if v0.numel():
-        sms = _sms(v0.device)
-        plan = (matvec_left_plan(*v0.shape, sms) if left
-                else matvec_right_plan(*v0.shape, sms, precision))
     if not on_card:
         return bare_matvec_chain_plain(zs, v0, n_iters, precision, left)
     zs, v0 = _f32(zs, v0)
@@ -628,7 +796,16 @@ def bare_matvec_chain(zs, v0, n_iters: int, precision: str = "high", left: bool 
         return out
     lib = _build.load()
     dev = v0.device
+    sms = _sms(dev)
+    resident = False
     if left:
+        resident, plan = left_chain_plan(*v0.shape, sms, precision)
+        if not resident:  # the right chain on the transposes
+            zs, v0 = zs.mT.contiguous(), v0.mT.contiguous()
+            out = torch.empty_like(v0)
+    else:
+        plan = matvec_right_plan(*v0.shape, sms, precision)
+    if resident:
         r, n = v0.shape
         wbuf = torch.empty((2, r, _ceil(n, 4) * 4), dtype=torch.float32, device=dev)
         err = lib.matvec_chain_left_launch(
@@ -645,7 +822,7 @@ def bare_matvec_chain(zs, v0, n_iters: int, precision: str = "high", left: bool 
         )
     _build.check(lib, err, "bare_matvec_chain")
     bare_matvec_chain.launches += 1
-    return out
+    return out.mT.contiguous() if left and not resident else out
 
 
 bare_matvec_chain.launches = 0

@@ -98,7 +98,8 @@ def select_lanes(mask, a, b):
     return type(a)(**out)
 
 
-def compiled_best_while(step1, state0, target, max_steps, best0):
+def compiled_best_while(step1, state0, target, max_steps, best0, stall_window=None,
+                        stall_rtol=1e-2, track_best_state=False):
     """The lane-batched fixed-budget solve loop (the JAX package's
     ``lax.while_loop`` of the same name, as a Python loop over device
     tensors with one host check per step).
@@ -110,9 +111,14 @@ def compiled_best_while(step1, state0, target, max_steps, best0):
     lane whose target equals its starting residual stops at once.  The
     running minimum takes a strict ``<``, which a NaN residual never
     passes.  A lane that is done is frozen: its state and step count stay
-    as they were when it stopped, while the other lanes go on.  (The JAX
-    loop's opt-in ``stall_window`` and ``track_best_state`` serve sweeps
-    and solvers not ported yet.)
+    as they were when it stopped, while the other lanes go on.
+
+    ``stall_window`` (opt-in, for throughput sweeps): a lane also stops
+    once its best residual has not improved by a relative ``stall_rtol``
+    in that many steps, so one lane stalled at its floor does not hold
+    every lane to the full budget.  ``track_best_state`` (opt-in): keep,
+    per lane, the state that reached the running best and return it in
+    place of the final state.
 
     Returns (state, steps [B], done [B], best [B]).
     """
@@ -122,15 +128,24 @@ def compiled_best_while(step1, state0, target, max_steps, best0):
         torch.as_tensor(target, dtype=best0.dtype, device=device), (b,)
     )
     st, best = state0, best0
+    best_st = state0
     k = torch.zeros(b, dtype=torch.int64, device=device)
+    since = torch.zeros(b, dtype=torch.int64, device=device)
     done = best0 <= target
     for _ in range(max_steps):
         if bool(done.all()):
             break
         new_st, res, counted, stop = step1(st)
         improved = (~done) & counted & (res < best)
+        if track_best_state:
+            best_st = select_lanes(improved, new_st, best_st)
+        if stall_window is not None:
+            big_improve = improved & (res < (1.0 - stall_rtol) * best)
+            since = torch.where(done, since,
+                                torch.where(big_improve, torch.zeros_like(since), since + 1))
+            stop = stop | (since >= stall_window)
         best = torch.where(improved, res, best)
         st = select_lanes(done, st, new_st)
         k = k + (~done).to(k.dtype)
         done = done | stop | (best <= target)
-    return st, k, done, best
+    return (best_st if track_best_state else st), k, done, best

@@ -18,11 +18,17 @@ Not ported yet, and refused with ``NotImplementedError`` when asked for
 ``wandb_logging`` (item 12).  The defaults stay the JAX ones, so a caller
 passes ``TRS_solver='tCG'`` and ``second_order_stationarity=False``.
 
-``use_fused_tcg`` (the JAX ``use_pallas_tcg``) routes the tCG to a fused
-kernel by the problem's structure: a ``sphere_quadratic`` problem to
-``ops/kernels.py`` (K2 at B = 1, K3 at B > 1), a ``stiefel_bound`` problem
-to the Stiefel-bound kernel of the same module (one kernel for K4a and
-K4b, at every B).
+``use_fused_tcg`` (the JAX ``use_pallas_tcg``, which the port refuses by
+that name) routes the tCG to a fused kernel by the problem's structure,
+where the kernel's plan holds the problem (``fused_tcg_route``): a
+``sphere_quadratic`` problem to ``ops/kernels.py`` (K2 at B = 1, K3 at
+B > 1), a ``stiefel_bound`` problem to the Stiefel-bound kernel of the same
+module (one kernel for K4a and K4b, at every B); elsewhere the plain
+``truncated_cg`` runs, as in the JAX package.
+
+``sweep_stall_window`` and ``keep_best_point`` (the JAX options of the
+same names) reach ``base.compiled_best_while`` from the fixed-budget
+loop.
 """
 
 from __future__ import annotations
@@ -146,6 +152,9 @@ _NOT_PORTED = (
      "checkpoint_path={!r}: checkpoint/resume waits for ROADMAP.md queue 1 item 12"),
     ("wandb_logging", bool,
      "wandb_logging={!r} waits for ROADMAP.md queue 1 item 12"),
+    ("use_pallas_tcg", bool,
+     "use_pallas_tcg={!r} is the JAX package's name: the port's option is "
+     "use_fused_tcg"),
 )
 
 
@@ -263,6 +272,26 @@ def _lanes(mask, a, b):
     return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b)
 
 
+def fused_tcg_route(kind, manifold, lanes, device):
+    """The fused tCG kernel that takes a step's tCG, by the problem's
+    structure ``kind``, or None for the plain ``truncated_cg``: decided by
+    the kernels' plans before any launch, as the JAX package gates its
+    kernels on ``fits_in_vmem``.  ``sphere_quadratic``: K2/K3 wherever
+    ``ops/kernels.py::tcg_plan`` has a kernel route (n <= 7232);
+    ``stiefel_bound``: the Stiefel-bound kernel wherever
+    ``stiefel_plan`` fits."""
+    sms = kernels._sms(device)
+    if kind == "sphere_quadratic":
+        return kind if kernels.tcg_plan(manifold.n, lanes, sms).route != "plain" else None
+    if kind == "stiefel_bound":
+        try:
+            kernels.stiefel_plan(manifold.n, manifold.p, lanes, sms)
+        except ValueError:
+            return None
+        return kind
+    return None
+
+
 def make_step(problem, option):
     """Build the inner-step function ``step(state) -> (state, info)``;
     ``info`` is a dict of [B] tensors with the JAX step's keys."""
@@ -278,11 +307,10 @@ def make_step(problem, option):
         mininner=option["tCG_mininner"],
         maxinner=dim,
     )
-    kind = (problem.structure or {}).get("kind")
-    fused = kind if option["use_fused_tcg"] and kind in (
-        "sphere_quadratic", "stiefel_bound") else None
+    kind = (problem.structure or {}).get("kind") if option["use_fused_tcg"] else None
 
     def direction(x, y, c, hw, cx, tr_radius):
+        fused = fused_tcg_route(kind, man, x.shape[0], x.device)
         if fused is None:
             return truncated_cg(man, x, hw, cx, tr_radius, **tcg_kw)
         zs = problem.structure["Zs"]
@@ -715,7 +743,11 @@ class RIPTRM:
 
         def solve(state, target):
             best0 = compute_residual(problem, state.x, state.y)[0]
-            return compiled_best_while(step1, state, target, max_steps, best0)
+            return compiled_best_while(
+                step1, state, target, max_steps, best0,
+                stall_window=option.get("sweep_stall_window"),
+                track_best_state=option.get("keep_best_point", False),
+            )
 
         return solve
 

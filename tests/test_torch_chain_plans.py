@@ -104,8 +104,32 @@ def test_left_plan_refuses_above_its_limit():
         tk.matvec_left_plan(16, 2113)
     with pytest.raises(ValueError, match="shared memory"):
         tk.matvec_left_plan(128, 2113)  # no row-group count fits
+    # the plan binds the card only: on the CPU the plain version takes any n
+    z = torch.eye(2113)
+    out = tk.bare_matvec_chain(z, torch.ones(4, 2113), 1, "highest")
+    torch.testing.assert_close(out, tk.bare_matvec_chain_plain(z, torch.ones(4, 2113), 1,
+                                                               "highest"))
+
+
+@pytest.mark.parametrize("r,n,resident", [
+    (16, 1000, True), (128, 1000, True), (16, 2112, True),
+    (16, 2113, False), (128, 2113, False), (16, 3000, False), (4, 7200, False),
+])
+def test_left_chain_route(r, n, resident):
+    """Above the left chain's resident limit the card runs the right chain
+    on the transposes: its plan for Z^T [n, n] and v^T [n, r]."""
+    is_resident, plan = tk.left_chain_plan(r, n)
+    assert is_resident == resident
+    if resident:
+        assert plan == tk.matvec_left_plan(r, n)
+    else:
+        assert plan == tk.matvec_right_plan(n, r)
+
+
+def test_left_chain_route_refuses_above_the_right_plans_limit():
+    tk.left_chain_plan(16, 7200)
     with pytest.raises(ValueError, match="shared memory"):
-        tk.bare_matvec_chain(torch.zeros(2113, 2113), torch.ones(4, 2113), 1, "highest")
+        tk.left_chain_plan(16, 7201)
 
 
 def test_right_orientation_has_no_left_plan():
@@ -161,12 +185,13 @@ def test_right_plan_takes_every_n_up_to_3615(c):
 
 def test_right_plan_refuses_above_its_limit():
     """v at 4 columns, double-buffered, fills a block's shared memory above
-    n = 7200; the wrapper refuses such an n on either device."""
+    n = 7200; the plan binds the card only, and on the CPU the wrapper's
+    plain version takes such an n."""
     tk.matvec_right_plan(7200, 8)
     with pytest.raises(ValueError, match="shared memory"):
         tk.matvec_right_plan(7201, 8)
-    with pytest.raises(ValueError, match="shared memory"):
-        tk.bare_matvec_chain(torch.zeros(7201, 7201), torch.ones(7201, 2), 1, "highest", False)
+    out = tk.bare_matvec_chain(torch.eye(7201), torch.ones(7201, 2), 1, "highest", False)
+    assert out.shape == (7201, 2) and bool(torch.all(torch.isfinite(out)))
 
 
 @pytest.mark.parametrize("n,grid,cap,pieces,piece,stages,xw_shared", [

@@ -127,6 +127,62 @@ def test_fused_solver_launches_one_kernel_per_step(dev):
     assert out.log["residual"][-1] <= 1e-3
 
 
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@pytest.mark.parametrize("b", [1, 16, 128])
+@pytest.mark.parametrize("where", ["n=1000", "resident limit", "above it"])
+def test_tcg_kernel_routes_match_plain(dev, b, where):
+    """K2 (b = 1) and K3 on each route the plan picks: Zs resident across a
+    cooperative grid at n = 1000 and at the resident limit of the card's
+    SMs, the streaming kernel one above it; lane 0 (radius 1e-6) stops at
+    iteration 1 on the trust region.  In float32 at these n a lane may flip
+    a stop threshold between two summation orders (chip_smoke.py phase 4):
+    at most 1 of 16 and 6 of 128 lanes may disagree; the others must stop
+    as the plain version does, eta within atol 2e-4, rtol 1e-3."""
+    n = 1000 if where == "n=1000" else tk.tcg_resident_max_n(b, _sms(dev))
+    n += where == "above it"
+    assert tk.tcg_plan(n, b, _sms(dev)).route == ("stream" if where == "above it" else
+                                                  "resident")
+    zs, xs, ws, gs, radii = _lanes(_problem(n, dev), b)
+    radii[0] = 1e-6
+    kw = dict(maxinner=n - 1)
+    tk.reset_launch_counts()
+    if b == 1:
+        eta, heta, it, code = tk.fused_tcg_sphere_quadratic(zs, xs[0], ws[0], gs[0], radii[0],
+                                                            **kw)
+        etas, iters, codes = eta[None], it.reshape(1), code.reshape(1)
+    else:
+        etas, _, iters, codes = tk.fused_tcg_sphere_quadratic_batched(zs, xs, ws, gs, radii,
+                                                                      **kw)
+    assert sum(tk.launch_counts().values()) == 1
+    e_p, _, it_p, code_p = tk.fused_tcg_plain(zs, xs, ws, gs, radii, **kw)
+    assert (int(iters[0]), int(codes[0])) == (int(it_p[0]), int(code_p[0]))
+    assert int(iters[0]) == 1
+    close = torch.isclose(etas, e_p, atol=2e-4, rtol=1e-3).all(dim=1)
+    agree = (iters == it_p) & (codes == code_p) & close
+    assert int((~agree).sum()) <= {1: 0, 16: 1, 128: 6}[b], torch.nonzero(~agree).tolist()
+    if b > 1:  # the same bits on a rerun
+        again = tk.fused_tcg_sphere_quadratic_batched(zs, xs, ws, gs, radii, **kw)
+        assert torch.equal(again[0], etas) and torch.equal(again[2], iters)
+
+
+def test_fused_route_takes_plain_tcg_above_the_streaming_limit(dev):
+    """n = 7233: no kernel plan holds a lane, so a solve_compiled step with
+    use_fused_tcg runs the plain truncated_cg (no kernel launch), as the JAX
+    package's fits_in_vmem gate does."""
+    from riptrm_torch.solvers.riptrm import init_state
+
+    p = _problem(7233, dev)
+    solver = RIPTRM({"maxiter": 5, "tolresid": 1e-3, "TRS_solver": "tCG",
+                     "second_order_stationarity": False, "use_fused_tcg": True})
+    tk.reset_launch_counts()
+    st, k = solver.solve_compiled(p, 1)(init_state(p, solver.option))
+    assert int(k[0]) == 1 and sum(tk.launch_counts().values()) == 0
+    assert bool(torch.all(torch.isfinite(st.x)))
+
+
 def _stiefel_lanes(n, p, b, dev, seed=3):
     """Subproblems at St(n, p): a spiked Z and random frames, multipliers
     3 (0.5 + U(0, 1)), mu = 0.01, radii cycling 0.3, 3, 30, 300 (stops on
@@ -161,6 +217,41 @@ def test_stiefel_tcg_kernel_matches_plain(dev, n, p, b):
     assert etas.shape == (b, n, p) and iters.dtype == codes.dtype == torch.int32
     assert iters.tolist() == it_p.tolist()
     assert codes.tolist() == code_p.tolist()
+    torch.testing.assert_close(etas, e_p, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(hetas, h_p, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("n,p,b,slices", [
+    (128, 8, 128, 1), (128, 8, 64, 2), (128, 8, 16, 4), (128, 8, 8, 8),  # every cluster
+    (130, 8, 8, 8),  # ragged: slices of 17 rows, the last 11
+    (1000, 8, 4, 8),  # slices of 125 rows, Zs through L2
+])
+def test_stiefel_kernel_clusters_match_plain(dev, n, p, b, slices):
+    """The Stiefel kernel on each cluster size of its plan, against the
+    plain version at the tolerances above; each run gives the same bits."""
+    clusters = tk.stiefel_clusters(dev.index or 0)
+    assert tk.stiefel_plan(n, p, b, _sms(dev), clusters).slices == slices
+    args, dim = _stiefel_lanes(n, p, b, dev)
+    etas, hetas, iters, codes = tk.fused_tcg_stiefel_bound_batched(*args, maxinner=dim)
+    e_p, h_p, it_p, code_p = tk.fused_tcg_stiefel_bound_plain(*args, maxinner=dim)
+    assert iters.tolist() == it_p.tolist()
+    assert codes.tolist() == code_p.tolist()
+    torch.testing.assert_close(etas, e_p, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(hetas, h_p, atol=1e-4, rtol=1e-3)
+    again = tk.fused_tcg_stiefel_bound_batched(*args, maxinner=dim)
+    assert torch.equal(again[0], etas) and torch.equal(again[2], iters)
+
+
+@pytest.mark.parametrize("b", [16, 128])
+def test_stiefel_kernel_lane_at_maxinner_beside_early_stops(dev, b):
+    """maxinner = 4: lanes that need more iterations stop there with code 0
+    while the others stop earlier on their own test, as in the plain
+    version (their frozen outputs included)."""
+    args, _ = _stiefel_lanes(128, 8, b, dev)
+    etas, hetas, iters, codes = tk.fused_tcg_stiefel_bound_batched(*args, maxinner=4)
+    e_p, h_p, it_p, code_p = tk.fused_tcg_stiefel_bound_plain(*args, maxinner=4)
+    assert iters.tolist() == it_p.tolist() and codes.tolist() == code_p.tolist()
+    assert bool(((iters == 4) & (codes == 0)).any()) and bool((iters < 4).any())
     torch.testing.assert_close(etas, e_p, atol=1e-5, rtol=1e-4)
     torch.testing.assert_close(hetas, h_p, atol=1e-4, rtol=1e-3)
 
@@ -273,6 +364,24 @@ def test_right_chain_plans_match_plain(dev, precision, n, c, slices, cols, zs_sh
     atol = K5_ATOL[precision] * min(1.0, (1000 / n) ** 0.5)
     torch.testing.assert_close(out, ref, atol=atol, rtol=0)
     assert torch.equal(out, tk.bare_matvec_chain(zs, v0, iters, precision, False))
+
+
+def test_left_chain_above_the_resident_limit_matches_plain(dev):
+    """n = 3000, above K5 left's resident limit: the card runs the right
+    chain on the transposes (``left_chain_plan``).  Limit: K5_ATOL scaled
+    to the entries of n = 3000, as in test_right_chain_plans_match_plain."""
+    n = 3000
+    assert not tk.left_chain_plan(16, n, _sms(dev))[0]
+    rng = np.random.default_rng(13)
+    z = rng.standard_normal((n, n))
+    zs = torch.tensor(z + z.T, dtype=torch.float32, device=dev)
+    v0 = torch.tensor(rng.standard_normal((16, n)), dtype=torch.float32, device=dev)
+    tk.reset_launch_counts()
+    out = tk.bare_matvec_chain(zs, v0, 8, "highest", True)
+    assert tk.launch_counts()["bare_matvec_chain"] == 1
+    ref = tk.bare_matvec_chain_plain(zs, v0, 8, "highest", True)
+    assert out.shape == v0.shape and out.is_contiguous()
+    torch.testing.assert_close(out, ref, atol=K5_ATOL["highest"] * (1000 / n) ** 0.5, rtol=0)
 
 
 @pytest.mark.parametrize("n_iters", [0, 1, 2])

@@ -60,6 +60,19 @@ def test_bare_chain_matches_pallas(precision, left, shape):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=K5_ATOL[precision], rtol=0)
 
 
+def test_bare_chain_left_above_the_resident_limit():
+    """n = 3000, above K5 left's resident limit on the card (2112): the
+    wrapper's plain path takes it on the CPU, as JAX computes any n in
+    interpret mode."""
+    z = _z(3000, seed=5)
+    v0 = np.random.default_rng(6).standard_normal((16, 3000)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = pk.bare_matvec_chain(jnp.asarray(z), jnp.asarray(v0), 3, "highest", True)
+    got = tk.bare_matvec_chain(torch.tensor(z), torch.tensor(v0), 3, "highest", True)
+    assert got.shape == (16, 3000)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=K5_ATOL["highest"], rtol=0)
+
+
 def test_bare_chain_nonsymmetric_z_orientations():
     """v @ Z and Z @ v are different products when Z is not symmetric."""
     z = np.random.default_rng(2).standard_normal((32, 32)).astype(np.float32)

@@ -138,14 +138,16 @@ def test_stiefel_row_times_the_chains_own_plan(monkeypatch):
 
 
 def test_main_refuses_sizes_above_the_left_chain_limit(monkeypatch, tmp_path, capsys):
-    """An n beyond K5 left's resident limit (2112 on 132 SMs) is refused up
-    front, before any row runs or the output is written."""
+    """An n beyond K5 left's limit (resident to 2112 on 132 SMs, then the
+    right chain on the transposes to 7200) is refused up front, before any
+    row runs or the output is written."""
     monkeypatch.setattr(rl, "cuda_device", lambda: torch.device("cpu"))
     monkeypatch.setattr(rl, "sphere_row", lambda *a: pytest.fail("a row ran"))
     out = tmp_path / "roofline.json"
     with pytest.raises(SystemExit):
-        rl.main(["--sizes", "1000", "2113", "--out", str(out)])
-    assert "--sizes 2113" in capsys.readouterr().err
+        rl.main(["--sizes", "1000", "2113", "7201", "--out", str(out)])
+    err = capsys.readouterr().err
+    assert "--sizes 7201" in err and "--sizes 2113" not in err
     assert not out.exists()
 
 

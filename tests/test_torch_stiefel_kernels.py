@@ -173,14 +173,17 @@ def test_wrapper_refuses_bad_input(narrow):
 
 
 def test_shared_memory_plan():
-    """Zs and the frames in shared memory at St(128, 8); at St(512, 32)
-    the frames go to global scratch and Zs is read through L2; a p whose
-    p x p blocks alone exceed shared memory is refused."""
-    assert tk.stiefel_smem_plan(128, 8)[0] == tk.STIEFEL_ALL_SHARED
-    assert tk.stiefel_smem_plan(200, 16)[0] == tk.STIEFEL_ZS_GLOBAL
-    assert tk.stiefel_smem_plan(512, 32)[0] == tk.STIEFEL_FRAMES_GLOBAL
-    mode, nbytes = tk.stiefel_smem_plan(128, 8)
-    assert nbytes == 4 * (128 * 128 + 8 * 128 * 8 + (2 + 4) * 64 + 8)
-    assert nbytes <= tk.MAX_SMEM_BYTES
+    """Zs in shared memory at St(128, 8) on every cluster size; at St(512,
+    32) the slice's Zs is read through L2 beside the whole delta and the
+    slice's frames; a p above 32, or an n whose delta and frames do not
+    fit one block even on a cluster of 8, is refused."""
+    for b in (1, 16, 64, 128):
+        assert tk.stiefel_plan(128, 8, b).zs_shared
+    assert tk.stiefel_plan(200, 16, 4).zs_shared
+    assert not tk.stiefel_plan(512, 32, 16).zs_shared
+    plan = tk.stiefel_plan(128, 8, 128)
+    assert plan.smem == 4 * tk._stiefel_floats(128, 8, 1, 128, plan.splits, True) <= tk.MAX_SMEM_BYTES
+    with pytest.raises(ValueError, match="p <= 32"):
+        tk.stiefel_plan(1000, 160, 1)
     with pytest.raises(ValueError, match="shared memory"):
-        tk.stiefel_smem_plan(1000, 160)
+        tk.stiefel_plan(3000, 8, 1)
