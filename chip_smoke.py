@@ -3,11 +3,13 @@
     python3 chip_smoke.py
 
 Drives the port's three paths on the card through their user entry
-points: RIPTRM (tCG mode, first-order stopping) on NonnegPCA on the sphere
-at the size of the system's own benchmark, n = 1000, and on BoundedPCA on
-St(128, 8) at the size of the JAX package's own chip sweeps; and the
-roofline (``python -m riptrm_torch.experiment.roofline``) at its default
-shapes.  Checks the six hand-written kernels
+points: RIPTRM (tCG mode with first-order stopping, exact mode and the
+second-order criterion) on NonnegPCA on the sphere at the size of the
+system's own benchmark, n = 1000, and on BoundedPCA on St(128, 8) at the
+size of the JAX package's own chip sweeps, with second-order certificates
+of the sweeps' final points; and the roofline
+(``python -m riptrm_torch.experiment.roofline``) at its default shapes.
+Checks the six hand-written kernels
 (``riptrm_torch/csrc/sphere_tcg.cu``: K2-K3;
 ``riptrm_torch/csrc/stiefel_tcg.cu``: the Stiefel-bound tCG;
 ``riptrm_torch/csrc/matvec_chain.cu``: K1, K5 and K6) against their plain
@@ -45,10 +47,21 @@ Phases:
   -- launch counters reset: the NonnegPCA path starts here --
   5. golden solve: RIPTRM.run on dataset/NonnegPCA/1 point a, float64,
      plain tCG (residual <= 1e-8, cost -1.537809 +- 1e-4), then fused;
+  5c. the same instance with the second-order criterion, float64, residual
+     <= 1e-6 and last mineigvalHw > -1e-6: exact mode (the solver's
+     defaults) with the eigh and the Moré-Sorensen TRS, and tCG mode with
+     the Lanczos certificate, plain and fused (K2 once a step); then
+     dataset/BoundedPCA/1 points a and b (St(30, 3), dim 84) in exact
+     second-order mode (residual <= 1e-8);
   6. bench.py's headline op (K1 at the initial state) and the single-lane
      n = 1000 float32 solve through RIPTRM.run and solve_compiled, fused;
   7. batched_riptrm_solve at n = 1000, B = 16 and B = 128, fused, and
      B = 16 with the plain tCG;
+  6c. exact mode at n = 1000: RIPTRM.run on phase 6's instance in float64
+     ('auto' is the Moré-Sorensen TRS there; residual <= 1e-6, a finite
+     mineigvalHw), a step's wall time split into materialisation, TRS and
+     the rest; then batched_riptrm_solve at B = 16 in float32 from phase
+     7's starts (median residual <= 1e-3);
   -- launch counters read (K1-K3), then reset: the BoundedPCA path --
   5b. golden solves: RIPTRM.run on dataset/BoundedPCA/1 points a and b,
      float64, plain tCG and fused (residual <= 1e-8, cost -5.2090815 +- 1e-6);
@@ -57,6 +70,12 @@ Phases:
   7b. batched_riptrm_solve at St(128, 8), B = 16 and B = 128, fused, and
      B = 16 with the plain tCG (PLAIN_SWEEP_STEPS steps);
   -- launch counters read (the Stiefel-bound kernel) --
+  7c. certify_second_order (ratio_cap 1e8) on the final points of phase
+     7's fused sweeps and phase 7b's fused B = 16 sweep (NaN exactly on
+     infeasible lanes), with its time a call; at one St(128, 8) final
+     point in float64, the dense Hw's least eigenvalue (dim 988) below the
+     Lanczos Ritz minimum; the card's float32 eigh at n = 1000 against a
+     float64 one;
   8. CUDA-event times of each kernel and its plain version (events around
      windows of back-to-back calls, divided by the count), each with its
      bound (``riptrm_torch/experiment/roofline.py``'s accounting) and, for
@@ -251,6 +270,82 @@ def wall(fn, device):
     out = fn()
     sync(device)
     return out, time.perf_counter() - t0
+
+
+def call_ms(fn, device, calls=5):
+    """'wall ms (kernels ms)' of one call of ``fn``: the median wall time of
+    ``calls`` synchronised calls after a warm-up, and its CUDA kernels' own
+    time (``kernel_ms``)."""
+    fn()
+    times = [wall(fn, device)[1] for _ in range(calls)]
+    own = kernel_ms(fn, device, calls=calls)
+    own = "not measured" if own is None else f"{own:.2f} ms"
+    return f"{1e3 * statistics.median(times):.2f} ms ({own})"
+
+
+def exact_parts(problem, x, y, mu):
+    """The parts of an exact-mode ms step's materialisation at (x, y, mu):
+    the whole (``materialize_at``), the Householder congruence with cx's
+    coordinates, and the 32-step dense Lanczos of its extremes."""
+    from riptrm_torch.solvers import riptrm
+
+    h, _ = riptrm._materialize_structured(problem, x, y, mu)
+    return (("materialize_at", lambda: riptrm.materialize_at(problem, x, y, mu, True)),
+            ("congruence", lambda: riptrm._materialize_structured(problem, x, y, mu)),
+            ("dense Lanczos", lambda: riptrm._dense_ritz(h)))
+
+
+def finite_mineigs(log):
+    """The finite ``mineigvalHw`` values of a run's log, in order."""
+    return [v for v in log["mineigvalHw"] if v is not None and math.isfinite(v)]
+
+
+class StepSplit:
+    """Wall time spent in the exact step's materialisation
+    (``solvers/riptrm.py::materialize_at``: Hw and cx in the tangent basis,
+    its eigendecomposition or Lanczos extremes) and in its TRS
+    (``solve_trs_ms``/``solve_trs_eig``), over the length of a ``with``:
+    those module functions are wrapped with timers that synchronise the
+    card before and after each call."""
+
+    PARTS = {"materialize_at": "materialisation", "solve_trs_ms": "TRS",
+             "solve_trs_eig": "TRS"}
+
+    def __init__(self, device):
+        self.device = device
+        self.seconds = {"materialisation": 0.0, "TRS": 0.0}
+        self.calls = {"materialisation": 0, "TRS": 0}
+        self.saved = {}
+
+    def __enter__(self):
+        from riptrm_torch.solvers import riptrm
+
+        for name, part in self.PARTS.items():
+            fn = self.saved[name] = getattr(riptrm, name)
+
+            def timed(*args, fn=fn, part=part, **kwargs):
+                sync(self.device)
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                sync(self.device)
+                self.seconds[part] += time.perf_counter() - t0
+                self.calls[part] += 1
+                return out
+
+            setattr(riptrm, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        from riptrm_torch.solvers import riptrm
+
+        for name, fn in self.saved.items():
+            setattr(riptrm, name, fn)
+
+    def report(self, total, steps):
+        rest = total - sum(self.seconds.values())
+        parts = [f"{part} {1e3 * s / steps:.2f} ms ({self.calls[part]} calls, "
+                 f"{100 * s / total:.1f} %)" for part, s in self.seconds.items()]
+        return ", ".join(parts + [f"rest {1e3 * rest / steps:.2f} ms ({100 * rest / total:.1f} %)"])
 
 
 class Smoke:
@@ -509,6 +604,102 @@ class Smoke:
         b = self.lanes[0]
         say(f"phase 7 B={b} median residual: fused {medians[(b, True)]:.3e}, "
             f"plain {medians[(b, False)]:.3e}")
+
+    # -- phases 5c and 6c: exact and second-order mode ---------------------
+    def phase_golden_exact(self):
+        """5c: the golden instances in exact second-order mode (the solver's
+        defaults) and in tCG mode with the Lanczos certificate, plain and
+        fused (K2, one launch a step), float64."""
+        from riptrm_torch.ops.kernels import launch_counts
+        from riptrm_torch.problems import bounded_pca, nonneg_pca
+        from riptrm_torch.solvers.riptrm import RIPTRM
+
+        p = nonneg_pca.load_problem(DATASET, "a", dtype=torch.float64, device=self.device)
+        base = {"maxtime": 120, "maxiter": 30, "tolresid": 1e-6, "do_exit_on_error": False}
+        runs = (("Exact_RepMat eigh", {"exact_trs_method": "eigh"}),
+                ("Exact_RepMat ms", {"exact_trs_method": "ms"}),
+                ("tCG + Lanczos, plain tCG", {"TRS_solver": "tCG"}),
+                ("tCG + Lanczos, use_fused_tcg", {"TRS_solver": "tCG", "use_fused_tcg": True}))
+        for label, extra in runs:
+            before = launch_counts()["fused_tcg_sphere_quadratic"]
+            out, t = wall(lambda: RIPTRM(base | extra).run(p), self.device)
+            launches = launch_counts()["fused_tcg_sphere_quadratic"] - before
+            res, cost = out.log["residual"][-1], out.log["cost"][-1]
+            steps = len(out.log["residual"]) - 1
+            mineigs = finite_mineigs(out.log)
+            say(f"phase 5c golden solve (dataset/NonnegPCA/1 a, float64, {label}, second order): "
+                f"residual {res:.3e}, cost {cost:.7f}, last mineigvalHw "
+                f"{mineigs[-1] if mineigs else float('nan'):.6e}, {steps} steps, K2 launches "
+                f"{launches}, {t:.2f} s")
+            check(res <= 1e-6, f"5c {label}: residual {res} > 1e-6")
+            check(bool(mineigs) and mineigs[-1] > -1e-6, f"5c {label}: mineigvalHw {mineigs[-1:]}")
+            check(abs(cost + 1.537809) <= 1e-4, f"5c {label}: cost {cost}")
+            check(launches == (steps if extra.get("use_fused_tcg") else 0),
+                  f"5c {label}: {launches} K2 launches in {steps} steps")
+        opt = {"maxtime": 120, "maxiter": 40, "tolresid": 1e-8, "do_exit_on_error": False}
+        for point in "ab":
+            p = bounded_pca.load_problem(BPCA_DATASET, point, dtype=torch.float64,
+                                         device=self.device)
+            out, t = wall(lambda: RIPTRM(opt).run(p), self.device)
+            res, cost = out.log["residual"][-1], out.log["cost"][-1]
+            steps = len(out.log["residual"]) - 1
+            mineigs = finite_mineigs(out.log)
+            say(f"phase 5c golden solve (dataset/BoundedPCA/1 {point}, St(30, 3), dim 84, float64, "
+                f"Exact_RepMat eigh, second order): residual {res:.3e}, cost {cost:.7f}, last "
+                f"mineigvalHw {mineigs[-1]:.6e}, {steps} steps, {t:.2f} s")
+            check(res <= 1e-8, f"5c BoundedPCA {point}: residual {res} > 1e-8")
+            check(abs(cost - BPCA_GOLDEN_COST) <= 1e-6, f"5c BoundedPCA {point}: cost {cost}")
+            check(mineigs[-1] > -1e-6, f"5c BoundedPCA {point}: mineigvalHw {mineigs[-1]}")
+
+    def phase_exact_full(self):
+        """6c: exact mode at n = 1000.  RIPTRM.run in float64 on phase 6's
+        instance ('auto' resolves to the Moré-Sorensen TRS, Hw by the
+        Householder congruence), with the wall time of a step split into
+        the materialisation, the TRS and the rest; then the float32
+        batched sweep in exact mode (the batched sweeps' default 'ms')
+        from phase 7's B = 16 starts."""
+        from riptrm_torch.parallel.sweep import batched_riptrm_solve
+        from riptrm_torch.problems import nonneg_pca
+        from riptrm_torch.solvers.riptrm import RIPTRM, exact_trs_method
+
+        p = nonneg_pca.make_problem(self.zs.double(), self.problem.x0.double())
+        solver = RIPTRM({"maxtime": 300, "maxiter": 60, "tolresid": 1e-6,
+                         "do_exit_on_error": False})
+        method = exact_trs_method(solver.option, p.manifold.dim)
+        check(method == "ms", f"6c: 'auto' resolved to {method!r} at dim {p.manifold.dim}")
+        with StepSplit(self.device) as split:
+            out, t = wall(lambda: solver.run(p), self.device)
+        res, steps = out.log["residual"][-1], len(out.log["residual"]) - 1
+        mineigs = finite_mineigs(out.log)
+        say(f"phase 6c RIPTRM.run n={self.n} float64 Exact_RepMat ('auto' -> {method}), second "
+            f"order: residual {res:.3e}, cost {out.log['cost'][-1]:.7f}, last mineigvalHw "
+            f"{mineigs[-1] if mineigs else float('nan'):.6e}, {steps} steps, "
+            f"{out.log['iteration'][-1]} outer, {t:.3f} s")
+        say(f"  per step {1e3 * t / steps:.2f} ms: " + split.report(t, steps))
+        check(res <= 1e-6, f"6c: residual {res} > 1e-6")
+        check(bool(mineigs) and math.isfinite(mineigs[-1]), "6c: no finite mineigvalHw")
+        x, y = out.x[None].clone(), out.ineqLagmult[None].clone()
+        mu = torch.tensor([out.log["mu"][-1]], dtype=torch.float64, device=self.device)
+        say("  at the final point, a call's wall time (median of 5) and its kernels' own time "
+            "(torch.profiler): " + ", ".join(
+                f"{label} {call_ms(fn, self.device)}" for label, fn in exact_parts(p, x, y, mu)))
+
+        b = self.lanes[0]
+        xs, ys = self.start[b].x, self.start[b].y
+        option = bench_option() | {"TRS_solver": "Exact_RepMat", "second_order_stationarity": True}
+        solve = batched_riptrm_solve(self.problem, option, self.steps)
+        with StepSplit(self.device) as split:
+            (st, steps, res), t = wall(lambda: solve(xs, ys), self.device)
+        med = float(torch.median(res))
+        above = int((res > 1e-3).sum())
+        say(f"phase 6c batched_riptrm_solve n={self.n} B={b} float32 Exact_RepMat (ms), second "
+            f"order: median residual {med:.3e}, max {float(res.max()):.3e}, {above} lanes above "
+            f"1e-3, steps max {int(steps.max())} median {float(steps.float().median()):.0f}, "
+            f"{t:.3f} s ({t / b * 1e3:.2f} ms per solve)")
+        say(f"  per step {1e3 * t / int(steps.max()):.2f} ms: "
+            + split.report(t, int(steps.max())))
+        check(bool(torch.all(torch.isfinite(res))), "6c sweep residuals not finite")
+        check(med <= 1e-3, f"6c exact sweep: median residual {med}")
 
     # -- phase 8: timings --------------------------------------------------
     def phase_timings(self):
@@ -929,6 +1120,86 @@ class ChainSmoke:
                 lambda zs=zs, v0=v0: torch.matmul(zs, v0), call=((*args, CHAIN_ITERS), {})))
 
 
+def phase_certificates(smoke, stiefel):
+    """7c: second-order certificates at full width.  ``certify_second_order``
+    (ratio_cap 1e8) on phase 7's fused NonnegPCA final points (B = 16 and
+    128) and phase 7b's fused St(128, 8) B = 16 final points: finite on
+    every feasible lane, NaN exactly on the infeasible ones.  At one
+    St(128, 8) final point in float64, the least eigenvalue of the dense
+    Hw (``materialize_symmetrized`` in the tangent basis, dim 988, and
+    ``eigvalsh``) must lie below the Lanczos Ritz minimum, to 1e-3
+    relative.  Last, the card's float32 ``eigh`` of the n = 1000 exact
+    mode's Hw: its residual, orthogonality and eigenvalues against a
+    float64 ``eigh`` of the same matrix, each within n eps32 relative."""
+    from riptrm_torch.ops.basis import materialize_symmetrized
+    from riptrm_torch.parallel.sweep import certificate_operator, certify_second_order
+    from riptrm_torch.problems import bounded_pca
+    from riptrm_torch.solvers.riptrm import _materialize_structured
+
+    device = smoke.device
+    cases = [(f"NonnegPCA n={smoke.n} B={b}", smoke.problem, smoke.final[b]) for b in smoke.lanes]
+    cases.append((f"BoundedPCA St(128, 8) B={stiefel.lanes[0]}", stiefel.problem,
+                  stiefel.final[stiefel.lanes[0]]))
+    for label, problem, st in cases:
+        certify_second_order(problem, st.x, st.y, ratio_cap=1e8)  # warm-up
+        times = []
+        for _ in range(3):
+            cert, t = wall(lambda: certify_second_order(problem, st.x, st.y, ratio_cap=1e8), device)
+            times.append(t)
+        feasible = torch.amin(problem.slack(st.x), dim=-1) > 0
+        below = int((cert[feasible] < -1e-5).sum())
+        own = kernel_ms(lambda: certify_second_order(problem, st.x, st.y, ratio_cap=1e8),
+                        device, calls=3)
+        say(f"phase 7c certify_second_order {label} (64 Lanczos steps, ratio_cap 1e8): "
+            f"{int(feasible.sum())} feasible lanes, {below} below -1e-5, min "
+            f"{float(cert[feasible].min()):.4e}, median {float(cert[feasible].median()):.4e}; "
+            f"{1e3 * statistics.median(times):.2f} ms a call (median of 3), its kernels "
+            f"{'not measured' if own is None else f'{own:.2f} ms'} (torch.profiler)")
+        check(bool(torch.equal(torch.isnan(cert), ~feasible)),
+              f"7c {label}: NaN certificates do not match the infeasible lanes")
+        check(bool(torch.all(torch.isfinite(cert[feasible]))),
+              f"7c {label}: certificate not finite")
+
+    # the Ritz minimum against the dense spectrum, float64, one lane
+    f64 = dict(dtype=torch.float64, device=device)
+    st = stiefel.final[stiefel.lanes[0]]
+    p64 = bounded_pca.make_problem(stiefel.problem.structure["Zs"].double(), st.x[0].double(),
+                                   **f64)
+    x64, y64 = st.x[:1].double().clone(), st.y[:1].double().clone()
+    hw, _, _ = certificate_operator(p64, x64, y64, ratio_cap=1e8)
+    h, t = wall(lambda: materialize_symmetrized(p64.manifold, x64, p64.manifold.basis(x64), hw),
+                device)
+    ritz = certify_second_order(p64, x64, y64, ratio_cap=1e8)[0]
+    ev = torch.linalg.eigvalsh(h)[0]
+    lam_min, lam_max = float(ev[0]), float(ev[-1])
+    gap = (float(ritz) - lam_min) / abs(lam_min)
+    say(f"phase 7c dense Hw at St(128, 8) lane 0 (float64, dim {h.shape[-1]}, materialised by "
+        f"one vmap of the HVP over the basis in {1e3 * t:.1f} ms): eigvalsh min {lam_min:.6e}, "
+        f"max {lam_max:.6e}; Lanczos Ritz minimum {float(ritz):.6e} ((ritz - min) / |min| = "
+        f"{gap:.3e}, limit -1e-3)")
+    check(h.shape[-1] == p64.manifold.dim == 988, "7c: dense Hw of the wrong size")
+    check(gap >= -1e-3, f"7c: Ritz minimum {float(ritz)} below the least eigenvalue {lam_min}")
+
+    # the card's float32 eigh at n = 1000
+    st = smoke.final[smoke.lanes[0]]
+    h32, _ = _materialize_structured(smoke.problem, st.x[:1], st.y[:1], st.mu[:1])
+    (lam, q), t = wall(lambda: torch.linalg.eigh(h32), device)
+    lam64 = torch.linalg.eigvalsh(h32.double())
+    n = h32.shape[-1]
+    eps_n = n * torch.finfo(torch.float32).eps
+    h_norm = float(torch.max(torch.abs(lam64)))
+    resid = float(torch.linalg.matrix_norm((h32 @ q - q * lam[:, None, :]).double())
+                  / torch.linalg.matrix_norm(h32.double()))
+    orth = float(torch.max(torch.abs(q.mT.double() @ q.double()
+                                     - torch.eye(n, **f64))))
+    lam_err = float(torch.max(torch.abs(lam.double() - lam64))) / h_norm
+    say(f"phase 7c float32 eigh of Hw at n={smoke.n} (dim {n}, ||Hw||_2 {h_norm:.4e}): "
+        f"||HQ - QL||_F / ||H||_F {resid:.3e}, max |Q'Q - I| {orth:.3e}, max eigenvalue error "
+        f"against float64 / ||H||_2 {lam_err:.3e} (limits n eps32 = {eps_n:.3e}); {1e3 * t:.2f} ms")
+    check(resid <= eps_n and orth <= eps_n and lam_err <= eps_n,
+          "7c: the card's float32 eigh is outside n eps32")
+
+
 def phase_roofline(report):
     """Phase 9: the roofline entry point at its default shapes."""
     from riptrm_torch.experiment import roofline
@@ -1109,8 +1380,10 @@ def main(argv):
     k.reset_launch_counts()  # the NonnegPCA path starts here
     t_path = time.perf_counter()
     smoke.phase_golden()
+    smoke.phase_golden_exact()
     smoke.phase_single()
     smoke.phase_sweep()
+    smoke.phase_exact_full()
     read_counts("NonnegPCA", SPHERE_KERNELS, report)
     say(f"NonnegPCA path: {time.perf_counter() - t_path:.1f} s")
 
@@ -1121,6 +1394,9 @@ def main(argv):
     stiefel.phase_sweep()
     read_counts("BoundedPCA", (STIEFEL_KERNEL,), report)
     say(f"BoundedPCA path: {time.perf_counter() - t_path:.1f} s")
+    t_path = time.perf_counter()
+    phase_certificates(smoke, stiefel)
+    say(f"certificates: {time.perf_counter() - t_path:.1f} s")
 
     smoke.phase_timings()
     stiefel.phase_timings()

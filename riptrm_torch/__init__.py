@@ -3,10 +3,11 @@
 The JAX package ``riptrm_tpu`` is the reference; this package mirrors its
 layout and names (``manifolds``, ``problems``, ``ops``, ``solvers``,
 ``parallel``, ``experiment``, ``utils``) so each module's counterpart sits
-under the same path.  Ported so far: the RIPTRM tCG path (first-order
-stopping) on NonnegPCA (sphere) and BoundedPCA (Stiefel), and the roofline
-entry point, with a hand-written Hopper kernel for every Pallas kernel of
-the JAX package (``ops/kernels.py``, ``csrc/``).
+under the same path.  Ported so far: RIPTRM in tCG and exact mode, with
+first- or second-order stopping, on NonnegPCA (sphere) and BoundedPCA
+(Stiefel), the batched sweep with its second-order certificate, and the
+roofline entry point, with a hand-written Hopper kernel for every Pallas
+kernel of the JAX package (``ops/kernels.py``, ``csrc/``).
 
 Conventions:
 

@@ -1,7 +1,7 @@
 """Unit sphere S^{n-1} embedded in R^n, over a leading lane axis.
 
-Counterpart of ``riptrm_tpu/manifolds/sphere.py``.  The Householder tangent
-basis waits for exact mode (ROADMAP.md queue 1, item 8).
+Counterpart of ``riptrm_tpu/manifolds/sphere.py``, with its Householder
+tangent basis.
 """
 
 from __future__ import annotations
@@ -58,3 +58,16 @@ class Sphere(Manifold):
             x, torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
         )
         return v / self.norm(x, v)[..., None]
+
+    def basis(self, x):
+        """Rows 0..n-2 of the Householder reflector H = I - beta w w',
+        w = x + sign(x_n) e_n, per lane: an orthonormal basis of x^perp
+        (H is symmetric and orthogonal, and its last row is -sign(x_n) x).
+        [B, n-1, n]."""
+        n = self.n
+        s = torch.where(x[:, n - 1] >= 0, 1.0, -1.0).to(x.dtype)
+        w = x.clone()
+        w[:, n - 1] += s
+        eye = torch.eye(n, dtype=x.dtype, device=x.device)
+        h = eye - (2.0 / _dot(w, w))[:, None, None] * (w[:, :, None] * w[:, None, :])
+        return h[:, :, : n - 1].mT

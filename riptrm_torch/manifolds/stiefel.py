@@ -3,8 +3,7 @@ over a leading lane axis (points and tangents ``[B, n, p]``).
 
 Counterpart of ``riptrm_tpu/manifolds/stiefel.py``: the embedded geometry
 with tangent space {V : X'V + V'X = 0}, the polar retraction and the
-chordal distance.  The closed-form tangent ``basis`` waits for exact mode
-(ROADMAP.md queue 1, item 8).
+chordal distance, and the closed-form tangent ``basis``.
 """
 
 from __future__ import annotations
@@ -14,7 +13,13 @@ import math
 
 import torch
 
-from riptrm_torch.manifolds.base import Manifold, randn_on, sym
+from riptrm_torch.manifolds.base import (
+    Manifold,
+    _skew_basis,
+    orthonormal_completion,
+    randn_on,
+    sym,
+)
 
 
 def _frob(u, v):
@@ -74,3 +79,19 @@ class Stiefel(Manifold):
             x, torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
         )
         return v / self.norm(x, v)[..., None, None]
+
+    def basis(self, x):
+        """Frobenius-orthonormal tangent basis per lane: X A_k for the
+        skew basis A_k, then X_perp E_ij for the unit matrices E_ij of
+        [n-p, p] (row-major).  [B, dim, n, p].  X_perp comes from a complete
+        QR (``orthonormal_completion``), whose column signs LAPACK and
+        cuSOLVER choose: the basis, and coordinates in it, may differ from
+        the JAX package's by those signs; spectra and ambient vectors do
+        not."""
+        b, n, p = x.shape
+        xp = orthonormal_completion(x)  # [B, n, n-p]
+        sk = _skew_basis(p, dtype=x.dtype, device=x.device)
+        part1 = torch.einsum("bij,kjl->bkil", x, sk)
+        eye = torch.eye(p, dtype=x.dtype, device=x.device)
+        part2 = torch.einsum("bik,jl->bkjil", xp, eye).reshape(b, (n - p) * p, n, p)
+        return torch.cat([part1, part2], dim=1)

@@ -1,0 +1,74 @@
+"""Tangent-space operator materialisation, over lanes.
+
+Counterpart of ``riptrm_tpu/ops/basis.py``: a dim x dim representing
+matrix per lane, built with ONE ``torch.func.vmap`` over the dim basis
+directions of the lane-batched operator (dim batched applications) and one
+batched projection.  ``materialize_sharded`` and ``constraint_grad_rows``
+are not ported yet (ROADMAP.md queue 1, items 7 and 4).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.func import vmap
+
+
+def materialize(manifold, x, basis, op):
+    """Dense matrices A [B, dim, dim] with A[b, i, j] = <basis_i, op(basis_j)>
+    at x[b]: ``op`` in metric-orthonormal coordinates.  ``op`` maps
+    lane-batched tangents [B, ...] to tangents; it is applied once, mapped
+    over the dim basis directions."""
+
+    def column(b_j):  # the j-th basis vector of every lane, [B, ...]
+        return manifold.to_coords(x, basis, op(b_j))
+
+    return vmap(column, in_dims=1, out_dims=2)(basis)
+
+
+def materialize_symmetrized(manifold, x, basis, op):
+    """``materialize`` symmetrised, for self-adjoint operators whose
+    numerical representation is slightly asymmetric."""
+    a = materialize(manifold, x, basis, op)
+    return 0.5 * (a + a.mT)
+
+
+def _householder_w(x):
+    """w = x + sign(x_n) e_n and beta = 2 / w'w per lane (``Sphere.basis``)."""
+    n = x.shape[-1]
+    s = torch.where(x[:, n - 1] >= 0, 1.0, -1.0).to(x.dtype)
+    w = x.clone()
+    w[:, n - 1] += s
+    return w, 2.0 / torch.sum(w * w, dim=-1)
+
+
+def sphere_householder_congruence(x, a_mat, kappa):
+    """Closed-form O(n^2) coordinate materialisation on the sphere.
+
+    For ``op(v) = P a_mat v - kappa v`` on the tangent space at x in S^{n-1}
+    (every Riemannian Hessian on the sphere has this form), the matrix in
+    ``Sphere.basis``'s Householder basis is the congruence
+    (H a_mat H)[:n-1, :n-1] - kappa I with H = I - beta w w': two symmetric
+    rank-1 updates around one matvec a_mat w, in place of dim operator
+    applications.  ``x`` [B, n], ``a_mat`` [B, n, n], ``kappa`` [B];
+    returns [B, n-1, n-1]."""
+    n = x.shape[-1]
+    w, beta = _householder_w(x)
+    u = torch.einsum("bij,bj->bi", a_mat, w)
+    v = -beta[:, None] * u + (0.5 * beta * beta * torch.sum(w * u, dim=-1))[:, None] * w
+    m = a_mat + w[:, :, None] * v[:, None, :] + v[:, :, None] * w[:, None, :]
+    eye = torch.eye(n - 1, dtype=a_mat.dtype, device=a_mat.device)
+    h = m[:, : n - 1, : n - 1] - kappa[:, None, None] * eye
+    return 0.5 * (h + h.mT)
+
+
+def sphere_householder_coords(x, v_amb):
+    """Coordinates [B, n-1] of the tangent projection of ambient ``v_amb``
+    [B, n] in the Householder basis, without the basis: (H v)[:n-1]."""
+    n = x.shape[-1]
+    w, beta = _householder_w(x)
+    return (v_amb - (beta * torch.sum(w * v_amb, dim=-1))[:, None] * w)[:, : n - 1]
+
+
+def covector(manifold, x, basis, v):
+    """Coordinates of a tangent vector v."""
+    return manifold.to_coords(x, basis, v)

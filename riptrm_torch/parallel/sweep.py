@@ -6,16 +6,38 @@ Counterpart of ``riptrm_tpu/parallel/sweep.py::init_state_from`` and
 lane-batched step runs them in lockstep, a finished lane frozen at its
 stop.  With ``use_fused_tcg`` every step's tCG is one launch of a batched
 kernel against the shared Zs: K3 on NonnegPCA, the Stiefel-bound kernel on
-BoundedPCA.  Meshes, sharding and staged precision
-wait for ROADMAP.md queue 1 item 13.
+BoundedPCA.  ``certify_second_order`` certifies a batch of final points.
+Meshes, sharding and staged precision wait for ROADMAP.md queue 1 item 7.
+
+The JAX package's ``_warn_vmapped_lanczos`` is not ported: under ``vmap``
+the tCG mode's Lanczos certificate runs on every step of every lane, but
+the port's step runs it only on steps where some lane's first-order tests
+hold.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from riptrm_torch.ops.kkt import compute_residual
-from riptrm_torch.solvers.riptrm import RIPTRM, RiptrmState, init_state
+from riptrm_torch.ops.spectrum import lanczos
+from riptrm_torch.solvers.riptrm import RIPTRM, RiptrmState, _barrier_ops, init_state
+
+
+def _batched_exact_defaults(option):
+    """Exact-mode default of the batched sweeps: ``exact_trs_method``
+    'ms' unless the caller set it.  A sweep's lanes rarely all hit the
+    cache on one step, so the cached eigendecomposition that makes 'eigh'
+    cheap in single-lane runs is recomputed on most steps; the Moré-Sorensen
+    TRS needs none.  ('auto' keeps the dim-256 crossover for single-lane
+    runs.)"""
+    if (option and option.get("TRS_solver") == "Exact_RepMat"
+            and "exact_trs_method" not in option):
+        option = dict(option)
+        option["exact_trs_method"] = "ms"
+    return option
 
 
 def init_state_from(problem, option, x0, y0) -> RiptrmState:
@@ -39,7 +61,7 @@ def batched_riptrm_solve(problem, option, max_steps: int):
     Returns a function (xs0 [B, n] or [B, n, p], ys0 [B, m]) -> (final state,
     steps [B], residuals [B]).  Lanes run in lockstep to the slowest; each lane stops,
     and is frozen, at its own stopping point."""
-    solver = RIPTRM(option)
+    solver = RIPTRM(_batched_exact_defaults(option))
     solve = solver.solve_compiled(problem, max_steps)
 
     def run(xs0, ys0):
@@ -48,3 +70,51 @@ def batched_riptrm_solve(problem, option, max_steps: int):
         return state, k, res
 
     return run
+
+
+def certificate_operator(problem, xs, ys, ratio_cap=None):
+    """(hw, cx, feasible [B]): the condensed barrier Hessian Hw at each (x, y)
+    that ``certify_second_order`` certifies, the start direction's gradient
+    and the lanes on which a capped certificate is conservative.
+
+    Hw does not depend on the barrier parameter (mu shifts only cx).
+    ``ratio_cap`` clamps the barrier ratio w = y/c inside the PSD barrier
+    term G diag(w) G' only; the Lagrangian term keeps the true multipliers,
+    so Hw_true - Hw_capped is PSD and the capped certificate is
+    conservative, at feasible points only (c > 0 everywhere): elsewhere a
+    true weight is negative and w = 0 would over-report lambda_min."""
+    if ratio_cap is None:
+        _, hw, cx = _barrier_ops(problem, xs, ys, torch.zeros_like(ys[:, 0]))
+        return hw, cx, torch.ones_like(ys[:, 0], dtype=torch.bool)
+    c = problem.slack(xs)
+    feasible = torch.amin(c, dim=-1) > 0
+    pos = c > 0
+    w = torch.where(pos, torch.clamp(ys / torch.where(pos, c, torch.ones_like(c)),
+                                     max=ratio_cap), torch.zeros_like(c))
+    lag_hvp = problem.lag_rhess_at(xs, ys)  # the TRUE y in the Lagrangian
+    gx = problem.gx_at(xs)
+    gx_adj = problem.gx_adj_at(xs)
+
+    def hw(dx):
+        return lag_hvp(dx) + gx(w * gx_adj(dx))
+
+    return hw, problem.rgrad(xs), feasible
+
+
+def certify_second_order(problem, xs, ys, *, num_iters=64, ratio_cap=None):
+    """Post-hoc second-order certificates for a batch of final points
+    (``xs`` [B, ...], ``ys`` [B, m]): one lane-batched Lanczos, the Ritz
+    minimum of Hw at each lane [B], an upper bound converging to its
+    lambda_min (the criterion RIPTRM's tCG mode checks in its loop).  Run a
+    sweep with ``second_order_stationarity=False`` and certify its final
+    points here.  ``ratio_cap`` (``certificate_operator``) keeps a deeply
+    converged point's barrier weights y/c ~ 1/c from swamping the
+    certificate with rounding; its certificates are NaN on infeasible lanes."""
+    man = problem.manifold
+    hw, cx, feasible = certificate_operator(problem, xs, ys, ratio_cap)
+    # deterministic start; the projected all-ones direction keeps it nonzero
+    # where the gradient vanishes
+    v0 = cx + 0.1 * man.proj(xs, torch.ones_like(xs))
+    _, _, ritz = lanczos(hw, v0, lambda u, t: man.inner(xs, u, t),
+                         min(num_iters, man.dim))
+    return torch.where(feasible, ritz[:, 0], torch.full_like(ritz[:, 0], float("nan")))

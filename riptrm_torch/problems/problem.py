@@ -100,6 +100,12 @@ class Problem:
     def rgrad(self, x):
         return self.manifold.egrad2rgrad(x, self.egrad(x))
 
+    def rhess(self, x, v):
+        """Riemannian Hessian-vector product of the cost: one jvp of the
+        gradient."""
+        eg, eh = jvp(vmap(grad(self.cost_fn)), (x,), (v,))
+        return self.manifold.ehess2rhess(x, eg, eh, v)
+
     # ------------------------------------------------------------------
     # Lagrangian operators (all constraints at once)
     # ------------------------------------------------------------------
@@ -120,6 +126,13 @@ class Problem:
     def lag_rgrad(self, x, y, z=None):
         """Riemannian gradient of the Lagrangian."""
         return self.manifold.egrad2rgrad(x, self.lag_egrad(x, y, z))
+
+    def lag_rhess(self, x, y, v, z=None):
+        """Riemannian Hessian-vector product of the Lagrangian: one jvp of
+        its gradient (``lag_rhess_at`` freezes the point's work instead)."""
+        z = self._z(x, z)
+        eg, eh = jvp(lambda xx: vmap(grad(self._lag))(xx, y, z), (x,), (v,))
+        return self.manifold.ehess2rhess(x, eg, eh, v)
 
     def lag_rhess_at(self, x, y, z=None):
         """Returns v -> Riemannian Hessian-vector product of L at (x, y, z).

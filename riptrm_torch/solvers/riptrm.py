@@ -1,5 +1,4 @@
-"""RIPTRM: Riemannian primal-dual Interior Point Trust-Region Method, tCG
-mode with first-order stopping.
+"""RIPTRM: Riemannian primal-dual Interior Point Trust-Region Method.
 
 Counterpart of ``riptrm_tpu/solvers/riptrm.py``.  As there, the inner x
 outer loop nest is one ``step``: an inner trust-region iteration whose
@@ -11,12 +10,21 @@ lane follows exactly the JAX step's branches
 runner (``RIPTRM.run``, B = 1) and the fixed-budget loop
 (``solve_compiled``, any B; ``parallel/sweep.py``).
 
+Both direction solvers of the JAX package run: ``TRS_solver='tCG'`` and
+``'Exact_RepMat'``, which materialises Hw in the tangent basis
+(``ops/basis.py``; one Householder congruence on ``sphere_quadratic``
+problems) and solves the TRS exactly (``ops/trs.py``: ``eigh``, or
+Moré-Sorensen by Cholesky at dim >= 256 under ``exact_trs_method='auto'``),
+with the per-lane cache of the materialised Hw.  The second-order criterion
+reads the least eigenvalue of Hw at the trial point: from the exact mode's
+materialisation there, or in tCG mode from a Lanczos Ritz minimum.  Where
+JAX branches with ``lax.cond`` (the cache, the Lanczos gate), the port
+computes the branch for every lane when any lane takes it and selects per
+lane: a lane's values depend on that lane alone.
+
 Not ported yet, and refused with ``NotImplementedError`` when asked for
-(ROADMAP.md queue 1): exact mode ``TRS_solver='Exact_RepMat'``,
-``second_order_stationarity=True`` and ``checkTRSoptimality`` (item 8),
-``compensated_reductions`` (item 11), ``checkpoint_path`` and
-``wandb_logging`` (item 12).  The defaults stay the JAX ones, so a caller
-passes ``TRS_solver='tCG'`` and ``second_order_stationarity=False``.
+(ROADMAP.md queue 1): ``compensated_reductions`` (item 5),
+``checkpoint_path`` and ``wandb_logging`` (item 6).
 
 ``use_fused_tcg`` (the JAX ``use_pallas_tcg``, which the port refuses by
 that name) routes the tCG to a fused kernel by the problem's structure,
@@ -24,7 +32,7 @@ where the kernel's plan holds the problem (``fused_tcg_route``): a
 ``sphere_quadratic`` problem to ``ops/kernels.py`` (K2 at B = 1, K3 at
 B > 1), a ``stiefel_bound`` problem to the Stiefel-bound kernel of the same
 module (one kernel for K4a and K4b, at every B); elsewhere the plain
-``truncated_cg`` runs, as in the JAX package.
+``truncated_cg`` runs, as in the JAX package.  Exact mode runs no tCG.
 
 ``sweep_stall_window`` and ``keep_best_point`` (the JAX options of the
 same names) reach ``base.compiled_best_while`` from the fixed-budget
@@ -42,8 +50,15 @@ import torch
 
 from riptrm_torch.config import resolve
 from riptrm_torch.ops import kernels
+from riptrm_torch.ops.basis import (
+    materialize_symmetrized,
+    sphere_householder_congruence,
+    sphere_householder_coords,
+)
 from riptrm_torch.ops.kkt import compute_residual, evaluation
+from riptrm_torch.ops.spectrum import eigh_nan, eigvalsh_nan, lanczos
 from riptrm_torch.ops.tcg import truncated_cg
+from riptrm_torch.ops.trs import solve_trs_eig, solve_trs_ms
 from riptrm_torch.solvers.base import (
     LogAccumulator,
     Output,
@@ -101,7 +116,9 @@ def default_option():
         "forcing_function_complementarity": lambda mu: torch.clamp(1e-3 * mu, min=1e-14),
         "forcing_function_second_order": lambda mu: mu,
         "min_barrier_parameter": 1e-15,
-        "TRS_solver": "Exact_RepMat",  # or 'tCG'; only 'tCG' is ported
+        "TRS_solver": "Exact_RepMat",  # or 'tCG'
+        # exact-mode TRS: 'eigh', 'ms' (Moré-Sorensen by Cholesky) or 'auto'
+        # (ms at dim >= 256, eigh below)
         "exact_trs_method": "auto",
         "second_order_stationarity": True,
         "second_order_lanczos_iters": 64,
@@ -138,20 +155,13 @@ def default_option():
 
 
 _NOT_PORTED = (
-    ("TRS_solver", lambda v: v != "tCG",
-     "TRS_solver={!r}: exact mode waits for ROADMAP.md queue 1 item 8; pass 'tCG'"),
-    ("second_order_stationarity", bool,
-     "second_order_stationarity={!r}: the second-order criterion waits for "
-     "ROADMAP.md queue 1 item 8; pass False"),
-    ("checkTRSoptimality", bool,
-     "checkTRSoptimality={!r} waits for ROADMAP.md queue 1 item 8"),
     ("compensated_reductions", bool,
      "compensated_reductions={!r} (ops/compensated.py) waits for ROADMAP.md "
-     "queue 1 item 11"),
+     "queue 1 item 5"),
     ("checkpoint_path", lambda v: v is not None,
-     "checkpoint_path={!r}: checkpoint/resume waits for ROADMAP.md queue 1 item 12"),
+     "checkpoint_path={!r}: checkpoint/resume waits for ROADMAP.md queue 1 item 6"),
     ("wandb_logging", bool,
-     "wandb_logging={!r} waits for ROADMAP.md queue 1 item 12"),
+     "wandb_logging={!r} waits for ROADMAP.md queue 1 item 6"),
     ("use_pallas_tcg", bool,
      "use_pallas_tcg={!r} is the JAX package's name: the port's option is "
      "use_fused_tcg"),
@@ -180,12 +190,14 @@ class RiptrmState:
     inner_x0: torch.Tensor
     inner_y0: torch.Tensor
     inner_tr0: torch.Tensor
-    # Exact-mode cache; zero-sized in tCG mode, kept so the state has the
-    # JAX state's fields.
-    cache_valid: torch.Tensor
-    h_lam: torch.Tensor  # [B, 0]
-    h_q: torch.Tensor  # [B, 0, 0]
-    c_vec: torch.Tensor  # [B, 0]
+    # Exact-mode cache of the materialised Hw and cx at the current point
+    # (zero-sized in tCG mode).  eigh mode: Hw = h_q diag(h_lam) h_q' with
+    # h_lam ascending; ms mode: h_q is the raw matrix and h_lam holds only
+    # the Lanczos extremes at [0] and [-1].
+    cache_valid: torch.Tensor  # [B] bool
+    h_lam: torch.Tensor  # [B, dim]
+    h_q: torch.Tensor  # [B, dim, dim]
+    c_vec: torch.Tensor  # [B, dim]
 
     @property
     def lanes(self) -> int:
@@ -292,14 +304,82 @@ def fused_tcg_route(kind, manifold, lanes, device):
     return None
 
 
+def exact_trs_method(option, dim):
+    """The exact-mode TRS algorithm: ``exact_trs_method``, where 'auto'
+    means 'ms' at dim >= 256 (where the dense eigh leads the step) and
+    'eigh' below."""
+    method = option["exact_trs_method"]
+    if method == "auto":
+        return "ms" if dim >= 256 else "eigh"
+    return method
+
+
+def _dot(u, v):
+    return torch.sum(u * v, dim=-1)
+
+
+def _dense_ritz(h_mat):
+    """Extreme Ritz values [B] of dense matrices [B, dim, dim]: 32 Lanczos
+    steps from a fixed start."""
+    dim, dt, dev = h_mat.shape[-1], h_mat.dtype, h_mat.device
+    v0 = torch.ones(dim, dtype=dt, device=dev) + torch.linspace(0.0, 1.0, dim, dtype=dt,
+                                                                device=dev)
+    v0 = (v0 / torch.linalg.vector_norm(v0)).expand(h_mat.shape[0], dim)
+    _, _, ritz = lanczos(lambda v: torch.einsum("bij,bj->bi", h_mat, v), v0, _dot,
+                         min(32, dim))
+    return ritz[:, 0], ritz[:, -1]
+
+
+def _materialize_structured(problem, x, y, mu):
+    """Hw and cx in the Householder basis of a ``sphere_quadratic`` problem
+    (cost -x'Zs x, constraints -x): Hw's ambient form is A = -2 Zs +
+    diag(y/c) with curvature kappa = x'(-2 Zs x - y), so its matrix is one
+    O(n^2) congruence per lane, not dim HVPs."""
+    zs = problem.structure["Zs"].to(y.dtype)
+    c = problem.slack(x)
+    zsx = x @ zs  # Zs x per lane (Zs is symmetric)
+    a_mat = -2.0 * zs + torch.diag_embed(y / c)
+    kappa = _dot(x, -2.0 * zsx - y)
+    h_mat = sphere_householder_congruence(x, a_mat, kappa)
+    c_vec = sphere_householder_coords(x, -2.0 * zsx - mu[:, None] / c)
+    return h_mat, c_vec
+
+
+def materialize_at(problem, x, y, mu, ms):
+    """The exact-mode cache payload at (x, y, mu): (h_lam, h_q, c_vec), Hw
+    and cx in the tangent basis.  ``ms`` False: Hw eigendecomposed (h_lam
+    ascending); True: h_q is the raw matrix and h_lam holds its Lanczos
+    extremes at [:, 0] and [:, -1]."""
+    if (problem.structure or {}).get("kind") == "sphere_quadratic":
+        h_mat, c_vec = _materialize_structured(problem, x, y, mu)
+    else:
+        man = problem.manifold
+        basis = man.basis(x)
+        _, hw, cx = _barrier_ops(problem, x, y, mu)
+        h_mat = materialize_symmetrized(man, x, basis, hw)
+        c_vec = man.to_coords(x, basis, cx)
+    if ms:
+        lam_lo, lam_hi = _dense_ritz(h_mat)
+        h_lam = h_mat.new_zeros(h_mat.shape[:2])
+        h_lam[:, -1] = lam_hi
+        h_lam[:, 0] = lam_lo
+        return h_lam, h_mat, c_vec
+    h_lam, h_q = eigh_nan(h_mat)
+    return h_lam, h_q, c_vec
+
+
 def make_step(problem, option):
     """Build the inner-step function ``step(state) -> (state, info)``;
     ``info`` is a dict of [B] tensors with the JAX step's keys."""
     check_slice(option)
     man = problem.manifold
     dim = man.dim
+    exact = option["TRS_solver"] == "Exact_RepMat"
+    trs_ms = exact and exact_trs_method(option, dim) == "ms"
+    second_order = option["second_order_stationarity"]
     ff_lag = option["forcing_function_Lagrangian"]
     ff_compl = option["forcing_function_complementarity"]
+    ff_second = option["forcing_function_second_order"]
     inner_maxiter = option["inner_maxiter"]
     tcg_kw = dict(
         theta=option["tCG_theta"],
@@ -307,7 +387,9 @@ def make_step(problem, option):
         mininner=option["tCG_mininner"],
         maxinner=dim,
     )
-    kind = (problem.structure or {}).get("kind") if option["use_fused_tcg"] else None
+    kind = None  # exact mode runs no tCG
+    if option["use_fused_tcg"] and not exact:
+        kind = (problem.structure or {}).get("kind")
 
     def direction(x, y, c, hw, cx, tr_radius):
         fused = fused_tcg_route(kind, man, x.shape[0], x.device)
@@ -340,11 +422,57 @@ def make_step(problem, option):
         c, hw, cx = _barrier_ops(problem, x, y, mu)
 
         # ---- direction -------------------------------------------------
-        dx, h_dx, tcg_iters, tcg_code = direction(x, y, c, hw, cx, tr_radius)
-        hw_dx_dx = man.inner(x, dx, h_dx)
-        cx_dx = man.inner(x, cx, dx)
-        dxtype = 10 + tcg_code.to(torch.int64)
+        h_lam, h_q, c_vec = state.h_lam, state.h_q, state.c_vec
+        if exact:
+            stale = ~state.cache_valid
+            if bool(stale.any()):
+                fresh = materialize_at(problem, x, y, mu, trs_ms)
+                h_lam, h_q, c_vec = (_lanes(stale, f, old) for f, old in
+                                     zip(fresh, (h_lam, h_q, c_vec)))
+            if trs_ms:
+                coeff, lam1, trs_code, _ = solve_trs_ms(
+                    h_q, c_vec, tr_radius, lam_est=(h_lam[:, 0], h_lam[:, -1])
+                )
+                h_coeff = torch.einsum("bij,bj->bi", h_q, coeff)  # h_q: the raw Hw
+                hw_dx_dx = _dot(coeff, h_coeff)
+            else:
+                coeff, lam1, trs_code, p_c = solve_trs_eig(h_lam, h_q, c_vec, tr_radius)
+                hw_dx_dx = _dot(p_c, h_lam * p_c)
+            dx = man.from_coords(x, man.basis(x), coeff)
+            cx_dx = _dot(c_vec, coeff)
+            dxtype = trs_code.to(torch.int64)
+            tcg_iters = torch.zeros_like(dxtype)
+        else:
+            dx, h_dx, tcg_iters, tcg_code = direction(x, y, c, hw, cx, tr_radius)
+            hw_dx_dx = man.inner(x, dx, h_dx)
+            cx_dx = man.inner(x, cx, dx)
+            dxtype = 10 + tcg_code.to(torch.int64)
         normdx = man.norm(x, dx)
+
+        # ---- optional TRS optimality self-check ------------------------
+        trs_check = {}
+        if option["checkTRSoptimality"]:
+            if exact:
+                mineig_hw, maxeig_hw = h_lam[:, 0], h_lam[:, -1]
+            else:
+                w_ev = eigvalsh_nan(materialize_symmetrized(man, x, man.basis(x), hw))
+                mineig_hw, maxeig_hw = w_ev[:, 0], w_ev[:, -1]
+            pred_chk = -0.5 * hw_dx_dx - cx_dx
+            cx_norm = man.norm(x, cx)
+            trs_check = {
+                "TRS_cauchy_diff": pred_chk - 0.5 * cx_norm * torch.minimum(
+                    tr_radius, cx_norm / maxeig_hw),
+                "TRS_eigen_diff": pred_chk + 0.5 * tr_radius**2 * mineig_hw,
+                "TRS_mineig": mineig_hw,
+            }
+            if exact:
+                if trs_ms:
+                    kkt_vec = h_coeff + lam1[:, None] * coeff + c_vec
+                else:
+                    kkt_vec = (torch.einsum("bij,bj->bi", h_q, h_lam * p_c)
+                               + lam1[:, None] * coeff + c_vec)
+                trs_check["TRS_KKTresid"] = torch.linalg.vector_norm(kkt_vec, dim=-1)
+                trs_check["TRS_compl"] = lam1 * (tr_radius - normdx)
 
         # ---- trial point -----------------------------------------------
         dy = -y + mu[:, None] / c - y * problem.gx_adj(x, dx) / c
@@ -352,16 +480,40 @@ def make_step(problem, option):
         y_new = y + dy
         c_new = problem.slack(x_new)
 
-        # ---- inner stopping criteria (first order) ---------------------
+        # ---- inner stopping criteria -----------------------------------
         xfeas = torch.all(c_new > 0, dim=-1)
         yfeas = torch.all(y_new > 0, dim=-1)
         norm_grad_lag = man.norm(x_new, problem.lag_rgrad(x_new, y_new))
         compl = torch.linalg.vector_norm(y_new * c_new - mu[:, None], dim=-1)
         crit_lag = norm_grad_lag <= ff_lag(mu)
         crit_compl = compl <= ff_compl(mu)
-        mineig = torch.full_like(normdx, math.nan)
 
-        converged = xfeas & yfeas & crit_lag & crit_compl
+        h_lam_new, h_q_new, c_vec_new = h_lam, h_q, c_vec
+        if exact and second_order:
+            h_lam_new, h_q_new, c_vec_new = materialize_at(problem, x_new, y_new, mu, trs_ms)
+            mineig = h_lam_new[:, 0]
+            crit_eig = mineig >= -ff_second(mu)
+        elif second_order:
+            # Matrix-free criterion: the Lanczos Ritz minimum of Hw at the
+            # trial point, on the lanes whose first-order tests hold (inf
+            # elsewhere); Ritz minima approach lambda_min from above.
+            first_ok = xfeas & yfeas & crit_lag & crit_compl
+            mineig = torch.full_like(normdx, math.inf)
+            if bool(first_ok.any()):
+                _, hw_new, cx_new = _barrier_ops(problem, x_new, y_new, mu)
+                # deterministic start: barrier gradient plus the transported step
+                v0 = cx_new + 0.5 * man.transport(x, x_new, dx)
+                _, _, ritz = lanczos(
+                    hw_new, v0, lambda u, t: man.inner(x_new, u, t),
+                    min(option["second_order_lanczos_iters"], dim),
+                )
+                mineig = torch.where(first_ok, ritz[:, 0].to(dt), mineig)
+            crit_eig = mineig >= -ff_second(mu)
+        else:
+            mineig = torch.full_like(normdx, math.nan)
+            crit_eig = torch.ones_like(xfeas)
+
+        converged = xfeas & yfeas & crit_lag & crit_compl & crit_eig
         infeasible = (~converged) & (~xfeas)
 
         # ---- ared / pred and radius update -----------------------------
@@ -431,6 +583,18 @@ def make_step(problem, option):
             torch.where(infeasible, option["gamma"] * normdx, tr_updated),
         )
 
+        # Exact-mode cache: kept on rejected steps, replaced by the trial
+        # point's materialisation on accepts without dual clipping (second
+        # order), invalidated otherwise and at every outer transition.
+        if exact:
+            reuse_new = (~infeasible) & accepted & (~dual_clipping) & second_order
+            cache_valid = infeasible | ((~converged) & (~accepted)) | reuse_new
+            h_lam = _lanes(reuse_new, h_lam_new, h_lam)
+            h_q = _lanes(reuse_new, h_q_new, h_q)
+            c_vec = _lanes(reuse_new, c_vec_new, c_vec)
+        else:
+            cache_valid = torch.zeros_like(state.cache_valid)
+
         inner_count = state.inner_count + 1
         # inner_maxiter budget: reset to the inner loop's initial values and
         # force an outer transition.
@@ -465,10 +629,10 @@ def make_step(problem, option):
             inner_x0=_lanes(exit_inner, x_next, state.inner_x0),
             inner_y0=_lanes(exit_inner, y_next, state.inner_y0),
             inner_tr0=torch.where(exit_inner, tr_next, state.inner_tr0),
-            cache_valid=torch.zeros_like(state.cache_valid),
-            h_lam=state.h_lam,
-            h_q=state.h_q,
-            c_vec=state.c_vec,
+            cache_valid=cache_valid & ~exit_inner,
+            h_lam=h_lam,
+            h_q=h_q,
+            c_vec=c_vec,
         )
 
         info = evaluation(problem, x, x_next, y_next)
@@ -500,6 +664,7 @@ def make_step(problem, option):
             outer_iter=outer_iter,
             tcg_iters=tcg_iters.to(torch.int32),
         )
+        info.update(trs_check)
         return new_state, info
 
     return step
@@ -527,8 +692,11 @@ def make_force_outer(option):
 
 
 def init_state(problem, option):
-    """One-lane initial state at (problem.x0, problem.y0)."""
+    """One-lane initial state at (problem.x0, problem.y0).  The exact-mode
+    cache is sized [1, dim] / [1, dim, dim] in exact mode and zero-sized in
+    tCG mode, where nothing reads it."""
     check_slice(option)
+    dim = problem.manifold.dim if option["TRS_solver"] == "Exact_RepMat" else 0
     x0 = problem.x0[None]
     y0 = torch.as_tensor(problem.y0)[None]
     dt, dev = y0.dtype, y0.device
@@ -549,9 +717,9 @@ def init_state(problem, option):
         inner_y0=y0,
         inner_tr0=tr0,
         cache_valid=torch.zeros(1, dtype=torch.bool, device=dev),
-        h_lam=torch.zeros((1, 0), dtype=dt, device=dev),
-        h_q=torch.zeros((1, 0, 0), dtype=dt, device=dev),
-        c_vec=torch.zeros((1, 0), dtype=dt, device=dev),
+        h_lam=torch.zeros((1, dim), dtype=dt, device=dev),
+        h_q=torch.zeros((1, dim, dim), dtype=dt, device=dev),
+        c_vec=torch.zeros((1, dim), dtype=dt, device=dev),
     )
 
 

@@ -551,3 +551,26 @@ def test_hbm_chain_kernel_grids(dev):
         assert torch.equal(out, _hbm_on_grid(*args, 16, grid))
     with pytest.raises(RuntimeError, match="CUDA error"):
         _hbm_on_grid(*args, 16, 1_000_000)
+
+
+@pytest.mark.parametrize("method", ["eigh", "ms"])
+def test_exact_step_on_card_matches_cpu(dev, method):
+    """Exact mode's step (cuSOLVER's eigh or Cholesky in place of LAPACK's)
+    on the golden NonnegPCA point, float64: the card's new state and info
+    against the CPU's, rtol 1e-9 (eigenvectors up to their signs)."""
+    from riptrm_torch.solvers import riptrm as trm
+
+    opt = RIPTRM({"exact_trs_method": method, "checkTRSoptimality": True}).option
+    out = {}
+    for d in ("cpu", dev):
+        p = nonneg_pca.load_problem("dataset/NonnegPCA/1", "a", dtype=torch.float64, device=d)
+        st, info = trm.make_step(p, opt)(trm.init_state(p, opt))
+        out[str(d)] = (trm.state_to_numpy(st), {k: v.cpu().numpy() for k, v in info.items()})
+    (s_cpu, i_cpu), (s_dev, i_dev) = out["cpu"], out[str(dev)]
+    for k, v in i_cpu.items():
+        atol = 1e-11 if k in ("TRS_KKTresid", "TRS_compl") else 1e-15
+        np.testing.assert_allclose(i_dev[k], v, rtol=1e-9, atol=atol, err_msg=k)
+    for k, v in s_cpu.items():
+        got = np.abs(s_dev[k]) if (method, k) == ("eigh", "h_q") else s_dev[k]
+        want = np.abs(v) if (method, k) == ("eigh", "h_q") else v
+        np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12, err_msg=k)

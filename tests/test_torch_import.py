@@ -15,6 +15,9 @@ MODULES = [
     "riptrm_torch.problems",
     "riptrm_torch.ops",
     "riptrm_torch.ops.kernels",
+    "riptrm_torch.ops.basis",
+    "riptrm_torch.ops.spectrum",
+    "riptrm_torch.ops.trs",
     "riptrm_torch.solvers",
     "riptrm_torch.parallel",
     "riptrm_torch.utils",

@@ -198,10 +198,6 @@ def test_fused_tcg_option_solves_on_cpu(problems):
 @pytest.mark.parametrize(
     "option",
     [
-        {},  # the JAX defaults: exact mode, second order
-        {"second_order_stationarity": False},
-        {"TRS_solver": "tCG"},
-        SLICE | {"checkTRSoptimality": True},
         SLICE | {"compensated_reductions": True},
         SLICE | {"checkpoint_path": "ckpt.npz"},
         SLICE | {"wandb_logging": True},
@@ -211,3 +207,18 @@ def test_options_outside_the_slice_raise(problems, option):
     _, tp = problems
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         trm.RIPTRM(option).run(tp)
+
+
+@pytest.mark.parametrize(
+    "option",
+    [
+        {},  # the JAX defaults: exact mode, second order
+        {"second_order_stationarity": False},
+        {"TRS_solver": "tCG"},
+        SLICE | {"checkTRSoptimality": True},
+    ],
+)
+def test_exact_and_second_order_options_are_in_the_slice(option):
+    """Exact mode, the second-order criterion and the TRS self-check are
+    ported: ``check_slice`` takes them."""
+    trm.check_slice(trm.RIPTRM(option).option)
