@@ -2,12 +2,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths on the card through their user entry
-points: RIPTRM (tCG mode with first-order stopping, exact mode and the
+Drives the port's paths on the card through their user entry points:
+RIPTRM (tCG mode with first-order stopping, exact mode and the
 second-order criterion) on NonnegPCA on the sphere at the size of the
 system's own benchmark, n = 1000, and on BoundedPCA on St(128, 8) at the
 size of the JAX package's own chip sweeps, with second-order certificates
-of the sweeps' final points; and the roofline
+of the sweeps' final points; the baseline solvers RIPM, RSQO and RALM on
+NonnegPCA, golden and at n = 1000, single-lane and swept; and the roofline
 (``python -m riptrm_torch.experiment.roofline``) at its default shapes.
 Checks the six hand-written kernels
 (``riptrm_torch/csrc/sphere_tcg.cu``: K2-K3;
@@ -76,6 +77,26 @@ Phases:
      point in float64, the dense Hw's least eigenvalue (dim 988) below the
      Lanczos Ritz minimum; the card's float32 eigh at n = 1000 against a
      float64 one;
+  -- launch counters reset: the baseline solvers' paths --
+  5d. golden solves on dataset/NonnegPCA/1 point a, float64, with
+     tests/test_solvers.py's criteria: RIPM dense with checkNTequation
+     (residual <= 1e-6, NTdir_error1 < 1e-10, cost -1.537809 +- 1e-4) and
+     Krylov (residual <= 1e-6), RSQO with the Cholesky and the
+     Newton-Schulz QP (residual <= 1e-8), RALM (least residual <= 1e-3,
+     cost within 1e-3), the four solvers' optima within 1e-5; and RSQO
+     and RIPM on tests/test_eq_constraints.py's n = 12 instance;
+  6d. one lane at n = 1000 on phase 6's instance: RIPM.run and RSQO.run in
+     float64 to tolresid 1e-6, RALM.run in float32 with its defaults, a
+     step's wall time split into its parts (RIPM: materialisation, solve,
+     line search; RSQO: regularisation, QP with its IPM iterations, line
+     search; RALM: line search; and the rest);
+  7d. batched_solver_sweep of RIPM (dense), RSQO (reghess_shift with the
+     Newton-Schulz QP) and RALM (best point) at n = 1000, B = 16, float32,
+     from phase 7's starts with chip_sweep's options and a stall window of
+     25; then batched_protocol_sweep with the sweep's median residual as
+     every lane's target (at least half the lanes reach it, none later
+     than in the sweep);
+  -- launch counters read: every one 0 (no Pallas kernel on these paths) --
   8. CUDA-event times of each kernel and its plain version (events around
      windows of back-to-back calls, divided by the count), each with its
      bound (``riptrm_torch/experiment/roofline.py``'s accounting) and, for
@@ -301,27 +322,31 @@ def finite_mineigs(log):
 
 
 class StepSplit:
-    """Wall time spent in the exact step's materialisation
+    """Wall time spent in named parts of a solver step over the length of a
+    ``with``: the module functions ``parts`` maps to a part's label are
+    wrapped with timers that synchronise the card before and after each
+    call.  By default exact mode's materialisation
     (``solvers/riptrm.py::materialize_at``: Hw and cx in the tangent basis,
-    its eigendecomposition or Lanczos extremes) and in its TRS
-    (``solve_trs_ms``/``solve_trs_eig``), over the length of a ``with``:
-    those module functions are wrapped with timers that synchronise the
-    card before and after each call."""
+    its eigendecomposition or Lanczos extremes) and its TRS
+    (``solve_trs_ms``/``solve_trs_eig``)."""
 
     PARTS = {"materialize_at": "materialisation", "solve_trs_ms": "TRS",
              "solve_trs_eig": "TRS"}
 
-    def __init__(self, device):
+    def __init__(self, device, module="riptrm_torch.solvers.riptrm", parts=None):
+        import importlib
+
         self.device = device
-        self.seconds = {"materialisation": 0.0, "TRS": 0.0}
-        self.calls = {"materialisation": 0, "TRS": 0}
+        self.module = importlib.import_module(module)
+        self.parts = self.PARTS if parts is None else parts
+        labels = dict.fromkeys(self.parts.values())
+        self.seconds = {label: 0.0 for label in labels}
+        self.calls = {label: 0 for label in labels}
         self.saved = {}
 
     def __enter__(self):
-        from riptrm_torch.solvers import riptrm
-
-        for name, part in self.PARTS.items():
-            fn = self.saved[name] = getattr(riptrm, name)
+        for name, part in self.parts.items():
+            fn = self.saved[name] = getattr(self.module, name)
 
             def timed(*args, fn=fn, part=part, **kwargs):
                 sync(self.device)
@@ -332,14 +357,12 @@ class StepSplit:
                 self.calls[part] += 1
                 return out
 
-            setattr(riptrm, name, timed)
+            setattr(self.module, name, timed)
         return self
 
     def __exit__(self, *exc):
-        from riptrm_torch.solvers import riptrm
-
         for name, fn in self.saved.items():
-            setattr(riptrm, name, fn)
+            setattr(self.module, name, fn)
 
     def report(self, total, steps):
         rest = total - sum(self.seconds.values())
@@ -1120,6 +1143,185 @@ class ChainSmoke:
                 lambda zs=zs, v0=v0: torch.matmul(zs, v0), call=((*args, CHAIN_ITERS), {})))
 
 
+# The parts of a baseline solver's step that phase 6d times (module
+# functions, wrapped by StepSplit): (module, {function: part})
+RIPM_PARTS = ("riptrm_torch.solvers.ripm", {
+    "materialize_symmetrized": "materialisation", "_solve_nan": "solve",
+    "_merit_line_search": "line search"})
+RSQO_PARTS = ("riptrm_torch.solvers.rsqo", {
+    "sphere_householder_congruence": "regularisation",
+    "materialize_symmetrized": "regularisation", "_regularize": "regularisation",
+    "solve_qp": "QP", "_ell1_line_search": "line search"})
+RALM_PARTS = ("riptrm_torch.solvers.subsolvers", {"_backtracking_line_search": "line search"})
+# phase 7d: chip_sweep's options for the baseline solvers (maxiter 60,
+# tolresid 3e-4; RSQO with the shift regularisation and the Newton-Schulz
+# QP; RALM reporting its best point), each with a stall window
+SWEEP_BASE = {"maxiter": 60, "tolresid": 3e-4, "sweep_stall_window": 25}
+SWEEP_OPTIONS = {
+    "RIPM": SWEEP_BASE,
+    "RSQO": SWEEP_BASE | {"quadoptim_type": "reghess_shift",
+                          "quadoptim_linear_solver": "schulz"},
+    "RALM": SWEEP_BASE | {"keep_best_point": True},
+}
+
+
+def eq_problem(device):
+    """``tests/test_eq_constraints.py``'s n = 12 instance (min -x'Zx on the
+    sphere, x >= 0, a'x = 0.5; Z and a from ``default_rng(0)``), its start
+    drawn by numpy (``default_rng(1)``) in place of JAX's generator."""
+    from riptrm_torch.manifolds import Sphere
+    from riptrm_torch.problems import Problem
+
+    n = 12
+    rng = np.random.default_rng(0)
+    z = rng.normal(size=(n, n))
+    kw = dict(dtype=torch.float64, device=device)
+    z = torch.tensor(z + z.T, **kw)
+    a = torch.tensor(np.abs(rng.normal(size=n)), **kw)
+    x0 = np.abs(np.random.default_rng(1).normal(size=n))
+    return Problem(
+        manifold=Sphere(n), cost_fn=lambda x: -(x @ (z @ x)), ineq_fn=lambda x: -x,
+        eq_fn=lambda x: (a @ x - 0.5).reshape(1),
+        x0=torch.tensor(x0 / np.linalg.norm(x0), **kw), y0=torch.ones(n, **kw),
+        z0=torch.zeros(1, **kw), num_ineq=n, num_eq=1,
+        manvio_fn=lambda x: torch.linalg.vector_norm(x) - 1.0,
+    )
+
+
+class BaselineSmoke:
+    """RIPM, RSQO and RALM on the card: the golden instances (5d), phase 6's
+    n = 1000 instance (6d) and sweeps from phase 7's B = 16 starts (7d).
+    None of these paths reaches a Pallas kernel in the JAX package, so no
+    hand-written kernel may launch on them."""
+
+    def __init__(self, smoke):
+        self.smoke = smoke
+        self.device = smoke.device
+
+    def phase_golden(self):
+        """5d: ``tests/test_solvers.py``'s criteria on dataset/NonnegPCA/1
+        point a in float64, the four solvers' optima within 1e-5, and
+        ``tests/test_eq_constraints.py``'s RSQO and RIPM criteria."""
+        from riptrm_torch.problems import nonneg_pca
+        from riptrm_torch.solvers import RALM, RIPM, RIPTRM, RSQO
+
+        dev = self.device
+        p = nonneg_pca.load_problem(DATASET, "a", dtype=torch.float64, device=dev)
+        common = {"maxtime": 120, "maxiter": 30, "do_exit_on_error": False}
+        corr = {"quadoptim_eigvalcorr": 1e-2}
+        runs = (
+            ("RIPM dense, checkNTequation", RIPM, {"tolresid": 1e-6, "checkNTequation": True}),
+            ("RIPM Krylov", RIPM, {"tolresid": 1e-6, "KrylovIterMethod": True}),
+            ("RSQO chol", RSQO, {"tolresid": 1e-8} | corr),
+            ("RSQO schulz", RSQO, {"tolresid": 1e-8, "quadoptim_linear_solver": "schulz"} | corr),
+        )
+        for label, cls, extra in runs:
+            out, t = wall(lambda: cls(common | extra).run(p), dev)
+            res, cost = out.log["residual"][-1], out.log["cost"][-1]
+            say(f"phase 5d golden solve (dataset/NonnegPCA/1 a, float64, {label}): residual "
+                f"{res:.3e}, cost {cost:.7f}, {len(out.log['residual']) - 1} steps, {t:.2f} s")
+            check(res <= extra["tolresid"], f"5d {label}: residual {res}")
+            if extra.get("checkNTequation"):
+                err = max(v for v in out.log["NTdir_error1"] if v is not None)
+                say(f"  max NTdir_error1 {err:.3e}")
+                check(err < 1e-10, f"5d {label}: NTdir_error1 {err}")
+            if not extra.get("KrylovIterMethod"):
+                check(abs(cost + 1.537809) <= 1e-4, f"5d {label}: cost {cost}")
+        out, t = wall(lambda: RALM(common | {"maxiter": 15, "tolresid": 1e-4}).run(p), dev)
+        best, cost = min(out.log["residual"]), out.log["cost"][-1]
+        say(f"phase 5d golden solve (dataset/NonnegPCA/1 a, float64, RALM): least residual "
+            f"{best:.3e}, cost {cost:.7f}, {len(out.log['residual']) - 1} steps, {t:.2f} s")
+        check(best <= 1e-3 and abs(cost + 1.537809) <= 1e-3, f"5d RALM: {best}, {cost}")
+
+        costs = {"RALM": cost}
+        for name, cls, extra in (
+            ("RIPTRM", RIPTRM, {"maxiter": 20, "TRS_solver": "tCG",
+                                "second_order_stationarity": False}),
+            ("RIPM", RIPM, {"maxiter": 25}),
+            ("RSQO", RSQO, {"maxiter": 15} | corr),
+        ):
+            costs[name] = cls(common | {"tolresid": 1e-7} | extra).run(p).log["cost"][-1]
+        spread = max(costs.values()) - min(costs.values())
+        say("phase 5d the four solvers' optima: " + ", ".join(
+            f"{k} {v:.9f}" for k, v in costs.items()) + f"; spread {spread:.3e}")
+        check(spread < 1e-5, f"5d: the solvers' optima spread {spread}")
+
+        q = eq_problem(dev)
+        out = RSQO({"maxtime": 60, "maxiter": 40, "tolresid": 1e-8, "do_exit_on_error": False}
+                   | corr).run(q)
+        res, eqv = out.log["residual"][-1], float(q.eq_fn(out.x)[0])
+        say(f"phase 5d equality instance (n=12, float64) RSQO: residual {res:.3e}, "
+            f"a'x - 0.5 = {eqv:.3e}, {len(out.log['residual']) - 1} steps")
+        check(res < 1e-7 and abs(eqv) < 1e-7 and float(out.x.min()) > -1e-8,
+              f"5d equality RSQO: {res}, {eqv}")
+        out = RIPM({"maxtime": 60, "maxiter": 10, "tolresid": 1e-7, "checkNTequation": True,
+                    "do_exit_on_error": False}).run(q)
+        err = max(v for v in out.log["NTdir_error1"] if v is not None)
+        r0, r1 = out.log["residual"][0], out.log["residual"][-1]
+        say(f"phase 5d equality instance RIPM: residual {r0:.3e} -> {r1:.3e}, max NTdir_error1 "
+            f"{err:.3e}")
+        check(err < 1e-10 and r1 < 0.5 * r0, f"5d equality RIPM: {err}, {r0} -> {r1}")
+
+    def phase_single(self):
+        """6d: one lane at n = 1000 on phase 6's instance: RIPM and RSQO in
+        float64 to tolresid 1e-6, RALM in float32 with its defaults, each
+        step's wall time split into its parts (``StepSplit``)."""
+        from riptrm_torch.problems import nonneg_pca
+        from riptrm_torch.solvers import RALM, RIPM, RSQO
+
+        dev, n = self.device, self.smoke.n
+        p64 = nonneg_pca.make_problem(self.smoke.zs.double(), self.smoke.problem.x0.double())
+        runs = (("RIPM", RIPM, p64, {"maxtime": 300, "tolresid": 1e-6}, RIPM_PARTS, "float64"),
+                ("RSQO", RSQO, p64, {"maxtime": 300, "tolresid": 1e-6}, RSQO_PARTS, "float64"),
+                ("RALM", RALM, self.smoke.problem, {}, RALM_PARTS, "float32"))
+        for name, cls, p, opt, (module, parts), dt in runs:
+            solver = cls(opt | {"do_exit_on_error": False})
+            with StepSplit(dev, module, parts) as split:
+                out, t = wall(lambda: solver.run(p), dev)
+            res, steps = out.log["residual"], len(out.log["residual"]) - 1
+            extra = ""
+            if name == "RSQO":
+                its = out.log["quadoptim_iter"][1:]
+                extra = f", QP IPM iterations {sum(its)} ({sum(its) / steps:.1f} a step)"
+            say(f"phase 6d {name}.run n={n} {dt}: residual {res[-1]:.3e} (least {min(res):.3e}), "
+                f"cost {out.log['cost'][-1]:.7f}, {steps} steps, {t:.3f} s{extra}; "
+                f"{out.option['stoppingcriterion']}")
+            say(f"  per step {1e3 * t / steps:.2f} ms: " + split.report(t, steps))
+            check(all(math.isfinite(r) for r in res), f"6d {name}: a non-finite residual")
+            check(min(res) < 1e-2 * res[0], f"6d {name}: residual {res[0]} -> {min(res)}")
+
+    def phase_sweep(self):
+        """7d: ``batched_solver_sweep`` of each baseline solver at n = 1000,
+        B = 16, float32, from phase 7's starts with chip_sweep's options;
+        then ``batched_protocol_sweep`` with the sweep's median residual as
+        every lane's target."""
+        from riptrm_torch.parallel.sweep import batched_protocol_sweep, batched_solver_sweep
+
+        dev, problem = self.device, self.smoke.problem
+        b = self.smoke.lanes[0]
+        xs, ys = self.smoke.start[b].x, self.smoke.start[b].y
+        for name, opt in SWEEP_OPTIONS.items():
+            run = batched_solver_sweep(problem, name, opt, SOLVE_STEPS)
+            (_, _, steps, res), t = wall(lambda: run(xs, ys), dev)
+            med, worst = float(torch.median(res)), float(res.max())
+            top = int(steps.max())
+            say(f"phase 7d batched_solver_sweep {name} n={self.smoke.n} B={b} float32: median "
+                f"residual {med:.3e}, worst {worst:.3e}, steps max {top} median "
+                f"{float(steps.float().median()):.0f}, {t:.3f} s a sweep, "
+                f"{1e3 * t / max(top, 1):.2f} ms a step")
+            check(bool(torch.all(torch.isfinite(res))), f"7d {name}: non-finite residuals")
+            proto = batched_protocol_sweep(problem, name, opt, SOLVE_STEPS)
+            targets = torch.full((b,), med, dtype=res.dtype, device=dev)
+            (_, _, k, best), t = wall(lambda: proto(xs, ys, targets), dev)
+            reached = best <= targets
+            say(f"  batched_protocol_sweep to the median: {int(reached.sum())} of {b} lanes at "
+                f"their target, steps max {int(k.max())} (reached lanes: max "
+                f"{int(k[reached].max()) if bool(reached.any()) else 0}), {t:.3f} s")
+            check(int(reached.sum()) >= b // 2, f"7d {name}: {int(reached.sum())} lanes reached")
+            check(bool(torch.all(k[reached] <= steps[reached])),
+                  f"7d {name}: a lane ran past the step its sweep reached the target at")
+
+
 def phase_certificates(smoke, stiefel):
     """7c: second-order certificates at full width.  ``certify_second_order``
     (ratio_cap 1e8) on phase 7's fused NonnegPCA final points (B = 16 and
@@ -1397,6 +1599,17 @@ def main(argv):
     t_path = time.perf_counter()
     phase_certificates(smoke, stiefel)
     say(f"certificates: {time.perf_counter() - t_path:.1f} s")
+
+    k.reset_launch_counts()  # the baseline solvers' paths start here
+    t_path = time.perf_counter()
+    baselines = BaselineSmoke(smoke)
+    baselines.phase_golden()
+    baselines.phase_single()
+    baselines.phase_sweep()
+    counts = k.launch_counts()
+    say(f"baseline solvers' paths launch counts {counts}")
+    check(not any(counts.values()), "a hand-written kernel launched on a baseline solver's path")
+    say(f"baseline solvers' paths: {time.perf_counter() - t_path:.1f} s")
 
     smoke.phase_timings()
     stiefel.phase_timings()

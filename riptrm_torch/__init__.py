@@ -5,8 +5,12 @@ layout and names (``manifolds``, ``problems``, ``ops``, ``solvers``,
 ``parallel``, ``experiment``, ``utils``) so each module's counterpart sits
 under the same path.  Ported so far: RIPTRM in tCG and exact mode, with
 first- or second-order stopping, on NonnegPCA (sphere) and BoundedPCA
-(Stiefel), the batched sweep with its second-order certificate, and the
-roofline entry point, with a hand-written Hopper kernel for every Pallas
+(Stiefel); the three baseline solvers RIPM (``solvers/ripm.py``, with the
+conjugate residual of ``ops/conjres.py``), RSQO (``solvers/rsqo.py``, with
+the QP IPM of ``ops/qp.py``) and RALM (``solvers/ralm.py``, with the
+subsolvers of ``solvers/subsolvers.py``); the batched sweeps of all four
+solvers with RIPTRM's second-order certificate, and the roofline entry
+point, with a hand-written Hopper kernel for every Pallas
 kernel of the JAX package (``ops/kernels.py``, ``csrc/``).
 
 Conventions:
@@ -25,7 +29,7 @@ Conventions:
 
 from riptrm_torch import config, manifolds, ops, parallel, problems, solvers  # noqa: F401
 from riptrm_torch.problems import Problem  # noqa: F401
-from riptrm_torch.solvers import RIPTRM  # noqa: F401
+from riptrm_torch.solvers import RALM, RIPM, RIPTRM, RSQO  # noqa: F401
 
 __version__ = "0.1.0"
 
@@ -37,5 +41,8 @@ __all__ = [
     "problems",
     "solvers",
     "Problem",
+    "RALM",
+    "RIPM",
     "RIPTRM",
+    "RSQO",
 ]

@@ -3,14 +3,15 @@
 Counterpart of ``riptrm_tpu/ops/basis.py``: a dim x dim representing
 matrix per lane, built with ONE ``torch.func.vmap`` over the dim basis
 directions of the lane-batched operator (dim batched applications) and one
-batched projection.  ``materialize_sharded`` and ``constraint_grad_rows``
-are not ported yet (ROADMAP.md queue 1, items 7 and 4).
+batched projection; ``constraint_grad_rows`` fans one frozen ``vjp`` out
+over the constraints the same way.  ``materialize_sharded`` is not ported
+yet (ROADMAP.md queue 1, item 7).
 """
 
 from __future__ import annotations
 
 import torch
-from torch.func import vmap
+from torch.func import vjp, vmap
 
 
 def materialize(manifold, x, basis, op):
@@ -72,3 +73,21 @@ def sphere_householder_coords(x, v_amb):
 def covector(manifold, x, basis, v):
     """Coordinates of a tangent vector v."""
     return manifold.to_coords(x, basis, v)
+
+
+def constraint_grad_rows(manifold, x, basis, fn, m, dtype=None):
+    """Rows of Riemannian constraint gradients in basis coordinates, per lane.
+
+    G[b, i, :] = coords of rgrad fn_i at x[b] for a stacked per-lane
+    constraint function ``fn: point -> [m]``: ONE ``vjp`` of the
+    lane-batched constraints, pulled back along the m coordinate covectors
+    with a single ``torch.func.vmap``.  Returns [B, m, dim]."""
+    lanes = x.shape[0]
+    _, pullback = vjp(lambda xx: vmap(fn)(xx), x)
+
+    def row(e):  # the i-th covector of every lane, [B, m]
+        (eg,) = pullback(e)
+        return manifold.to_coords(x, basis, manifold.egrad2rgrad(x, eg))
+
+    eye = torch.eye(m, dtype=x.dtype if dtype is None else dtype, device=x.device)
+    return vmap(row, out_dims=1)(eye[:, None, :].expand(m, lanes, m))

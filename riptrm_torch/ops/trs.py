@@ -26,14 +26,8 @@ from __future__ import annotations
 import torch
 
 from riptrm_torch.ops.spectrum import eigh_nan, lanczos
-
-
-def _dot(u, v):
-    return torch.sum(u * v, dim=-1)
-
-
-def _mv(a, v):
-    return torch.einsum("bij,bj->bi", a, v)
+from riptrm_torch.utils.lanes import dot as _dot
+from riptrm_torch.utils.lanes import mv as _mv
 
 
 def solve_trs(A, a, radius, *, newton_iters=60):

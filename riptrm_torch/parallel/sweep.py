@@ -1,13 +1,17 @@
 """Batched multi-start sweeps over the lane axis.
 
-Counterpart of ``riptrm_tpu/parallel/sweep.py::init_state_from`` and
-``batched_riptrm_solve``.  The JAX package ``vmap``s a per-lane
+Counterpart of ``riptrm_tpu/parallel/sweep.py``: ``init_state_from``,
+``batched_riptrm_solve``, the solver-generic sweeps of all four solvers
+(``batched_solver_sweep``, ``batched_protocol_sweep``, ``protocol_single``,
+through ``_solver_plumbing``), ``batched_ripm_continue`` and
+``certify_second_order``.  The JAX package ``vmap``s a per-lane
 ``lax.while_loop``; here the solver state carries the lanes and one
 lane-batched step runs them in lockstep, a finished lane frozen at its
 stop.  With ``use_fused_tcg`` every step's tCG is one launch of a batched
 kernel against the shared Zs: K3 on NonnegPCA, the Stiefel-bound kernel on
 BoundedPCA.  ``certify_second_order`` certifies a batch of final points.
-Meshes, sharding and staged precision wait for ROADMAP.md queue 1 item 7.
+Meshes, sharding and staged precision (``staged_precision_ripm_solve``
+among them) wait for ROADMAP.md queue 1 item 7.
 
 The JAX package's ``_warn_vmapped_lanczos`` is not ported: under ``vmap``
 the tCG mode's Lanczos certificate runs on every step of every lane, but
@@ -40,19 +44,21 @@ def _batched_exact_defaults(option):
     return option
 
 
+def _widen(state, lanes):
+    """A one-lane solver state repeated over ``lanes`` lanes."""
+    return type(state)(**{
+        f.name: getattr(state, f.name).expand(lanes, *getattr(state, f.name).shape[1:]).clone()
+        for f in dataclasses.fields(state)
+    })
+
+
 def init_state_from(problem, option, x0, y0) -> RiptrmState:
     """RIPTRM initial state at arbitrary starts: ``x0`` [B, n] or [B, n, p],
     ``y0`` [B, m].  One unbatched start (``y0`` [m]) becomes one lane."""
     if y0.ndim == 1:
         x0, y0 = x0[None], y0[None]
-    base = init_state(problem, option)
-    lanes = x0.shape[0]
-    widened = {
-        f.name: getattr(base, f.name).expand(lanes, *getattr(base, f.name).shape[1:]).clone()
-        for f in dataclasses.fields(base)
-    }
-    widened.update(x=x0, y=y0, inner_x0=x0, inner_y0=y0)
-    return RiptrmState(**widened)
+    base = _widen(init_state(problem, option), x0.shape[0])
+    return dataclasses.replace(base, x=x0, y=y0, inner_x0=x0, inner_y0=y0)
 
 
 def batched_riptrm_solve(problem, option, max_steps: int):
@@ -68,6 +74,143 @@ def batched_riptrm_solve(problem, option, max_steps: int):
         state, k = solve(init_state_from(problem, solver.option, xs0, ys0))
         res = compute_residual(problem, state.x, state.y)[0]
         return state, k, res
+
+    return run
+
+
+def _solver_plumbing(problem, solver_name: str, option, max_steps: int):
+    """Shared per-solver setup of the solver-generic sweeps.
+
+    Returns (solve, start, resid_args): ``solve(st0, *extras, target) ->
+    (state, steps, best)`` is the solver's best-tracking fixed-budget loop,
+    ``start(xs0, ys0) -> (st0, extras)`` builds the lanes' initial state
+    from starts [B, ...] and [B, m], and ``resid_args(st) -> (x, ineq_mult,
+    eq_mult)`` gives the KKT-residual arguments in the solver's
+    convention."""
+    from riptrm_torch.solvers import ralm, ripm, rsqo
+
+    if solver_name == "RIPTRM":
+        solver = RIPTRM(_batched_exact_defaults(option))
+        solve = solver.solve_compiled_best(problem, max_steps)
+
+        def start(x0, y0):
+            return init_state_from(problem, solver.option, x0, y0), ()
+
+        def resid_args(st):
+            return st.x, st.y, None
+
+    elif solver_name == "RIPM":
+        solve = ripm.solve_compiled_best(problem, option, max_steps)
+        opt = ripm.RIPM(option).option
+
+        def start(x0, y0):
+            base, _, _ = ripm.init_state(problem, opt)
+            base = _widen(base, x0.shape[0])
+            phi0 = ripm._phi(problem, x0, *ripm._kkt_field(problem, x0, base.y, y0, y0))
+            sigma0, rho0, tau_1, tau_2 = ripm._centring(y0, y0, phi0, problem.num_ineq)
+            st0 = dataclasses.replace(base, x=x0, z=y0, s=y0, phi=phi0, sigma=sigma0, rho=rho0)
+            return st0, (tau_1, tau_2)
+
+        def resid_args(st):
+            return st.x, st.z, st.y
+
+    elif solver_name == "RSQO":
+        solve = rsqo.solve_compiled_best(problem, option, max_steps)
+        opt = rsqo.RSQO(option).option
+
+        def start(x0, y0):
+            base = _widen(rsqo.init_state(problem, opt), x0.shape[0])
+            return dataclasses.replace(base, x=x0, y=y0), ()
+
+        def resid_args(st):
+            return st.x, st.y, st.z
+
+    elif solver_name == "RALM":
+        solve = ralm.solve_compiled_best(problem, option, max_steps)
+        opt = ralm.RALM(option).option
+
+        def start(x0, y0):
+            base = _widen(ralm.init_state(problem, opt), x0.shape[0])
+            return dataclasses.replace(base, x=x0, y=y0, y_unbd=y0), ()
+
+        def resid_args(st):
+            return st.x, st.y, st.z
+
+    else:
+        raise ValueError(f"Unknown solver {solver_name}")
+
+    return solve, start, resid_args
+
+
+def batched_solver_sweep(problem, solver_name: str, option, max_steps: int):
+    """Fixed-budget solve of any of the four solvers over stacked starts.
+
+    Returns a function (xs0 [B, ...], ys0 [B, m]) -> (x_final, ineq
+    multipliers, steps [B], residuals [B])."""
+    solve, start, resid_args = _solver_plumbing(problem, solver_name, option, max_steps)
+
+    def run(xs0, ys0):
+        st0, extras = start(xs0, ys0)
+        st, k, _ = solve(st0, *extras, -float("inf"))
+        x, ineq, eq = resid_args(st)
+        return x, ineq, k, compute_residual(problem, x, ineq, eq)[0]
+
+    return run
+
+
+def batched_protocol_sweep(problem, solver_name: str, option, max_steps: int):
+    """Time-to-target solves over stacked starts: like
+    ``batched_solver_sweep``, but each lane carries its best residual and
+    stops once it reaches its own ``target``.
+
+    Returns a function (xs0, ys0, targets [B]) -> (x, ineq multipliers,
+    steps [B], best [B])."""
+    solve, start, resid_args = _solver_plumbing(problem, solver_name, option, max_steps)
+
+    def run(xs0, ys0, targets):
+        st0, extras = start(xs0, ys0)
+        st, k, best = solve(st0, *extras, targets)
+        x, ineq, _ = resid_args(st)
+        return x, ineq, k, best
+
+    return run
+
+
+def protocol_single(problem, solver_name: str, option, max_steps: int):
+    """The time-to-target solve of one start (x0 [n] or [n, p], y0 [m],
+    a number ``target``): ``batched_protocol_sweep`` on one lane, its
+    results unbatched.  Returns a function (x0, y0, target) -> (x, ineq
+    multipliers, steps, best)."""
+    sweep = batched_protocol_sweep(problem, solver_name, option, max_steps)
+
+    def run(x0, y0, target):
+        target = torch.as_tensor(target, dtype=y0.dtype, device=y0.device).reshape(1)
+        x, ineq, k, best = sweep(x0[None], y0[None], target)
+        return x[0], ineq[0], k[0], best[0]
+
+    return run
+
+
+def batched_ripm_continue(problem, option, max_steps: int):
+    """Fixed-budget RIPM solve continuing from prior final states
+    (``RipmState`` over lanes): the iteration counter is re-seeded and the
+    merit and centring scalars (phi, sigma, rho, tau_1, tau_2) recomputed
+    under this problem, with ``keep_best_point`` on unless ``option`` says
+    otherwise.  Returns a function (states) -> (state, steps [B],
+    residuals [B])."""
+    from riptrm_torch.solvers import ripm
+
+    option = {"keep_best_point": True, **(option or {})}
+    solve = ripm.solve_compiled_best(problem, option, max_steps)
+    m = problem.num_ineq
+
+    def run(st):
+        phi = ripm._phi(problem, st.x, *ripm._kkt_field(problem, st.x, st.y, st.z, st.s))
+        sigma, rho, tau_1, tau_2 = ripm._centring(st.z, st.s, phi, m)
+        st = dataclasses.replace(st, phi=phi, sigma=sigma, rho=rho,
+                                 iteration=torch.zeros_like(st.iteration))
+        state, k, _ = solve(st, tau_1, tau_2, -float("inf"))
+        return state, k, compute_residual(problem, state.x, state.z, state.y)[0]
 
     return run
 

@@ -13,7 +13,8 @@ Sign conventions (as in the reference):
   slack         c(x) = -ineq(x) > 0 at strictly feasible points
   Lagrangian    L(x, y, z) = f(x) + y . ineq(x) + z . eq(x),  y >= 0
 
-Point-frozen factories (``lag_rhess_at``, ``gx_at``, ``gx_adj_at``) do the
+Point-frozen factories (``lag_rhess_at``, ``gx_at``, ``gx_adj_at``,
+``hx_at``) do the
 point-dependent work once per solver step, like the JAX package's
 ``linearize``/``vjp``.  ``torch.func.linearize`` traces through ``make_fx``
 and costs seconds per call, so the Hessian-vector product is instead the
@@ -170,3 +171,30 @@ class Problem:
     def gx_adj_at(self, x):
         """Returns dx -> Gxaj(dx) at the point x."""
         return lambda dx: self.gx_adj(x, dx)
+
+    def gx(self, x, v):
+        """Gx(v) = sum_i v_i (-rgrad g_i), the per-call form of ``gx_at``."""
+        return self.gx_at(x)(v)
+
+    # ------------------------------------------------------------------
+    # Equality-constraint operators (the analogues of gx / gx_adj on h)
+    # ------------------------------------------------------------------
+    def hx_at(self, x):
+        """Returns v -> Hx(v), the Riemannian gradient of x -> v . h(x),
+        with the equality pullback frozen."""
+        _, pullback = vjp(lambda xx: vmap(self.eq_fn)(xx), x)
+
+        def hx(v):
+            (eg,) = pullback(v)
+            return self.manifold.egrad2rgrad(x, eg)
+
+        return hx
+
+    def hx(self, x, v):
+        """Hx(v) = sum_i v_i rgrad h_i: one vjp."""
+        return self.hx_at(x)(v)
+
+    def hx_adj(self, x, dx):
+        """Hxaj(dx)_i = d/dt h_i(x + t dx): one jvp."""
+        _, dh = jvp(lambda xx: vmap(self.eq_fn)(xx), (x,), (dx,))
+        return dh

@@ -1,19 +1,23 @@
-"""Shared solver machinery: option merging, outputs, host-side logging and
-the lane-batched fixed-budget solve loop.
+"""Shared solver machinery: option merging, outputs, host-side logging,
+the single-level solvers' host runner and the lane-batched fixed-budget
+solve loop.
 
-Counterpart of ``riptrm_tpu/solvers/base.py``.  ``host_run`` (the
-single-level solvers' runner) and the wandb hooks wait for the solvers and
-the experiment layer that use them (ROADMAP.md queue 1, items 10 and 12).
+Counterpart of ``riptrm_tpu/solvers/base.py``.  The wandb hooks wait for
+the experiment layer (ROADMAP.md queue 1, item 6): ``wandb_logging=True``
+is refused (``refuse_wandb``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from riptrm_torch.config import resolve
 
 
 @dataclasses.dataclass
@@ -87,6 +91,120 @@ class WallClock:
         return self.elapsed() >= self.maxtime
 
 
+def refuse_wandb(option):
+    """Raise NotImplementedError for ``wandb_logging``, as RIPTRM's
+    ``check_slice`` does."""
+    if option.get("wandb_logging"):
+        raise NotImplementedError(
+            f"wandb_logging={option['wandb_logging']!r} waits for ROADMAP.md queue 1 item 6"
+        )
+
+
+def lane0_to_host(d: dict) -> dict:
+    """Lane 0 of every tensor value of ``d`` as a Python number (bool, int
+    or float by the tensor's dtype), in ONE device->host copy; other values
+    pass through."""
+    keys = [k for k, v in d.items() if isinstance(v, torch.Tensor)]
+    out = dict(d)
+    if not keys:
+        return out
+    vals = torch.stack(
+        [d[k].reshape(-1)[0].to(torch.float64) for k in keys]
+    ).cpu().tolist()
+    for k, v in zip(keys, vals):
+        dt = d[k].dtype
+        out[k] = bool(v) if dt == torch.bool else (
+            v if dt.is_floating_point else int(v))
+    return out
+
+
+def host_run(*, option, state, step, evaluate, status_row, get_x, verbosity_line=None,
+             stop_flag=None):
+    """Shared host-driven loop of the single-level solvers (RIPM, RSQO,
+    RALM) on one lane: evaluate -> log -> stop checks -> step, with the
+    reference's stopping order (residual, wall clock, iteration count),
+    per-step ``do_exit_on_error`` and the logging time excluded from the
+    wall-clock budget.
+
+    ``step(state) -> (state, info)``; ``evaluate(x_prev, state)`` and
+    ``status_row(state, info)`` return dicts whose tensor values are read
+    at lane 0 (``lane0_to_host``); ``stop_flag(state, info) -> str or
+    None`` is a solver-raised stop, whose flagged row is logged before the
+    exit.  Returns (final state, log dict, stop reason)."""
+    log = LogAccumulator()
+    clock = WallClock(option["maxtime"])
+    info: dict = {}
+    x_prev = get_x(state)
+    iteration = 0
+    stop_reason = None
+    while True:
+        try:
+            ev = lane0_to_host(evaluate(x_prev, state))
+        except Exception as e:
+            if option["do_exit_on_error"]:
+                print(f"Error: {e}")
+                break
+            raise
+        run_time = 0.0 if iteration == 0 else clock.elapsed()
+        # Log accumulation is host bookkeeping, not solve time.
+        t_log = time.time()
+        log.add(iteration, run_time, ev, lane0_to_host(status_row(state, info)))
+        clock.excluded += time.time() - t_log
+
+        residual = ev["residual"]
+        x_prev = get_x(state)
+        if option.get("verbosity") and verbosity_line:
+            print(verbosity_line(iteration, ev))
+        if residual <= option["tolresid"]:
+            stop_reason = (
+                f"KKT residual tolerance reached; current residual={residual} "
+                f"and tolresid={option['tolresid']}"
+            )
+            break
+        if clock.exceeded():
+            stop_reason = (
+                f"Max time exceeded; runtime={clock.elapsed():.2f} and "
+                f"maxtime={option['maxtime']}"
+            )
+            break
+        if iteration >= option["maxiter"]:
+            stop_reason = (
+                f"Max iteration count reached; maxiter={option['maxiter']} "
+                f"after {clock.elapsed():.2f} seconds"
+            )
+            break
+        iteration += 1
+        try:
+            state, info = step(state)
+        except Exception as e:
+            if option["do_exit_on_error"]:
+                print(f"Error: {e}")
+                break
+            raise
+        if stop_flag is not None:
+            reason = stop_flag(state, info)
+            if reason:
+                # the flagged iteration's row, logged before the exit
+                ev = lane0_to_host(evaluate(x_prev, state))
+                log.add(iteration, clock.elapsed(), ev,
+                        lane0_to_host(status_row(state, info)))
+                stop_reason = reason
+                break
+    return state, log.as_dict(), stop_reason
+
+
+def max_abs_multiplier(*mults):
+    """The maxabsLagmult log field per lane, [B]: the largest |entry| over
+    the lane's multiplier vectors ([B, m] each), -inf when they are all
+    empty."""
+    parts = [torch.abs(m).reshape(m.shape[0], -1) for m in mults]
+    allm = torch.cat(parts, dim=-1)
+    if allm.shape[-1] == 0:
+        return torch.full((allm.shape[0],), -math.inf, dtype=allm.dtype,
+                          device=allm.device)
+    return torch.amax(allm, dim=-1)
+
+
 def select_lanes(mask, a, b):
     """Per-lane ``where(mask, a, b)`` over every tensor field of two states
     of the same dataclass (``mask`` [B] bool)."""
@@ -149,3 +267,39 @@ def compiled_best_while(step1, state0, target, max_steps, best0, stall_window=No
         k = k + (~done).to(k.dtype)
         done = done | stop | (best <= target)
     return (best_st if track_best_state else st), k, done, best
+
+
+def state_from_numpy(cls, d, *, scalar_field, int_fields=(), device=None, dtype=None):
+    """A solver state dataclass ``cls`` from a dict of arrays, e.g.
+    ``jax.device_get(state)._asdict()`` of the JAX package's state of the
+    same name.  An unbatched state becomes one lane, a vmapped one keeps
+    its lanes: which it is follows from the per-lane scalar
+    ``scalar_field`` (0-d or [B]).  Float fields take ``dtype`` (default:
+    the dtype of ``x``), ``int_fields`` int64, boolean arrays bool; every
+    field lands on ``device`` (default: the card, ``config.resolve``)."""
+    batched = np.ndim(d[scalar_field]) == 1
+    if dtype is None:
+        dtype = torch.from_numpy(np.array(d["x"])).dtype
+    _, device = resolve(dtype, device)
+    out = {}
+    for f in dataclasses.fields(cls):
+        a = np.array(d[f.name])  # a writable copy
+        if not batched:
+            a = a[None]
+        if f.name in int_fields:
+            out[f.name] = torch.as_tensor(a.astype(np.int64), device=device)
+        elif a.dtype == bool:
+            out[f.name] = torch.as_tensor(a, device=device)
+        else:
+            out[f.name] = torch.as_tensor(a, dtype=dtype, device=device)
+    return cls(**out)
+
+
+def state_to_numpy(state) -> dict:
+    """Inverse of ``state_from_numpy``: the lane axis is dropped at B = 1."""
+    squeeze = state.x.shape[0] == 1
+    out = {}
+    for f in dataclasses.fields(state):
+        a = getattr(state, f.name).detach().cpu().numpy()
+        out[f.name] = a[0] if squeeze else a
+    return out

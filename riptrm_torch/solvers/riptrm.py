@@ -45,10 +45,8 @@ import copy
 import dataclasses
 import math
 
-import numpy as np
 import torch
 
-from riptrm_torch.config import resolve
 from riptrm_torch.ops import kernels
 from riptrm_torch.ops.basis import (
     materialize_symmetrized,
@@ -59,13 +57,17 @@ from riptrm_torch.ops.kkt import compute_residual, evaluation
 from riptrm_torch.ops.spectrum import eigh_nan, eigvalsh_nan, lanczos
 from riptrm_torch.ops.tcg import truncated_cg
 from riptrm_torch.ops.trs import solve_trs_eig, solve_trs_ms
+from riptrm_torch.solvers import base
 from riptrm_torch.solvers.base import (
     LogAccumulator,
     Output,
     WallClock,
     compiled_best_while,
+    lane0_to_host,
     merge_options,
 )
+from riptrm_torch.utils.lanes import dot as _dot
+from riptrm_torch.utils.lanes import where_lanes as _lanes
 
 # inner_status codes
 INNER_INITIAL = 0
@@ -204,46 +206,19 @@ class RiptrmState:
         return self.x.shape[0]
 
 
-_FLOAT_FIELDS = ("x", "y", "mu", "tr_radius", "inner_x0", "inner_y0", "inner_tr0",
-                 "h_lam", "h_q", "c_vec")
-_INT_FIELDS = ("outer_iter", "inner_count")
-
-
 def state_from_numpy(d, device=None, dtype=None) -> RiptrmState:
     """Port's state from a dict of arrays, e.g. ``jax.device_get(state)
-    ._asdict()`` of a JAX ``RiptrmState``.  An unbatched state becomes one
-    lane; a vmapped one keeps its lanes.  Which it is follows from ``y``,
-    which is [m] or [B, m] whatever the point's rank (a vector [n] on the
-    sphere, a frame [n, p] on Stiefel).  Float fields take ``dtype``
-    (default: the dtype of ``x``); every field lands on ``device`` (default:
-    the card, ``config.resolve``)."""
-    batched = np.ndim(d["y"]) == 2
-    if dtype is None:
-        dtype = torch.from_numpy(np.array(d["x"])).dtype
-    _, device = resolve(dtype, device)
-    out = {}
-    for f in dataclasses.fields(RiptrmState):
-        a = np.array(d[f.name])  # a writable copy
-        if not batched:
-            a = a[None]
-        if f.name in _FLOAT_FIELDS:
-            t = torch.as_tensor(a, dtype=dtype, device=device)
-        elif f.name in _INT_FIELDS:
-            t = torch.as_tensor(a.astype(np.int64), device=device)
-        else:
-            t = torch.as_tensor(a.astype(bool), device=device)
-        out[f.name] = t
-    return RiptrmState(**out)
+    ._asdict()`` of a JAX ``RiptrmState``: an unbatched state becomes one
+    lane, a vmapped one keeps its lanes, whatever the point's rank (a vector
+    [n] on the sphere, a frame [n, p] on Stiefel).  Float fields take
+    ``dtype`` (default: the dtype of ``x``); every field lands on
+    ``device`` (default: the card, ``config.resolve``)."""
+    return base.state_from_numpy(RiptrmState, d, scalar_field="mu",
+                                 int_fields=("outer_iter", "inner_count"),
+                                 device=device, dtype=dtype)
 
 
-def state_to_numpy(state: RiptrmState) -> dict:
-    """Inverse of ``state_from_numpy``: the lane axis is dropped at B = 1."""
-    squeeze = state.lanes == 1
-    out = {}
-    for f in dataclasses.fields(RiptrmState):
-        a = getattr(state, f.name).detach().cpu().numpy()
-        out[f.name] = a[0] if squeeze else a
-    return out
+state_to_numpy = base.state_to_numpy
 
 
 def _barrier_ops(problem, x, y, mu):
@@ -279,11 +254,6 @@ def _outer_update(option, mu):
     return torch.clamp(simple, min=option["min_barrier_parameter"])
 
 
-def _lanes(mask, a, b):
-    """where(mask, a, b) with a [B] mask over [B, ...] values."""
-    return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b)
-
-
 def fused_tcg_route(kind, manifold, lanes, device):
     """The fused tCG kernel that takes a step's tCG, by the problem's
     structure ``kind``, or None for the plain ``truncated_cg``: decided by
@@ -312,10 +282,6 @@ def exact_trs_method(option, dim):
     if method == "auto":
         return "ms" if dim >= 256 else "eigh"
     return method
-
-
-def _dot(u, v):
-    return torch.sum(u * v, dim=-1)
 
 
 def _dense_ritz(h_mat):
@@ -723,24 +689,6 @@ def init_state(problem, option):
     )
 
 
-_INT_INFO = ("inner_status", "num_inner", "dxtype", "radius_update",
-             "dual_clipping", "outer_iter", "tcg_iters")
-_BOOL_INFO = ("converged", "exit_inner")
-
-
-def info_to_host(info: dict) -> dict:
-    """Lane 0 of an info dict as Python numbers, in ONE device->host copy
-    (the values are stacked into one float64 tensor first)."""
-    keys = list(info)
-    vals = torch.stack(
-        [torch.as_tensor(info[k]).reshape(-1)[0].to(torch.float64) for k in keys]
-    ).cpu().tolist()
-    out = {}
-    for k, v in zip(keys, vals):
-        out[k] = int(v) if k in _INT_INFO else bool(v) if k in _BOOL_INFO else v
-    return out
-
-
 class RIPTRM:
     """Host-facing solver with the reference's run protocol."""
 
@@ -765,7 +713,7 @@ class RIPTRM:
         clock = WallClock(option["maxtime"])
         inner_start = clock.elapsed()
 
-        eval0 = info_to_host(evaluation(problem, state.x, state.x, state.y))
+        eval0 = lane0_to_host(evaluation(problem, state.x, state.x, state.y))
         # iteration-0 row (outer loop first evaluation)
         status0 = {
             "mu": float(state.mu[0]),
@@ -797,7 +745,7 @@ class RIPTRM:
         while stop_reason is None:
             try:
                 state, info = step(state)
-                info = info_to_host(info)  # one device->host transfer per step
+                info = lane0_to_host(info)  # one device->host transfer per step
             except Exception as e:  # do_exit_on_error
                 if option["do_exit_on_error"]:
                     print(f"Error: {e}")

@@ -574,3 +574,43 @@ def test_exact_step_on_card_matches_cpu(dev, method):
         got = np.abs(s_dev[k]) if (method, k) == ("eigh", "h_q") else s_dev[k]
         want = np.abs(v) if (method, k) == ("eigh", "h_q") else v
         np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12, err_msg=k)
+
+
+BASELINE_STEPS = {
+    "RIPM dense": ("ripm", {"checkNTequation": True}),
+    "RIPM Krylov": ("ripm", {"KrylovIterMethod": True}),
+    "RIPM jacobi_theta": ("ripm", {"KrylovIterMethod": True,
+                                   "KrylovPreconditioner": "jacobi_theta"}),
+    "RSQO reghess chol": ("rsqo", {"quadoptim_eigvalcorr": 1e-2}),
+    "RSQO reghess_shift schulz": ("rsqo", {"quadoptim_type": "reghess_shift",
+                                           "quadoptim_linear_solver": "schulz"}),
+    "RALM": ("ralm", {}),
+}
+
+
+@pytest.mark.parametrize("case", BASELINE_STEPS)
+def test_baseline_step_on_card_matches_cpu(dev, case):
+    """One step of RIPM, RSQO or RALM (cuSOLVER's solve, eigh, Cholesky
+    and cuBLAS's products in place of LAPACK's and the CPU's) on the golden
+    NonnegPCA point, float64: the card's new state against the CPU's, rtol
+    1e-8, and nothing of the step on the CPU."""
+    import importlib
+
+    module_name, extra = BASELINE_STEPS[case]
+    mod = importlib.import_module(f"riptrm_torch.solvers.{module_name}")
+    solver = {"ripm": "RIPM", "rsqo": "RSQO", "ralm": "RALM"}[module_name]
+    opt = getattr(mod, solver)(extra).option
+    out = {}
+    for d in ("cpu", dev):
+        p = nonneg_pca.load_problem("dataset/NonnegPCA/1", "a", dtype=torch.float64, device=d)
+        if module_name == "ripm":
+            st0, t1, t2 = mod.init_state(p, opt)
+            st, _ = mod.make_step(p, opt)(st0, t1, t2)
+        else:
+            st, _ = mod.make_step(p, opt)(mod.init_state(p, opt))
+        if d != "cpu":
+            assert all(getattr(st, f).device.type == "cuda" for f in st.__dataclass_fields__)
+        out[str(d)] = mod.state_to_numpy(st)
+    for k, v in out["cpu"].items():
+        if v is not None:
+            np.testing.assert_allclose(out[str(dev)][k], v, rtol=1e-8, atol=1e-12, err_msg=k)

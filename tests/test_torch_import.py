@@ -18,7 +18,15 @@ MODULES = [
     "riptrm_torch.ops.basis",
     "riptrm_torch.ops.spectrum",
     "riptrm_torch.ops.trs",
+    "riptrm_torch.ops.conjres",
+    "riptrm_torch.ops.qp",
     "riptrm_torch.solvers",
+    "riptrm_torch.solvers.ripm",
+    "riptrm_torch.solvers.rsqo",
+    "riptrm_torch.solvers.ralm",
+    "riptrm_torch.solvers.subsolvers",
+    "riptrm_torch.manifolds.euclidean",
+    "riptrm_torch.parallel.sweep",
     "riptrm_torch.parallel",
     "riptrm_torch.utils",
     "riptrm_torch.experiment",
