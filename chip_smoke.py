@@ -8,7 +8,9 @@ second-order criterion) on NonnegPCA on the sphere at the size of the
 system's own benchmark, n = 1000, and on BoundedPCA on St(128, 8) at the
 size of the JAX package's own chip sweeps, with second-order certificates
 of the sweeps' final points; the baseline solvers RIPM, RSQO and RALM on
-NonnegPCA, golden and at n = 1000, single-lane and swept; and the roofline
+NonnegPCA, golden and at n = 1000, single-lane and swept; StableIdentification,
+Rosenbrock and LowRank, golden and at the JAX package's chip widths,
+single-lane and swept; and the roofline
 (``python -m riptrm_torch.experiment.roofline``) at its default shapes.
 Checks the six hand-written kernels
 (``riptrm_torch/csrc/sphere_tcg.cu``: K2-K3;
@@ -97,6 +99,26 @@ Phases:
      every lane's target (at least half the lanes reach it, none later
      than in the sweep);
   -- launch counters read: every one 0 (no Pallas kernel on these paths) --
+  -- launch counters reset: StableIdentification, Rosenbrock, LowRank --
+  5e. golden float64 solves held to the JAX package's own float64 CPU
+     results (``GOLDEN_5E``, from ``scripts/torch_goldens.py``, within
+     ``TOL_5E``): RIPTRM tCG on dataset/StableIdentification/1 a,
+     rosenbrock.make_problem(5, 3) with its second-order callback (and in
+     exact mode) and dataset/LowRank/1 a (12 x 10, rank 3); RIPM with
+     ``jacobi_theta`` on StableIdentification;
+  6e. one lane of each family at full width, float32: StableIdentification
+     d = 32 from the port's generators with chip_sweep's parameters (dim
+     1552, m = 714), Rosenbrock Gr(256, 8) at alpha = 1e7 and LowRank
+     64 x 32 of rank 8 (m = 2048): ``solve_compiled`` with its step split
+     into tCG, barrier operators, evaluation and the rest; Rosenbrock's
+     ``RIPTRM.run`` with its second-order callback; the call times of the
+     layers the families add (the SPD Cholesky work, the retractions, the
+     callback);
+  7e. ``batched_riptrm_solve`` at those widths, float32 (B = 8, 16, 16),
+     and NonnegPCA n = 1000, B = 16 with ``compensated_reductions`` from
+     phase 7's starts: finite, the median below the starting median, the
+     lanes off the manifold counted;
+  -- launch counters read after each of 5e-7e: every one 0 --
   8. CUDA-event times of each kernel and its plain version (events around
      windows of back-to-back calls, divided by the count), each with its
      bound (``riptrm_torch/experiment/roofline.py``'s accounting) and, for
@@ -118,6 +140,7 @@ Phases:
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -621,6 +644,8 @@ class Smoke:
                     f"{float(steps.float().median()):.0f}, K3 launches {launches}, "
                     f"{t:.3f} s ({t / b * 1e3:.2f} ms per solve)")
                 check(bool(torch.all(torch.isfinite(res))), "sweep residuals not finite")
+                if not fused:  # phase 7e's compensated sweep is held beside it
+                    self.plain_sweep = (med, 1e3 * t / max(int(steps.max()), 1))
                 if fused:
                     self.final[b] = st
                     check(med <= 1e-3 and launches > 0, f"batched sweep B={b} failed")
@@ -1322,6 +1347,312 @@ class BaselineSmoke:
                   f"7d {name}: a lane ran past the step its sweep reached the target at")
 
 
+# Phases 5e-7e: the families without a kernel.  GOLDEN_5E holds the JAX
+# package's float64 CPU results of phase 5e's solves, as
+# scripts/torch_goldens.py prints them: per run, the option, the final
+# residual and cost, the residual at each checkpoint (the close of each
+# outer iteration for RIPTRM, each step for RIPM) and the last
+# second-order residual where the problem logs one; TOL_5E the tolerance
+# each is held to.
+TCG_FIRST = {"TRS_solver": "tCG", "second_order_stationarity": False}
+GOLDEN_5E = {
+    "sid_tcg": ("sid", "RIPTRM", TCG_FIRST | {"maxiter": 40, "tolresid": 1e-8}, {
+        "residual": 9.787316301308942e-09, "cost": 0.6559062372847588,
+        "checkpoints": [0.4083250858, 0.2010374891, 0.09610537933, 0.0469750824,
+                        0.0219751898, 0.01036321354, 0.004882010481, 0.002282622912,
+                        0.001059175441, 0.0004877159659, 0.0002228429455, 0.0001010271474,
+                        4.543939805e-05, 2.03789011e-05, 8.974908881e-06, 3.951636601e-06,
+                        1.729426154e-06, 7.515033638e-07, 3.185376604e-07, 1.36349806e-07,
+                        5.727890947e-08, 2.433905295e-08, 9.787316301e-09]}),
+    "rosenbrock_tcg": ("rosenbrock", "RIPTRM", TCG_FIRST | {"maxiter": 4, "tolresid": 1e-8}, {
+        "residual": 0.044934882073171555, "cost": 40000009.52029208,
+        "second_order_residual": 3.2166186700711714,
+        "checkpoints": [0.3948645049, 0.1951116271, 0.09410338437, 0.04493488207]}),
+    "rosenbrock_exact": ("rosenbrock", "RIPTRM", {"maxiter": 40, "tolresid": 1e-6}, {
+        "residual": 7.173891512981665e-07, "cost": 40000010.228469536,
+        "second_order_residual": 92.98079045263371,
+        "checkpoints": [0.3873200541, 0.1894260841, 0.09183346611, 0.04505325921,
+                        0.02115131187, 0.01004730728, 0.00476159185, 0.002215050657,
+                        0.001025937833, 0.0004722737233, 0.0002217570865, 9.78172861e-05,
+                        4.399540269e-05, 1.963046654e-05, 8.688591912e-06, 3.814486869e-06,
+                        1.660972459e-06, 7.173891513e-07]}),
+    "lowrank_tcg": ("lowrank", "RIPTRM", TCG_FIRST | {"maxiter": 40, "tolresid": 1e-8}, {
+        "residual": 4.467185303490993e-09, "cost": 0.07036481945914057,
+        "checkpoints": [1.095444915, 0.5352548591, 0.2596691477, 0.1250658209, 0.05979765019,
+                        0.02838104698, 0.01336996095, 0.006251222124, 0.002900671555,
+                        0.001335665255, 0.0006102793877, 0.0002766674625, 0.00012443764,
+                        5.552462021e-05, 2.457530357e-05, 1.078885557e-05, 4.697621792e-06,
+                        2.028478428e-06, 8.685922636e-07, 3.687891272e-07, 1.552458291e-07,
+                        6.478943882e-08, 2.680361367e-08, 1.099130799e-08, 4.467185303e-09]}),
+    "sid_ripm_jacobi": ("sid", "RIPM", {"maxiter": 6, "tolresid": 1e-6,
+                                        "KrylovIterMethod": True,
+                                        "KrylovPreconditioner": "jacobi_theta"}, {
+        "residual": 2.2365811854329536, "cost": 0.8042645953143425,
+        "checkpoints": [3.636198589, 3.101736838, 2.716269303, 2.496861275, 2.399820497,
+                        2.300298967, 2.236581185]}),
+}
+# The tolerances: the cost (relative) and the final residual's bound; the
+# checkpoints (relative) and the second-order residual (relative).  The
+# tCG runs' accept/reject decisions follow the rounding from the first
+# outer iterations on, so their checkpoints part by a few percent (the
+# port's CPU runs, scripts/torch_goldens.py --port: 2.6 % at
+# StableIdentification's fourth, 1.0 % at Rosenbrock's fourth; on the card
+# 2.6 % and 0.6 %) and Rosenbrock's second-order residual, a function of
+# the point it stops at, by 1e-4 (5e-4 on the card), while the costs agree
+# to 1e-12; the exact and LowRank runs agree to 8e-4 and 2e-7, RIPM's
+# first 6 steps to 5e-7 (it stalls near 1.83 later, in the JAX package
+# too).
+TOL_5E = {
+    "sid_tcg": {"cost": 1e-9, "residual_max": 1e-8, "checkpoint_rtol": 0.1},
+    "rosenbrock_tcg": {"cost": 1e-9, "residual_max": 0.05, "checkpoint_rtol": 0.1,
+                       "second_order_rtol": 5e-2},
+    "rosenbrock_exact": {"cost": 1e-9, "residual_max": 1e-6, "checkpoint_rtol": 1e-2,
+                         "second_order_rtol": 1e-4},
+    "lowrank_tcg": {"cost": 1e-9, "residual_max": 1e-8, "checkpoint_rtol": 1e-4},
+    "sid_ripm_jacobi": {"cost": 1e-5, "residual_max": 2.3, "checkpoint_rtol": 1e-4},
+}
+# phases 6e and 7e: the widths the JAX package ran (BENCH.md): chip_sweep's
+# StableIdentification d = 32 (oneboxratio 0.2, twoboxratio 0.1, five
+# trajectories of 20 steps at h = 0.02, snr 10, the lsq starts; dim 1552,
+# m = 714), Rosenbrock on Gr(256, 8) (alpha = 1e7, m = 2048) and LowRank
+# 64 x 32 of rank 8 (m = 2048)
+SID_D, ROSEN_N, ROSEN_K, LOWRANK_SHAPE = 32, 256, 8, (64, 32, 8)
+FAMILY_LANES = {"StableIdentification": 8, "Rosenbrock": 16, "LowRank": 16}
+SINGLE_STEPS = 40  # 6e: solve_compiled steps on one lane
+CALLBACK_STEPS = 4  # 6e: RIPTRM.run steps with Rosenbrock's callback
+# 7e: batched_riptrm_solve steps (StableIdentification's B = 8 lanes run
+# their tCGs in lockstep to the longest, and the tCGs lengthen as the
+# barrier tightens: 10 steps keep the phase within its time)
+FAMILY_SWEEP_STEPS = {"StableIdentification": 10, "Rosenbrock": 100, "LowRank": 100}
+# 6e/7e: RIPTRM's step parts (riptrm_torch.solvers.riptrm functions)
+RIPTRM_PARTS = ("riptrm_torch.solvers.riptrm", {
+    "truncated_cg": "tCG", "_barrier_ops": "barrier operators",
+    "evaluation": "evaluation"})
+CALLBACK_PARTS = ("riptrm_torch.problems.rosenbrock",
+                  {"second_order_residual": "second-order callback"})
+
+
+class FamilySmoke:
+    """StableIdentification, Rosenbrock and LowRank on the card: the golden
+    float64 solves held to the JAX package's results (5e), one lane at full
+    width with its step split (6e) and float32 sweeps (7e).  None of these
+    paths reaches a Pallas kernel in the JAX package, so no hand-written
+    kernel may launch on them."""
+
+    def __init__(self, smoke, seed=0):
+        self.smoke = smoke
+        self.device = smoke.device
+        self.gen = torch.Generator(self.device).manual_seed(seed)
+        self.rng = np.random.default_rng(seed)
+        self.instances = {}
+
+    def counters_zero(self, phase):
+        from riptrm_torch.ops.kernels import launch_counts
+
+        counts = launch_counts()
+        say(f"  {phase} launch counts {counts}")
+        check(not any(counts.values()), f"{phase}: a hand-written kernel launched")
+
+    # -- 5e: golden float64 solves ------------------------------------------
+    def golden_problem(self, family):
+        from riptrm_torch.problems import low_rank, rosenbrock, stable_identification
+
+        kw = dict(dtype=torch.float64, device=self.device)
+        if family == "sid":
+            return stable_identification.load_problem(
+                os.path.join(ROOT, "dataset", "StableIdentification", "1"), "a", **kw)
+        if family == "rosenbrock":
+            return rosenbrock.make_problem(5, 3, **kw)
+        return low_rank.load_problem(os.path.join(ROOT, "dataset", "LowRank", "1"), "a", **kw)
+
+    def phase_golden(self):
+        """5e: RIPTRM (tCG) on dataset/StableIdentification/1 a,
+        rosenbrock.make_problem(5, 3) with its second-order callback (and in
+        exact mode) and dataset/LowRank/1 a; RIPM with jacobi_theta on
+        StableIdentification; each held to GOLDEN_5E within TOL_5E."""
+        from riptrm_torch.solvers import RIPM, RIPTRM
+
+        for label, (family, solver, option, want) in GOLDEN_5E.items():
+            tol = TOL_5E[label]
+            cls = RIPTRM if solver == "RIPTRM" else RIPM
+            p = self.golden_problem(family)
+            out, t = wall(lambda: cls({"maxtime": 600, "do_exit_on_error": False} | option)
+                          .run(p), self.device)
+            log = out.log
+            res, cost = log["residual"][-1], log["cost"][-1]
+            if solver == "RIPTRM":
+                marks = [r for s, r in zip(log["inner_status"], log["residual"])
+                         if s == "converged"]
+            else:
+                marks = list(log["residual"])
+            sor = log.get("second_order_residual", [None])[-1]
+            say(f"phase 5e golden {label} (float64): residual {res:.6e} (JAX {want['residual']:.6e}), "
+                f"cost {cost!r} (JAX {want['cost']!r}), {len(log['residual']) - 1} steps, "
+                f"{t:.2f} s ({1e3 * t / max(len(log['residual']) - 1, 1):.2f} ms a step)"
+                + ("" if sor is None else f", second-order residual {sor:.6g} "
+                   f"(JAX {want['second_order_residual']:.6g})"))
+            check(abs(cost - want["cost"]) <= tol["cost"] * abs(want["cost"]),
+                  f"5e {label}: cost {cost} against {want['cost']}")
+            check(res <= tol["residual_max"], f"5e {label}: residual {res}")
+            n = min(len(marks), len(want["checkpoints"]))
+            check(abs(len(marks) - len(want["checkpoints"])) <= 1,
+                  f"5e {label}: {len(marks)} checkpoints, JAX {len(want['checkpoints'])}")
+            worst = max((abs(a - b) / b for a, b in zip(marks[:n], want["checkpoints"][:n])),
+                        default=0.0)
+            say(f"  first {n} checkpoints within {worst:.2e} (relative) of JAX's")
+            check(worst <= tol["checkpoint_rtol"], f"5e {label}: checkpoints off by {worst}")
+            if sor is not None:
+                check(abs(sor - want["second_order_residual"])
+                      <= tol["second_order_rtol"] * abs(want["second_order_residual"]),
+                      f"5e {label}: second-order residual {sor}")
+        self.counters_zero("phase 5e")
+
+    # -- instances at full width (6e, 7e) -------------------------------------
+    def instance(self, name):
+        """(float32 problem, starts [B, ...], y starts [B, m], compl floor)
+        at the full width of ``name``, generated on the card once."""
+        if name in self.instances:
+            return self.instances[name]
+        from riptrm_torch.problems import low_rank, rosenbrock, stable_identification as si
+
+        dev, b = self.device, FAMILY_LANES[name]
+        f32 = dict(dtype=torch.float32, device=dev)
+        t0 = time.perf_counter()
+        if name == "StableIdentification":
+            d = SID_D
+            _, _, _, true_a = si.generate_true_system(self.gen, d, dtype=torch.float64,
+                                                      device=dev)
+            constset = si.generate_constraints(self.rng, d, true_a, oneboxratio=0.2,
+                                               twoboxratio=0.1)
+            trajs = [si.generate_trajectory(self.rng, d, true_a, h=0.02, n_steps=20,
+                                            snr=10)[1] for _ in range(5)]
+            J, R, Q, _ = si.generate_interior_initialpoint_lsq(
+                self.gen, d, constset, lanes=b, dtype=torch.float64, device=dev)
+            problem = si.make_problem(d, trajs, constset, (J[0], R[0], Q[0]), **f32)
+            xs = problem.manifold.pack(tuple(torch.tensor(a, **f32) for a in (J, R, Q)))
+        elif name == "Rosenbrock":
+            problem = rosenbrock.make_problem(ROSEN_N, ROSEN_K, alpha=1e7, **f32)
+            xs = rosenbrock.sweep_starts(problem, self.gen, b)
+        else:
+            m, n, k = LOWRANK_SHAPE
+            a = low_rank.generate_instance(self.gen, m, n, k, dtype=torch.float64,
+                                           device=dev)["A"]
+            starts = [low_rank.generate_initialpoint(self.gen, m, n, k, dtype=torch.float64,
+                                                     device=dev) for _ in range(b)]
+            problem = low_rank.make_problem(a, starts[0], **f32)
+            xs = torch.stack([problem.manifold.pack(tuple(t.float() for t in s))
+                              for s in starts])
+        sync(dev)
+        ys = torch.ones((b, problem.num_ineq), **f32)
+        floor = 2e-4 * math.sqrt(problem.num_ineq / 200)
+        self.instances[name] = (problem, xs, ys, floor)
+        say(f"  {name}: dim {problem.manifold.dim}, m {problem.num_ineq}, {b} starts "
+            f"generated in {time.perf_counter() - t0:.2f} s")
+        return self.instances[name]
+
+    def layer_calls(self, name, problem, x, y):
+        """The call times of the layers this family adds (one lane)."""
+        from riptrm_torch.problems import rosenbrock
+
+        man = problem.manifold
+        v = problem.rgrad(x)
+        v = 1e-3 * v / man.norm(x, v).reshape((-1,) + (1,) * (v.ndim - 1))
+        calls = [("retract", lambda: man.retract(x, v)), ("inner", lambda: man.inner(x, v, v))]
+        if name == "StableIdentification":  # the SPD Cholesky work
+            basis = man.basis(x)
+            calls += [("to_coords", lambda: man.to_coords(x, basis, v)),
+                      ("basis", lambda: man.basis(x))]
+        if name == "Rosenbrock":
+            calls.append(("second-order callback",
+                          lambda: rosenbrock.second_order_residual(problem, x, y, None)))
+        for label, fn in calls:
+            say(f"  {name} {type(man).__name__}.{label}" if label != "second-order callback"
+                else f"  {name} {label}", call_ms(fn, self.device))
+
+    # -- 6e: one lane at full width -------------------------------------------
+    def phase_single(self):
+        """6e: one lane of each family at full width, float32:
+        ``solve_compiled`` for SINGLE_STEPS steps with the step split into
+        tCG, barrier operators, evaluation and the rest; on Rosenbrock also
+        ``RIPTRM.run`` with its second-order callback at every step; and the
+        call times of the layers the family adds."""
+        from riptrm_torch.ops.kkt import compute_residual
+        from riptrm_torch.parallel.sweep import init_state_from
+        from riptrm_torch.solvers.riptrm import RIPTRM
+
+        dev = self.device
+        for name in FAMILY_LANES:
+            problem, xs, ys, floor = self.instance(name)
+            option = bench_option(floor)
+            solver = RIPTRM(option)
+            st0 = init_state_from(problem, solver.option, xs[:1], ys[:1])
+            r0 = float(compute_residual(problem, st0.x, st0.y)[0][0])
+            solve = solver.solve_compiled(problem, SINGLE_STEPS)
+            with StepSplit(dev, *RIPTRM_PARTS) as split:
+                (st, k), t = wall(lambda: solve(st0), dev)
+            steps = int(k[0])
+            r1 = float(compute_residual(problem, st.x, st.y)[0][0])
+            say(f"phase 6e {name} one lane float32, solve_compiled {steps} steps: residual "
+                f"{r0:.4e} -> {r1:.4e}, {t:.3f} s, {1e3 * t / max(steps, 1):.2f} ms a step")
+            say("  per step: " + split.report(t, max(steps, 1)))
+            check(math.isfinite(r1), f"6e {name}: residual {r1}")
+            if name == "Rosenbrock":
+                p_cb = dataclasses.replace(problem, x0=xs[0], y0=ys[0])
+                opt = option | {"maxiter": 1, "inner_maxiter": CALLBACK_STEPS}
+                with StepSplit(dev, *CALLBACK_PARTS) as cb:
+                    out, t = wall(lambda: RIPTRM(opt).run(p_cb), dev)
+                n = len(out.log["residual"]) - 1
+                sor = [v for v in out.log["second_order_residual"] if v is not None]
+                say(f"phase 6e Rosenbrock RIPTRM.run with the second-order callback: {n} "
+                    f"steps, {t:.3f} s, {1e3 * t / max(n, 1):.2f} ms a step; last "
+                    f"second-order residual {sor[-1]:.4e}")
+                say("  per step: " + cb.report(t, max(n, 1)))
+                check(all(math.isfinite(v) for v in sor), "6e Rosenbrock: callback not finite")
+            self.layer_calls(name, problem, xs[:1], ys[:1])
+        self.counters_zero("phase 6e")
+
+    # -- 7e: sweeps -----------------------------------------------------------
+    def sweep(self, label, problem, option, xs, ys, steps, man_tol):
+        from riptrm_torch.ops.kkt import compute_residual
+        from riptrm_torch.parallel.sweep import batched_riptrm_solve
+
+        dev = self.device
+        r0 = compute_residual(problem, xs, ys)[0]
+        run = batched_riptrm_solve(problem, option, steps)
+        (st, k, res), t = wall(lambda: run(xs, ys), dev)
+        manvio = problem.manvio(st.x)
+        off = int((~(torch.isfinite(manvio) & (manvio <= man_tol))).sum())
+        med0, med = float(torch.median(r0)), float(torch.median(res))
+        top = int(k.max())
+        say(f"phase 7e {label} B={xs.shape[0]} float32: median residual {med0:.4e} -> "
+            f"{med:.4e}, worst {float(res.max()):.4e}, steps max {top}, {t:.3f} s, "
+            f"{1e3 * t / max(top, 1):.2f} ms a step; {off} lanes off the manifold "
+            f"(manvio > {man_tol:g})")
+        check(bool(torch.all(torch.isfinite(res))), f"7e {label}: non-finite residuals")
+        check(med < med0, f"7e {label}: median residual {med0} -> {med}")
+        return st, res
+
+    def phase_sweep(self):
+        """7e: ``batched_riptrm_solve`` at full width, float32, plain tCG,
+        FAMILY_SWEEP_STEPS steps; then NonnegPCA n = 1000 B = 16 with
+        ``compensated_reductions`` from phase 7's starts (phase 7's budget;
+        the plain tCG, so no kernel)."""
+        for name in FAMILY_LANES:
+            problem, xs, ys, floor = self.instance(name)
+            self.sweep(name, problem, bench_option(floor), xs, ys, FAMILY_SWEEP_STEPS[name],
+                       1e-3)
+        smoke = self.smoke
+        b = smoke.lanes[0]
+        st = smoke.start[b]
+        self.sweep(f"NonnegPCA n={smoke.n} compensated_reductions", smoke.problem,
+                   smoke.option | {"compensated_reductions": True}, st.x, st.y, smoke.steps,
+                   1e-3)
+        med, ms = smoke.plain_sweep
+        say(f"  phase 7's plain-tCG sweep from the same starts, without them: median "
+            f"residual {med:.4e}, {ms:.2f} ms a step")
+        self.counters_zero("phase 7e")
+
+
 def phase_certificates(smoke, stiefel):
     """7c: second-order certificates at full width.  ``certify_second_order``
     (ratio_cap 1e8) on phase 7's fused NonnegPCA final points (B = 16 and
@@ -1610,6 +1941,15 @@ def main(argv):
     say(f"baseline solvers' paths launch counts {counts}")
     check(not any(counts.values()), "a hand-written kernel launched on a baseline solver's path")
     say(f"baseline solvers' paths: {time.perf_counter() - t_path:.1f} s")
+
+    k.reset_launch_counts()  # the new families' paths start here
+    t_path = time.perf_counter()
+    families = FamilySmoke(smoke)
+    families.phase_golden()
+    families.phase_single()
+    families.phase_sweep()
+    say(f"StableIdentification, Rosenbrock and LowRank paths: "
+        f"{time.perf_counter() - t_path:.1f} s")
 
     smoke.phase_timings()
     stiefel.phase_timings()

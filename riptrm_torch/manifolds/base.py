@@ -11,15 +11,28 @@ metric-orthonormal at x: ``[B, dim, ...]``, slice ``[:, k]`` the k-th basis
 vector of every lane.  ``to_coords``/``from_coords`` move between tangent
 vectors and coordinates ``[B, dim]``; exact mode does its dense algebra
 (TRS, eigendecompositions) in those coordinates, where the Gram matrix is
-the identity.
+the identity.  ``map_basis`` applies a function to every basis vector, so
+a manifold whose basis is not one tensor (``Product``: one per component)
+is materialised without a block-diagonal basis.
+
+Structured points (the JAX package's pytrees: a ``Product``'s tuple, a
+fixed-rank ``(U, S, V)``) are one packed tensor per lane here, so every
+solver state stays a tensor with a leading lane axis.  ``pack``/``unpack``
+move between the components and the packed tensor (points),
+``pack_tangent``/``unpack_tangent`` likewise for tangents; on a manifold
+with one component they are the identity.  ``point_shape`` and
+``tangent_shape`` are one lane's packed shapes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 
 import numpy as np
 import torch
+from torch.func import vmap
 
 from riptrm_torch.config import resolve
 
@@ -39,6 +52,12 @@ class Manifold:
     def inner(self, x, u, v) -> torch.Tensor:
         """Metric inner product per lane: [B]."""
         raise NotImplementedError
+
+    def inner_at(self, x):
+        """(u, v) -> ``inner(x, u, v)`` with the point's own work done once
+        (a metric that factors x, as SPD's, factors it here): for loops that
+        take many inner products at one point (tCG, CR, Lanczos)."""
+        return lambda u, v: self.inner(x, u, v)
 
     def norm(self, x, u) -> torch.Tensor:
         return torch.sqrt(torch.clamp(self.inner(x, u, u), min=0.0))
@@ -90,9 +109,41 @@ class Manifold:
         """Metric inner products of u against every basis vector: [B, dim]."""
         return self.inner(x[:, None], basis, u[:, None])
 
+    def map_basis(self, basis, fn, out_dims=0):
+        """``fn`` applied to every basis vector (lane-batched tangents [B,
+        ...]), its results stacked along ``out_dims``: one ``vmap`` over the
+        basis axis."""
+        return vmap(fn, in_dims=1, out_dims=out_dims)(basis)
+
     def flat_dim(self, x) -> int:
         """Number of ambient scalars in one lane's point or tangent."""
         return x[0].numel()
+
+    # ---- packed layout -------------------------------------------------
+    @property
+    def point_shape(self) -> tuple:
+        """One lane's point shape."""
+        return tuple(self.shape)
+
+    @property
+    def tangent_shape(self) -> tuple:
+        """One lane's tangent shape."""
+        return self.point_shape
+
+    def pack(self, parts):
+        """A point from its components: here one tensor (or a 1-tuple of it)."""
+        if isinstance(parts, (tuple, list)):
+            (parts,) = parts
+        return parts
+
+    def unpack(self, x):
+        return x
+
+    def pack_tangent(self, parts):
+        return self.pack(parts)
+
+    def unpack_tangent(self, t):
+        return self.unpack(t)
 
 
 def randn_on(generator, shape, dtype=None, device=None):
@@ -115,9 +166,11 @@ def skew(a):
     return 0.5 * (a - a.mT)
 
 
+@functools.lru_cache(maxsize=32)
 def _sym_basis(d: int, dtype=None, device=None):
     """Frobenius-orthonormal basis of d x d symmetric matrices, stacked
-    [d(d+1)/2, d, d]: E_ii, then (E_ij + E_ji)/sqrt(2) for i < j, row-major."""
+    [d(d+1)/2, d, d]: E_ii, then (E_ij + E_ji)/sqrt(2) for i < j, row-major.
+    Cached per (d, dtype, device): the caller must not write to it."""
     out = np.zeros((d * (d + 1) // 2, d, d))
     k = 0
     for i in range(d):
@@ -131,9 +184,11 @@ def _sym_basis(d: int, dtype=None, device=None):
     return torch.tensor(out, dtype=dtype, device=device)
 
 
+@functools.lru_cache(maxsize=32)
 def _skew_basis(d: int, dtype=None, device=None):
     """Frobenius-orthonormal basis of d x d skew-symmetric matrices, stacked
-    [d(d-1)/2, d, d]: (E_ij - E_ji)/sqrt(2) for i < j, row-major."""
+    [d(d-1)/2, d, d]: (E_ij - E_ji)/sqrt(2) for i < j, row-major.  Cached
+    per (d, dtype, device)."""
     out = np.zeros((d * (d - 1) // 2, d, d))
     k = 0
     for i in range(d):
@@ -143,6 +198,24 @@ def _skew_basis(d: int, dtype=None, device=None):
             k += 1
     dtype, device = resolve(dtype, device)
     return torch.tensor(out, dtype=dtype, device=device)
+
+
+def sym_coords(a):
+    """Coordinates [..., d(d+1)/2] of a d x d matrix against ``_sym_basis``:
+    a_ii, then (a_ij + a_ji)/sqrt(2) for i < j, row-major (gathers, not
+    products with the stacked basis)."""
+    d = a.shape[-1]
+    iu, ju = torch.triu_indices(d, d, offset=1, device=a.device)
+    diag = torch.diagonal(a, dim1=-2, dim2=-1)
+    return torch.cat([diag, (a[..., iu, ju] + a[..., ju, iu]) / math.sqrt(2.0)], dim=-1)
+
+
+def skew_coords(a):
+    """Coordinates [..., d(d-1)/2] against ``_skew_basis``:
+    (a_ij - a_ji)/sqrt(2) for i < j, row-major."""
+    d = a.shape[-1]
+    iu, ju = torch.triu_indices(d, d, offset=1, device=a.device)
+    return (a[..., iu, ju] - a[..., ju, iu]) / math.sqrt(2.0)
 
 
 def orthonormal_completion(x):

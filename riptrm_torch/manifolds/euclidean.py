@@ -1,9 +1,11 @@
-"""Euclidean space R^shape, over a leading lane axis.
+"""Euclidean spaces and their matrix subspaces, over a leading lane axis.
 
-Counterpart of ``riptrm_tpu/manifolds/euclidean.py::Euclidean`` (its
-symmetric and skew-symmetric subspaces wait for StableIdentification,
-ROADMAP.md queue 1 item 5): the Frobenius metric, the retraction x + v and
-the identity basis.  Points and tangents are ``[B, *shape]``.
+Counterpart of ``riptrm_tpu/manifolds/euclidean.py``: ``Euclidean`` (the
+dual and slack spaces), ``SkewSymmetric`` (StableIdentification's J block)
+and ``Symmetric``.  All three are flat subspaces of a Euclidean ambient
+space: the Frobenius metric and the retraction x + v, with only the
+subspace projection and the orthonormal basis differing (``_FlatSpace``).
+Points and tangents are ``[B, *shape]``.
 """
 
 from __future__ import annotations
@@ -13,21 +15,25 @@ import math
 
 import torch
 
-from riptrm_torch.manifolds.base import Manifold
+from riptrm_torch.manifolds.base import (
+    Manifold,
+    _skew_basis,
+    _sym_basis,
+    randn_on,
+    skew,
+    skew_coords,
+    sym,
+    sym_coords,
+)
 
 
-@dataclasses.dataclass(frozen=True)
-class Euclidean(Manifold):
-    shape: tuple  # e.g. (m,) or (d, d)
+class _FlatSpace(Manifold):
+    """Flat subspace of R^shape: subclasses define ``shape``, ``dim``,
+    ``_sub`` (the linear projection onto the subspace) and ``basis``."""
 
-    def __init__(self, *shape):
-        if len(shape) == 1 and isinstance(shape[0], tuple):
-            shape = shape[0]
-        object.__setattr__(self, "shape", tuple(int(s) for s in shape))
-
-    @property
-    def dim(self) -> int:
-        return math.prod(self.shape)
+    @staticmethod
+    def _sub(v):
+        raise NotImplementedError
 
     @property
     def typical_dist(self) -> float:
@@ -40,7 +46,7 @@ class Euclidean(Manifold):
         return torch.sum(self._flat(u) * self._flat(v), dim=-1)
 
     def proj(self, x, v):
-        return v
+        return self._sub(v)
 
     def retract(self, x, v):
         return x + v
@@ -48,13 +54,97 @@ class Euclidean(Manifold):
     def dist(self, x, y):
         return torch.linalg.vector_norm(self._flat(x - y), dim=-1)
 
+    def egrad2rgrad(self, x, egrad):
+        return self._sub(egrad)
+
     def ehess2rhess(self, x, egrad, ehess, v):
-        return ehess
+        return self._sub(ehess)
+
+    def random_point(self, generator, lanes=1, *, dtype=None, device=None):
+        return self._sub(randn_on(generator, (lanes,) + self.shape, dtype, device))
+
+    def random_tangent(self, x, generator):
+        v = self._sub(torch.randn(x.shape, generator=generator, dtype=x.dtype,
+                                  device=x.device))
+        return v / self.norm(x, v).reshape((-1,) + (1,) * len(self.shape))
+
+    def to_coords(self, x, basis, u):
+        """Frobenius products with the basis, [B, dim]."""
+        return torch.einsum("bkn,bn->bk", self._flat(basis), self._flat(u))
+
+
+@dataclasses.dataclass(frozen=True)
+class Euclidean(_FlatSpace):
+    shape: tuple  # e.g. (m,) or (d, d)
+
+    def __init__(self, *shape):
+        if len(shape) == 1 and isinstance(shape[0], tuple):
+            shape = shape[0]
+        object.__setattr__(self, "shape", tuple(int(s) for s in shape))
+
+    @property
+    def dim(self) -> int:
+        return math.prod(self.shape)
+
+    @staticmethod
+    def _sub(v):
+        return v
 
     def basis(self, x):
         """The identity basis, [B, dim, *shape]."""
         eye = torch.eye(self.dim, dtype=x.dtype, device=x.device)
         return eye.reshape((1, self.dim) + self.shape).expand((x.shape[0], self.dim) + self.shape)
 
+
+@dataclasses.dataclass(frozen=True)
+class SkewSymmetric(_FlatSpace):
+    """Skew-symmetric d x d matrices with the Frobenius metric."""
+
+    d: int
+
+    @property
+    def shape(self) -> tuple:
+        return (self.d, self.d)
+
+    @property
+    def dim(self) -> int:
+        return self.d * (self.d - 1) // 2
+
+    @staticmethod
+    def _sub(v):
+        return skew(v)
+
+    def basis(self, x):
+        """(E_ij - E_ji)/sqrt(2), i < j, row-major: [B, dim, d, d]."""
+        b = _skew_basis(self.d, dtype=x.dtype, device=x.device)
+        return b.expand((x.shape[0],) + b.shape)
+
     def to_coords(self, x, basis, u):
-        return torch.einsum("bkn,bn->bk", self._flat(basis), self._flat(u))
+        return skew_coords(u)
+
+
+@dataclasses.dataclass(frozen=True)
+class Symmetric(_FlatSpace):
+    """Symmetric d x d matrices with the Frobenius metric."""
+
+    d: int
+
+    @property
+    def shape(self) -> tuple:
+        return (self.d, self.d)
+
+    @property
+    def dim(self) -> int:
+        return self.d * (self.d + 1) // 2
+
+    @staticmethod
+    def _sub(v):
+        return sym(v)
+
+    def basis(self, x):
+        """E_ii, then (E_ij + E_ji)/sqrt(2), i < j: [B, dim, d, d]."""
+        b = _sym_basis(self.d, dtype=x.dtype, device=x.device)
+        return b.expand((x.shape[0],) + b.shape)
+
+    def to_coords(self, x, basis, u):
+        return sym_coords(u)

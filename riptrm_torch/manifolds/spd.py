@@ -1,0 +1,118 @@
+"""Symmetric positive definite matrices with the affine-invariant metric,
+over a leading lane axis (points and tangents ``[B, d, d]``).
+
+Counterpart of ``riptrm_tpu/manifolds/spd.py``: the metric
+tr(P^-1 U P^-1 V), the second-order retraction P + V + V P^-1 V / 2, the
+log-eigenvalue distance, and the metric-orthonormal basis L S_k L' with
+L = chol(P) and {S_k} the Frobenius-orthonormal symmetric basis, whose
+coordinates take two triangular solves (``to_coords``).
+
+``jnp.linalg.cholesky`` returns NaN on a matrix that is not positive
+definite, where ``torch.linalg.cholesky`` raises; ``_chol`` keeps the JAX
+behaviour per lane (``cholesky_ex``, NaN on the lanes it fails on), so a
+float32 trial point that rounds out of the cone stops its own lane and
+not the sweep, with no host synchronisation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from riptrm_torch.manifolds.base import Manifold, _sym_basis, randn_on, sym, sym_coords
+
+
+def _chol(x):
+    """Lower Cholesky factor of x [..., d, d], NaN where x is not positive
+    definite."""
+    l, info = torch.linalg.cholesky_ex(x)
+    return torch.where((info != 0)[..., None, None], math.nan, l)
+
+
+def _congruence_inv(l, u):
+    """L^-1 u L^-T for a symmetric u: two triangular solves."""
+    a = torch.linalg.solve_triangular(l, u, upper=False)
+    return torch.linalg.solve_triangular(l, a.mT, upper=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class SymmetricPositiveDefinite(Manifold):
+    d: int
+
+    @property
+    def dim(self) -> int:
+        return self.d * (self.d + 1) // 2
+
+    @property
+    def typical_dist(self) -> float:
+        return math.sqrt(self.dim)
+
+    @property
+    def point_shape(self) -> tuple:
+        return (self.d, self.d)
+
+    def inner(self, x, u, v):
+        return self.inner_at(x)(u, v)
+
+    def inner_at(self, x):
+        """tr(x^-1 u x^-1 v) with x's Cholesky factor computed once (the tCG
+        takes four inner products an iteration at one point)."""
+        l = _chol(x)
+
+        def inner(u, v):
+            iu = torch.cholesky_solve(u, l)
+            iv = torch.cholesky_solve(v, l)
+            return torch.sum(iu * iv.mT, dim=(-2, -1))
+
+        return inner
+
+    def norm(self, x, u):
+        return torch.linalg.matrix_norm(_congruence_inv(_chol(x), u))
+
+    def proj(self, x, v):
+        return sym(v)
+
+    def retract(self, x, v):
+        # the second-order retraction (pymanopt's)
+        return sym(x + v + 0.5 * v @ torch.cholesky_solve(v, _chol(x)))
+
+    def dist(self, x, y):
+        # imported here: ops imports the manifolds (ops/kernels.py)
+        from riptrm_torch.ops.spectrum import eigvalsh_nan
+
+        w = eigvalsh_nan(sym(_congruence_inv(_chol(x), y)))
+        return torch.linalg.vector_norm(
+            torch.log(torch.clamp(w, min=torch.finfo(w.dtype).tiny)), dim=-1)
+
+    def egrad2rgrad(self, x, egrad):
+        return x @ sym(egrad) @ x
+
+    def ehess2rhess(self, x, egrad, ehess, v):
+        # pymanopt: P sym(ehess) P + sym(V sym(egrad) P)
+        return x @ sym(ehess) @ x + sym(v @ sym(egrad) @ x)
+
+    def random_point(self, generator, lanes=1, *, dtype=None, device=None):
+        """A random orthogonal conjugation of eigenvalues in [1, 2]."""
+        q, _ = torch.linalg.qr(randn_on(generator, (lanes, self.d, self.d), dtype, device))
+        u = torch.rand((lanes, self.d), generator=generator, dtype=q.dtype,
+                       device=generator.device).to(q.device)
+        return sym((q * (1.0 + u)[:, None, :]) @ q.mT)
+
+    def random_tangent(self, x, generator):
+        c = torch.randn((x.shape[0], self.dim), generator=generator, dtype=x.dtype,
+                        device=x.device)
+        c = c / torch.linalg.vector_norm(c, dim=-1, keepdim=True)
+        return self.from_coords(x, self.basis(x), c)
+
+    def basis(self, x):
+        """L S_k L' per lane, [B, dim, d, d]."""
+        l = _chol(x)
+        s = _sym_basis(self.d, dtype=x.dtype, device=x.device)
+        return torch.einsum("bij,kjl,bml->bkim", l, s, l)
+
+    def to_coords(self, x, basis, u):
+        """c_k = tr(x^-1 (L S_k L') x^-1 u) = <S_k, L^-1 u L^-T>_F: two
+        triangular solves, not ``dim`` metric inner products."""
+        return sym_coords(_congruence_inv(_chol(x), u))

@@ -30,6 +30,10 @@ class Sphere(Manifold):
     def typical_dist(self) -> float:
         return math.pi
 
+    @property
+    def point_shape(self) -> tuple:
+        return (self.n,)
+
     def inner(self, x, u, v):
         return _dot(u, v)
 

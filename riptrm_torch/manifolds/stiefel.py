@@ -39,6 +39,10 @@ class Stiefel(Manifold):
     def typical_dist(self) -> float:
         return math.sqrt(self.p)
 
+    @property
+    def point_shape(self) -> tuple:
+        return (self.n, self.p)
+
     def inner(self, x, u, v):
         return _frob(u, v)
 

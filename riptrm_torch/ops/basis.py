@@ -2,8 +2,9 @@
 
 Counterpart of ``riptrm_tpu/ops/basis.py``: a dim x dim representing
 matrix per lane, built with ONE ``torch.func.vmap`` over the dim basis
-directions of the lane-batched operator (dim batched applications) and one
-batched projection; ``constraint_grad_rows`` fans one frozen ``vjp`` out
+directions of the lane-batched operator (dim batched applications; one
+per component on a ``Product``, ``Manifold.map_basis``) and one batched
+projection; ``constraint_grad_rows`` fans one frozen ``vjp`` out
 over the constraints the same way.  ``materialize_sharded`` is not ported
 yet (ROADMAP.md queue 1, item 7).
 """
@@ -23,7 +24,7 @@ def materialize(manifold, x, basis, op):
     def column(b_j):  # the j-th basis vector of every lane, [B, ...]
         return manifold.to_coords(x, basis, op(b_j))
 
-    return vmap(column, in_dims=1, out_dims=2)(basis)
+    return manifold.map_basis(basis, column, out_dims=2)
 
 
 def materialize_symmetrized(manifold, x, basis, op):

@@ -48,8 +48,9 @@ def compute_maxmean_violations(problem, x):
     return torch.amax(v, dim=-1), torch.mean(v, dim=-1)
 
 
-def evaluation(problem, x_prev, x, y, z=None):
-    """Per-iteration metric dict of [B] tensors."""
+def evaluation(problem, x_prev, x, y, z=None, callback=True):
+    """Per-iteration metric dict of [B] tensors, with the problem's callback
+    metrics unless ``callback`` is False."""
     residual, gradnorm, compl, nonneg, manvio = compute_residual(problem, x, y, z)
     maxvio, meanvio = compute_maxmean_violations(problem, x)
     ev = {
@@ -63,4 +64,4 @@ def evaluation(problem, x_prev, x, y, z=None):
         "maxviolation": maxvio,
         "meanviolation": meanvio,
     }
-    return problem.apply_callback(x, y, z, ev)
+    return problem.apply_callback(x, y, z, ev) if callback else ev

@@ -14,7 +14,7 @@ from __future__ import annotations
 import math
 
 import torch
-from torch.func import grad
+from torch.func import grad, vmap
 
 from riptrm_torch.ops.basis import materialize_symmetrized
 
@@ -54,8 +54,8 @@ def operator_spectrum(manifold, x, op, *, descending_abs=True):
         order = torch.argsort(-torch.abs(w), dim=-1, stable=True)
         w = torch.gather(w, -1, order)
         v = torch.gather(v, -1, order[:, None, :].expand_as(v))
-    bflat = basis.reshape(basis.shape[0], basis.shape[1], -1)
-    vecs = torch.bmm(v.mT, bflat).reshape(basis.shape)
+    # the eigenvectors as tangents: column i of v in the basis, [B, dim, ...]
+    vecs = vmap(lambda c: manifold.from_coords(x, basis, c), in_dims=2, out_dims=1)(v)
     return w, vecs
 
 

@@ -40,7 +40,7 @@ def truncated_cg(manifold, x, hess, grad, radius, *, theta=1.0, kappa=0.1,
     """
     if maxinner is None:
         maxinner = manifold.dim
-    inner = lambda u, v: manifold.inner(x, u, v)
+    inner = manifold.inner_at(x)
     b = x.shape[0]
     tail = (1,) * (x.ndim - 1)
 

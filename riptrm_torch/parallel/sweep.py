@@ -258,6 +258,6 @@ def certify_second_order(problem, xs, ys, *, num_iters=64, ratio_cap=None):
     # deterministic start; the projected all-ones direction keeps it nonzero
     # where the gradient vanishes
     v0 = cx + 0.1 * man.proj(xs, torch.ones_like(xs))
-    _, _, ritz = lanczos(hw, v0, lambda u, t: man.inner(xs, u, t),
+    _, _, ritz = lanczos(hw, v0, man.inner_at(xs),
                          min(num_iters, man.dim))
     return torch.where(feasible, ritz[:, 0], torch.full_like(ritz[:, 0], float("nan")))

@@ -3,7 +3,9 @@
 Counterpart of ``riptrm_tpu/problems/problem.py``.  The user supplies
 per-lane functions of one point (``cost_fn: point -> scalar``,
 ``ineq_fn: point -> [m]``, ...), where a point is a vector ``[n]`` on the
-sphere or a frame ``[n, p]`` on Stiefel; every method here takes
+sphere, a frame ``[n, p]`` on Stiefel and Grassmann, or a packed tensor on
+a ``Product`` or the fixed-rank manifold (``manifold.unpack`` gives its
+components); every method here takes
 lane-batched points ``[B, ...]`` and maps the per-lane functions with
 ``torch.func.vmap``.  Constraint values are always flat, ``[B, m]``.  Derivatives come from
 ``torch.func.grad``/``vjp``/``jvp``.

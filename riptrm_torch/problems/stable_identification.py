@@ -1,0 +1,477 @@
+"""Stable LTI system identification on Product(SkewSymmetric, SPD, SPD).
+
+Counterpart of ``riptrm_tpu/problems/stable_identification.py``.  A point
+is (J, R, Q), packed [3, d, d] per lane (``manifolds/product.py``);
+A = (J - R) Q is stable for every point, and the cost is the one-step
+prediction error over the concatenated trajectories.  The heterogeneous
+constraint list (onebox pairs and twobox quadratics) is one stacked
+function over per-constraint kind/row/column/parameter arrays gathered
+from A, in the reference's append order, so multipliers line up with the
+JAX package's.
+
+The numpy parts of the generators (``parse_constset``,
+``generate_constraints``, ``generate_trajectory``,
+``feasible_entry_targets``) are the JAX package's, line for line, and
+give its results from the same ``np.random.default_rng`` seed; the draws
+the JAX package takes from ``jax.random`` come here from a
+``torch.Generator``.  ``generate_interior_initialpoint_lsq`` runs all its
+starts as lanes of one lane-masked conjugate gradient.
+
+Not ported: the ``mesh``/``data_axis`` sharding of the trajectory data
+(ROADMAP.md queue 1 item 7).  ``matmul_precision`` takes None and
+'highest' only: a float32 matmul on the card runs in full float32 unless
+the caller switches TF32 on.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch.func import grad, vmap
+
+from riptrm_torch.config import as_tensor, resolve
+from riptrm_torch.manifolds import Product, SkewSymmetric, SymmetricPositiveDefinite
+from riptrm_torch.ops.spectrum import eigvalsh_nan
+from riptrm_torch.problems.problem import Problem
+from riptrm_torch.utils.io import loadtxt
+
+KIND_LS = 0  # -A[r,c] + p1 <= 0
+KIND_RS = 1  # A[r,c] - p2 <= 0
+KIND_TWO = 2  # -(A[r,c] - p1)^2 + p2^2 <= 0
+
+
+def manifold(d: int) -> Product:
+    """Product(SkewSymmetric(d), SPD(d), SPD(d)), points [B, 3, d, d]."""
+    return Product([SkewSymmetric(d), SymmetricPositiveDefinite(d),
+                    SymmetricPositiveDefinite(d)])
+
+
+def parse_constset(constset, interior_scaling: float = 1.0):
+    """Expand constset rows into per-constraint arrays, preserving the
+    reference's append order (``coordinator.py:132-152``).
+
+    Each constset row: [type, row, col, p3, p4, (Aval)].
+    type 0/1 -> onebox pair (ls then rs); type 2 -> twobox single.
+    ``interior_scaling`` reproduces the generator's tightened constraints
+    (``generator.py:274-292``).
+    """
+    constset = np.atleast_2d(np.asarray(constset))
+    kinds, rows, cols, p1s, p2s = [], [], [], [], []
+    for row in constset:
+        t = int(row[0])
+        r, c = int(row[1]), int(row[2])
+        if t in (0, 1):
+            ls = row[3] * interior_scaling
+            rs = row[4] * interior_scaling
+            kinds += [KIND_LS, KIND_RS]
+            rows += [r, r]
+            cols += [c, c]
+            p1s += [ls, 0.0]
+            p2s += [0.0, rs]
+        elif t == 2:
+            cc = row[3]
+            k = row[4] * (1.0 + (1.0 - interior_scaling))
+            kinds.append(KIND_TWO)
+            rows.append(r)
+            cols.append(c)
+            p1s.append(cc)
+            p2s.append(k)
+        else:
+            raise ValueError(f"Invalid constraint type {t}")
+    return (
+        np.asarray(kinds, dtype=np.int32),
+        np.asarray(rows, dtype=np.int32),
+        np.asarray(cols, dtype=np.int32),
+        np.asarray(p1s),
+        np.asarray(p2s),
+    )
+
+
+def _split_xxp(x_full):
+    return x_full[:, :-1], x_full[:, 1:]
+
+
+def make_problem(
+    d: int,
+    x_trajs,  # list of [d, N] trajectory arrays
+    constset,
+    x0,  # (J, R, Q)
+    y0=None,
+    h: float = 0.02,
+    interior_scaling: float = 1.0,
+    cost_zero: bool = False,
+    dtype=None,
+    device=None,
+    mesh=None,
+    data_axis: str = "tp",
+    matmul_precision=None,
+) -> Problem:
+    """Build the StableIdentification problem; ``x0`` is the (J, R, Q)
+    triple (numpy arrays or tensors), packed into ``problem.x0`` [3, d, d]."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"mesh={mesh!r}, data_axis={data_axis!r}: sharding the trajectory data "
+            "waits for ROADMAP.md queue 1 item 7")
+    if matmul_precision not in (None, "highest"):
+        raise NotImplementedError(
+            f"matmul_precision={matmul_precision!r}: the port's float32 matmuls run in "
+            "full float32 (None and 'highest' are that); reduced-precision passes are "
+            "not ported")
+    if not x_trajs and not cost_zero:
+        raise ValueError(
+            "make_problem got no trajectories with cost_zero=False: the "
+            "least-squares cost would be 0/0 = NaN; pass cost_zero=True for "
+            "pure feasibility problems"
+        )
+    dtype, device = resolve(dtype, device)
+    man = manifold(d)
+    xs, xps = [], []
+    for xt in x_trajs:
+        a, b = _split_xxp(np.asarray(xt))
+        xs.append(a)
+        xps.append(b)
+    X = torch.tensor(np.hstack(xs) if xs else np.zeros((d, 0)), dtype=dtype, device=device)
+    XP = torch.tensor(np.hstack(xps) if xps else np.zeros((d, 0)), dtype=dtype,
+                      device=device)
+    n_cols = X.shape[1]
+
+    kinds, rows, cols, p1s, p2s = parse_constset(constset, interior_scaling)
+    kinds_t = torch.tensor(kinds, device=device)
+    rows_t = torch.tensor(rows, dtype=torch.int64, device=device)
+    cols_t = torch.tensor(cols, dtype=torch.int64, device=device)
+    p1_t = torch.tensor(p1s, dtype=dtype, device=device)
+    p2_t = torch.tensor(p2s, dtype=dtype, device=device)
+    m = len(kinds)
+    eye = torch.eye(d, dtype=dtype, device=device)
+
+    def cost_fn(x):
+        J, R, Q = x[0], x[1], x[2]
+        if cost_zero:
+            # the feasibility problem of the initial-point generator; a tiny
+            # quadratic keeps the gradient defined
+            return 0.0 * torch.sum(J**2)
+        A = (J - R) @ Q
+        resid = XP - (eye + h * A) @ X
+        return torch.sum(resid * resid) / n_cols
+
+    def ineq_fn(x):
+        A = (x[0] - x[1]) @ x[2]
+        a = A[rows_t, cols_t]
+        ls_val = -a + p1_t
+        rs_val = a - p2_t
+        two_val = -((a - p1_t) ** 2) + p2_t**2
+        return torch.where(kinds_t == KIND_LS, ls_val,
+                           torch.where(kinds_t == KIND_RS, rs_val, two_val))
+
+    def manvio_fn(x):
+        # simulator.py:11-33
+        J, R, Q = x[0], x[1], x[2]
+        v = (torch.linalg.matrix_norm(J + J.T) + torch.linalg.matrix_norm(R - R.T)
+             + torch.linalg.matrix_norm(Q - Q.T))
+        pd_ok = ((torch.amin(eigvalsh_nan(0.5 * (R + R.T))) > 0)
+                 & (torch.amin(eigvalsh_nan(0.5 * (Q + Q.T))) > 0))
+        return torch.where(pd_ok, v, torch.full_like(v, math.inf))
+
+    x0 = man.pack(tuple(as_tensor(a, dtype, device) for a in x0))
+    y0 = (torch.ones(m, dtype=dtype, device=device) if y0 is None
+          else as_tensor(y0, dtype, device))
+    return Problem(
+        manifold=man,
+        cost_fn=cost_fn,
+        ineq_fn=ineq_fn,
+        x0=x0,
+        y0=y0,
+        z0=torch.zeros(0, dtype=dtype, device=device),
+        num_ineq=m,
+        num_eq=0,
+        manvio_fn=manvio_fn,
+    )
+
+
+def load_problem(
+    dataset_path: str,
+    initialpoint: str = "a",
+    x_set=(1, 2, 3, 4, 5),
+    is_x_noisy: bool = True,
+    h: float = 0.02,
+    dtype=None,
+    device=None,
+) -> Problem:
+    """Load a shipped instance (``coordinator.py:14-179``)."""
+    d = int(loadtxt(f"{dataset_path}/dim.csv"))
+    prefix = "noisyX" if is_x_noisy else "X"
+    x_trajs = [loadtxt(f"{dataset_path}/{prefix}_{i}.csv") for i in x_set]
+    constset = loadtxt(f"{dataset_path}/constset.csv")
+    x0 = (
+        loadtxt(f"{dataset_path}/initJ_{initialpoint}.csv"),
+        loadtxt(f"{dataset_path}/initR_{initialpoint}.csv"),
+        loadtxt(f"{dataset_path}/initQ_{initialpoint}.csv"),
+    )
+    y0 = loadtxt(f"{dataset_path}/initineqLagmult.csv")
+    return make_problem(d, x_trajs, constset, x0, y0, h=h, dtype=dtype, device=device)
+
+
+# ----------------------------------------------------------------------
+# Dataset generation (generator.py parity)
+# ----------------------------------------------------------------------
+def _stable(A):
+    """Every eigenvalue of A (numpy [d, d]) in the open left half-plane."""
+    return bool(np.all(np.real(np.linalg.eigvals(A)) < 0))
+
+
+def _interior(d, constset, J, R, Q):
+    """(J, R, Q) strictly inside the original constraints (numpy)."""
+    A = (J - R) @ Q
+    kinds, rows, cols, p1s, p2s = parse_constset(constset, 1.0)
+    a = A[rows, cols]
+    g = np.where(kinds == KIND_LS, -a + p1s,
+                 np.where(kinds == KIND_RS, a - p2s, -((a - p1s) ** 2) + p2s**2))
+    return bool(np.all(g < 0))
+
+
+def generate_true_system(generator: torch.Generator, d: int, scaling: float = 1.0, *,
+                         dtype=None, device=None):
+    """``generate_trueJRQA`` (generator.py:57-66): a random point of the
+    product manifold, scaled; numpy (J, R, Q, A)."""
+    J, R, Q = manifold(d).unpack(
+        manifold(d).random_point(generator, dtype=dtype, device=device)[0])
+    s = math.sqrt(scaling)
+    J, R, Q = (s * a.double().cpu().numpy() for a in (J, R, Q))
+    return J, R, Q, (J - R) @ Q
+
+
+def generate_constraints(rng, d: int, true_A, oneboxratio: float,
+                         twoboxratio: float, min_segment_width=None,
+                         max_redraws: int = 50):
+    """``generate_constraints`` (generator.py:68-113), numpy on the host.
+
+    ``min_segment_width`` (the JAX package's extension): only entries with
+    |true_A[r, c]| >= 2.5 * min_segment_width are constrained, and twobox
+    parameters are redrawn until the widest remaining segment clears it —
+    a well-margined variant, not the reference generator."""
+    true_A = np.asarray(true_A)
+    num_element = true_A.size
+    num_onebox = int(num_element * oneboxratio)
+    num_twobox = int(num_element * twoboxratio)
+    num_const = num_onebox + num_twobox
+    perm = rng.permutation(num_element)
+    if min_segment_width is not None:
+        flat_abs = np.abs(true_A.T.reshape(-1))  # index i -> (i % d, i // d)
+        perm = perm[flat_abs[perm] >= 2.5 * min_segment_width]
+        if len(perm) < num_const:
+            raise ValueError(
+                f"min_segment_width={min_segment_width}: only {len(perm)} "
+                f"of {num_element} entries have |A| >= "
+                f"{2.5 * min_segment_width:.3g}; need {num_const}"
+            )
+    constindices = perm[:num_const]
+    rowcol = np.stack([constindices % d, constindices // d], axis=1)
+
+    def _twobox_width(ls, rs, cc, k):
+        """Widest feasible segment of [ls, rs] minus the |a-cc| < |k| hole."""
+        half = abs(k)
+        segs = [(ls, min(rs, cc - half)), (max(ls, cc + half), rs)]
+        return max((b - a for a, b in segs if b > a), default=0.0)
+
+    constset = []
+    for i in range(num_onebox):
+        r, c = rowcol[i]
+        aval = true_A[r, c]
+        absa = abs(aval)
+        ls = aval - rng.uniform(0.2, 0.8) * absa
+        rs = aval + rng.uniform(0.2, 0.8) * absa
+        constset.append([0, r, c, ls, rs, aval])
+    for i in range(num_onebox, num_const):
+        r, c = rowcol[i]
+        aval = true_A[r, c]
+        absa = abs(aval)
+        for _ in range(max_redraws if min_segment_width else 1):
+            cc = rng.uniform(0.2, 0.8) * aval
+            k = cc + rng.uniform(0.2, 0.8) * (aval - cc)
+            ls = -absa - rng.uniform(0.2, 0.8) * absa
+            rs = absa + rng.uniform(0.2, 0.8) * absa
+            if (
+                min_segment_width is None
+                or _twobox_width(ls, rs, cc, k) >= min_segment_width
+            ):
+                break
+        constset.append([1, r, c, ls, rs, aval])
+        constset.append([2, r, c, cc, k, aval])
+    return np.asarray(constset)
+
+
+def _awgn(rng, signal, snr_db):
+    power = np.mean(np.abs(signal) ** 2)
+    noise_power = power / (10 ** (snr_db / 10))
+    return signal + np.sqrt(noise_power) * rng.standard_normal(signal.shape)
+
+
+def generate_trajectory(rng, d: int, true_A, h: float, n_steps: int, snr: float):
+    """``generate_XnoisyX`` (generator.py:122-135).  As the reference, the
+    elementwise ``np.exp`` of ``i*h*A`` (not a matrix exponential)."""
+    x0 = -1000 + 2000 * rng.random(d)
+    X = np.zeros((d, n_steps))
+    noisyX = np.zeros((d, n_steps))
+    X[:, 0] = x0
+    noisyX[:, 0] = _awgn(rng, x0, snr)
+    for i in range(1, n_steps):
+        expAh = np.exp(i * h * np.asarray(true_A))
+        X[:, i] = expAh @ x0
+        noisyX[:, i] = _awgn(rng, X[:, i], snr)
+    X = X / np.linalg.norm(x0)
+    noisyX = noisyX / np.linalg.norm(noisyX[:, 0])
+    return X, noisyX
+
+
+def feasible_entry_targets(constset):
+    """Per constrained entry of A, a strictly feasible target value: the
+    midpoint of the widest segment of its interval [lo, hi] (onebox and
+    twobox box rows) minus its annulus holes (twobox quadratic rows,
+    |a - cc| >= k), from the original constraint parameters.  Returns
+    (rows, cols, targets) numpy arrays."""
+    kinds, rows, cols, p1s, p2s = parse_constset(constset, 1.0)
+    entries: dict = {}
+    for kind, r, c, p1, p2 in zip(kinds, rows, cols, p1s, p2s):
+        e = entries.setdefault(
+            (int(r), int(c)), {"lo": -np.inf, "hi": np.inf, "holes": []}
+        )
+        if kind == KIND_LS:
+            e["lo"] = max(e["lo"], float(p1))
+        elif kind == KIND_RS:
+            e["hi"] = min(e["hi"], float(p2))
+        else:
+            # |a - cc| >= |k|; k enters the constraint as k^2 and the
+            # generator's k = cc + u*(aval - cc) is negative for aval < 0
+            half = abs(float(p2))
+            e["holes"].append((float(p1) - half, float(p1) + half))
+    t_rows, t_cols, t_vals = [], [], []
+    for (r, c), e in sorted(entries.items()):
+        lo, hi = e["lo"], e["hi"]
+        if not np.isfinite(lo):  # guard: entry without a box row
+            lo = min([h[0] for h in e["holes"]], default=-1.0) - 1.0
+        if not np.isfinite(hi):
+            hi = max([h[1] for h in e["holes"]], default=1.0) + 1.0
+        segs = [(lo, hi)]
+        for a, b in e["holes"]:
+            segs = [
+                s
+                for seg in segs
+                for s in ((seg[0], min(seg[1], a)), (max(seg[0], b), seg[1]))
+            ]
+        segs = [s for s in segs if s[1] > s[0]]
+        if not segs:
+            raise ValueError(
+                f"entry ({r},{c}): tightened feasible set is empty"
+            )
+        lo_s, hi_s = max(segs, key=lambda s: s[1] - s[0])
+        t_rows.append(r)
+        t_cols.append(c)
+        t_vals.append(0.5 * (lo_s + hi_s))
+    return (
+        np.asarray(t_rows, np.int32),
+        np.asarray(t_cols, np.int32),
+        np.asarray(t_vals),
+    )
+
+
+def generate_interior_initialpoint_lsq(
+    generator: torch.Generator,
+    d: int,
+    constset,
+    scaling: float = 1.0,
+    interior_scaling: float = 0.95,
+    max_tries: int = 10,
+    cg_iters: int = 1000,
+    *,
+    lanes=None,
+    dtype=None,
+    device=None,
+):
+    """Feasible-interior starts by least squares (the JAX package's
+    extension beyond d = 5): drive the constrained entries of
+    A(J, R, Q) = (J - R) Q to the strictly feasible targets of
+    ``feasible_entry_targets`` with the Riemannian conjugate gradient, from
+    random points.  A is Hurwitz for any R, Q > 0, so a start fails only
+    by missing the interior.
+
+    All starts run as lanes of one lane-masked ``conjugate_gradient`` a
+    try; a try redraws only the lanes not yet accepted.  Returns numpy
+    (J, R, Q, A), each [d, d] with ``lanes=None`` or [lanes, d, d]."""
+    from riptrm_torch.solvers.subsolvers import conjugate_gradient
+
+    del interior_scaling  # targets use the original set (feasible_entry_targets)
+    dtype, device = resolve(dtype, device)
+    man = manifold(d)
+    b = 1 if lanes is None else int(lanes)
+    t_rows, t_cols, t_vals = feasible_entry_targets(constset)
+    rows_t = torch.tensor(t_rows, dtype=torch.int64, device=device)
+    cols_t = torch.tensor(t_cols, dtype=torch.int64, device=device)
+    targets = torch.tensor(t_vals, dtype=dtype, device=device)
+    s = math.sqrt(scaling)
+
+    def cost_lane(x):
+        a = ((x[0] - x[1]) @ x[2])[rows_t, cols_t]
+        return torch.sum((a - targets) ** 2)
+
+    def rgrad(x):
+        return man.egrad2rgrad(x, vmap(grad(cost_lane))(x))
+
+    found = [None] * b
+    for _ in range(max_tries):
+        todo = [i for i in range(b) if found[i] is None]
+        if not todo:
+            break
+        x0 = s * man.random_point(generator, len(todo), dtype=dtype, device=device)
+        res = conjugate_gradient(man, vmap(cost_lane), rgrad, x0,
+                                 max_iterations=cg_iters, min_gradient_norm=1e-12)
+        pts = res.point.double().cpu().numpy()
+        for lane, i in enumerate(todo):
+            J, R, Q = pts[lane]
+            if _interior(d, constset, J, R, Q) and _stable((J - R) @ Q):
+                found[i] = (J, R, Q, (J - R) @ Q)
+    if any(f is None for f in found):
+        raise ValueError("Cannot find a feasible and interior initial point.")
+    if lanes is None:
+        return found[0]
+    return tuple(np.stack([f[j] for f in found]) for j in range(4))
+
+
+def generate_interior_initialpoint(
+    generator: torch.Generator,
+    d: int,
+    constset,
+    scaling: float = 1.0,
+    interior_scaling: float = 0.95,
+    ralm_option=None,
+    max_tries: int = 10,
+    *,
+    dtype=None,
+    device=None,
+):
+    """RALM-based feasible-interior initial point search
+    (``generator.py:137-223``): a random start, a feasibility problem with
+    tightened constraints, retried until A is stable and strictly inside
+    the original constraints.  Returns numpy (J, R, Q, A)."""
+    from riptrm_torch.solvers.ralm import RALM
+
+    dtype, device = resolve(dtype, device)
+    man = manifold(d)
+    s = math.sqrt(scaling)
+    option = {"maxtime": 100, "maxiter": 4, "tolresid": 1e-2, "verbosity": 0}
+    option.update(ralm_option or {})
+    for _ in range(max_tries):
+        x_start = man.unpack(s * man.random_point(generator, dtype=dtype, device=device)[0])
+        problem = make_problem(d, [], constset, x_start, h=0.02,
+                               interior_scaling=interior_scaling, cost_zero=True,
+                               dtype=dtype, device=device)
+        out = RALM(option).run(problem)
+        J, R, Q = (a.double().cpu().numpy() for a in man.unpack(out.x))
+        A = (J - R) @ Q
+        g = make_problem(d, [], constset, (J, R, Q), cost_zero=True, dtype=torch.float64,
+                         device="cpu")
+        interior = bool(np.all(g.ineq_val(g.x0[None]).numpy() <= 0))
+        if _stable(A) and interior:
+            return J, R, Q, A
+    raise ValueError("Cannot find a feasible and interior initial point.")

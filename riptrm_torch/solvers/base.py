@@ -269,20 +269,31 @@ def compiled_best_while(step1, state0, target, max_steps, best0, stall_window=No
     return (best_st if track_best_state else st), k, done, best
 
 
-def state_from_numpy(cls, d, *, scalar_field, int_fields=(), device=None, dtype=None):
+def state_from_numpy(cls, d, *, scalar_field, int_fields=(), device=None, dtype=None,
+                     manifold=None):
     """A solver state dataclass ``cls`` from a dict of arrays, e.g.
     ``jax.device_get(state)._asdict()`` of the JAX package's state of the
     same name.  An unbatched state becomes one lane, a vmapped one keeps
     its lanes: which it is follows from the per-lane scalar
-    ``scalar_field`` (0-d or [B]).  Float fields take ``dtype`` (default:
-    the dtype of ``x``), ``int_fields`` int64, boolean arrays bool; every
-    field lands on ``device`` (default: the card, ``config.resolve``)."""
+    ``scalar_field`` (0-d or [B]).  A field that is a tuple of arrays (a
+    point of a JAX ``Product`` or fixed-rank manifold) is packed by
+    ``manifold.pack``.  Float fields take ``dtype`` (default: the dtype of
+    ``x``), ``int_fields`` int64, boolean arrays bool; every field lands on
+    ``device`` (default: the card, ``config.resolve``)."""
     batched = np.ndim(d[scalar_field]) == 1
     if dtype is None:
-        dtype = torch.from_numpy(np.array(d["x"])).dtype
+        x = d["x"][0] if isinstance(d["x"], (tuple, list)) else d["x"]
+        dtype = torch.from_numpy(np.array(x)).dtype
     _, device = resolve(dtype, device)
     out = {}
     for f in dataclasses.fields(cls):
+        if isinstance(d[f.name], (tuple, list)):
+            if manifold is None:
+                raise ValueError(f"{f.name} is a tuple: pass the manifold that packs it")
+            parts = tuple(torch.as_tensor(np.array(a), dtype=dtype, device=device)
+                          for a in d[f.name])
+            out[f.name] = manifold.pack(parts if batched else tuple(a[None] for a in parts))
+            continue
         a = np.array(d[f.name])  # a writable copy
         if not batched:
             a = a[None]

@@ -6,7 +6,8 @@ carries ``x`` [B, ...], the clipped multipliers ``y`` [B, m] and ``z``
 outer step minimises the augmented Lagrangian with a Riemannian subsolver
 (``solvers/subsolvers.py``: steepest descent or conjugate gradient, each a
 lane-masked loop with a nested lane-masked line search), its gradient by
-``torch.func.grad`` of the per-lane AL cost, then updates the multipliers
+``torch.func.grad`` of the per-lane AL cost (in the ambient space on an
+embedded problem, ``problems/embedded.py``), then updates the multipliers
 and the penalty.
 """
 
@@ -74,11 +75,12 @@ class RalmState:
     outer_iter: torch.Tensor  # int64
 
 
-def state_from_numpy(d, device=None, dtype=None) -> RalmState:
+def state_from_numpy(d, device=None, dtype=None, manifold=None) -> RalmState:
     """Port's state from a dict of arrays (e.g. a JAX ``RalmState``'s
     ``_asdict()``), one lane or [B] lanes."""
     return base.state_from_numpy(RalmState, d, scalar_field="rho",
-                                 int_fields=("outer_iter",), device=device, dtype=dtype)
+                                 int_fields=("outer_iter",), device=device, dtype=dtype,
+                                 manifold=manifold)
 
 
 state_to_numpy = base.state_to_numpy
@@ -106,19 +108,37 @@ def make_step(problem, option):
     subsolver = SUBSOLVERS[option["innersubsolver"]]
     decay_fix = option["tolgradnorm_decay_fix"]
 
-    def al_lane(x, y, z, rho):
-        """The augmented Lagrangian of one lane."""
-        val = problem.cost_fn(x)
-        if problem.has_ineq:
-            val = val + 0.5 * rho * torch.sum(torch.clamp(y / rho + problem.ineq_fn(x), min=0.0) ** 2)
-        if problem.has_eq:
-            val = val + 0.5 * rho * torch.sum((z / rho + problem.eq_fn(x)) ** 2)
+    def al_terms(val, g, h, y, z, rho):
+        """The augmented Lagrangian of one lane from its values."""
+        if g is not None:
+            val = val + 0.5 * rho * torch.sum(torch.clamp(y / rho + g, min=0.0) ** 2)
+        if h is not None:
+            val = val + 0.5 * rho * torch.sum((z / rho + h) ** 2)
         return val
+
+    def al_lane(x, y, z, rho):
+        return al_terms(problem.cost_fn(x),
+                        problem.ineq_fn(x) if problem.has_ineq else None,
+                        problem.eq_fn(x) if problem.has_eq else None, y, z, rho)
+
+    # Embedded problems (fixed rank): the AL's gradient is taken in the
+    # AMBIENT space, so egrad2rgrad receives an ambient matrix and not a
+    # gradient with respect to the packed factors.
+    embedded = getattr(problem, "a_cost", None) is not None
+
+    def al_ambient(xa, y, z, rho):
+        return al_terms(problem.a_cost(xa),
+                        problem.a_ineq(xa) if problem.has_ineq else None,
+                        problem.a_eq(xa) if problem.has_eq else None, y, z, rho)
 
     def step(state: RalmState):
         y, z, rho = state.y, state.z, state.rho
         cost = lambda x: vmap(al_lane)(x, y, z, rho)
-        rgrad = lambda x: man.egrad2rgrad(x, vmap(grad(al_lane))(x, y, z, rho))
+        if embedded:
+            rgrad = lambda x: man.egrad2rgrad(
+                x, vmap(grad(al_ambient))(man.embed_point(x), y, z, rho))
+        else:
+            rgrad = lambda x: man.egrad2rgrad(x, vmap(grad(al_lane))(x, y, z, rho))
         inner_tol = (state.tolgradnorm if decay_fix
                      else torch.full_like(rho, option["startingtolgradnorm"]))
         result = subsolver(

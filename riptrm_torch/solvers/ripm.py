@@ -86,11 +86,12 @@ class RipmState:
     iteration: torch.Tensor  # int64
 
 
-def state_from_numpy(d, device=None, dtype=None) -> RipmState:
+def state_from_numpy(d, device=None, dtype=None, manifold=None) -> RipmState:
     """Port's state from a dict of arrays (e.g. a JAX ``RipmState``'s
     ``_asdict()``), one lane or [B] lanes (``base.state_from_numpy``)."""
     return base.state_from_numpy(RipmState, d, scalar_field="phi",
-                                 int_fields=("iteration",), device=device, dtype=dtype)
+                                 int_fields=("iteration",), device=device, dtype=dtype,
+                                 manifold=manifold)
 
 
 state_to_numpy = base.state_to_numpy
@@ -210,6 +211,7 @@ def make_step(problem, option):
         elif krylov:
             # matrix-free conjugate residual on T_x M x R^l
             hx = problem.hx_at(x) if l > 0 else None
+            inner_x = man.inner_at(x)
 
             def op_t(dxdy):
                 dx, dy = dxdy
@@ -219,7 +221,7 @@ def make_step(problem, option):
                 return out_x, empty_y
 
             (ntdir_x, ntdir_y), krylov_iters, krylov_relres = conjugate_residual(
-                lambda u, v: man.inner(x, u[0], v[0]) + _dot(u[1], v[1]),
+                lambda u, v: inner_x(u[0], v[0]) + _dot(u[1], v[1]),
                 op_t,
                 (c, q),
                 (man.zero_vector(x), torch.zeros((lanes, l), dtype=dt, device=dev)),

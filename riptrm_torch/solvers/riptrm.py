@@ -22,8 +22,10 @@ JAX branches with ``lax.cond`` (the cache, the Lanczos gate), the port
 computes the branch for every lane when any lane takes it and selects per
 lane: a lane's values depend on that lane alone.
 
-Not ported yet, and refused with ``NotImplementedError`` when asked for
-(ROADMAP.md queue 1): ``compensated_reductions`` (item 5),
+``compensated_reductions`` computes the complementarity norm and ared's
+barrier log-ratio sum with the compensated reductions of
+``ops/compensated.py``, as the JAX step does.  Not ported yet, and refused
+with ``NotImplementedError`` when asked for (ROADMAP.md queue 1):
 ``checkpoint_path`` and ``wandb_logging`` (item 6).
 
 ``use_fused_tcg`` (the JAX ``use_pallas_tcg``, which the port refuses by
@@ -53,6 +55,7 @@ from riptrm_torch.ops.basis import (
     sphere_householder_congruence,
     sphere_householder_coords,
 )
+from riptrm_torch.ops.compensated import barrier_log_ratio_sum, complementarity_norm
 from riptrm_torch.ops.kkt import compute_residual, evaluation
 from riptrm_torch.ops.spectrum import eigh_nan, eigvalsh_nan, lanczos
 from riptrm_torch.ops.tcg import truncated_cg
@@ -157,9 +160,6 @@ def default_option():
 
 
 _NOT_PORTED = (
-    ("compensated_reductions", bool,
-     "compensated_reductions={!r} (ops/compensated.py) waits for ROADMAP.md "
-     "queue 1 item 5"),
     ("checkpoint_path", lambda v: v is not None,
      "checkpoint_path={!r}: checkpoint/resume waits for ROADMAP.md queue 1 item 6"),
     ("wandb_logging", bool,
@@ -206,16 +206,17 @@ class RiptrmState:
         return self.x.shape[0]
 
 
-def state_from_numpy(d, device=None, dtype=None) -> RiptrmState:
+def state_from_numpy(d, device=None, dtype=None, manifold=None) -> RiptrmState:
     """Port's state from a dict of arrays, e.g. ``jax.device_get(state)
     ._asdict()`` of a JAX ``RiptrmState``: an unbatched state becomes one
     lane, a vmapped one keeps its lanes, whatever the point's rank (a vector
-    [n] on the sphere, a frame [n, p] on Stiefel).  Float fields take
+    [n] on the sphere, a frame [n, p] on Stiefel); a tuple point (Product,
+    fixed rank) is packed by ``manifold.pack``.  Float fields take
     ``dtype`` (default: the dtype of ``x``); every field lands on
     ``device`` (default: the card, ``config.resolve``)."""
     return base.state_from_numpy(RiptrmState, d, scalar_field="mu",
                                  int_fields=("outer_iter", "inner_count"),
-                                 device=device, dtype=dtype)
+                                 device=device, dtype=dtype, manifold=manifold)
 
 
 state_to_numpy = base.state_to_numpy
@@ -334,9 +335,13 @@ def materialize_at(problem, x, y, mu, ms):
     return h_lam, h_q, c_vec
 
 
-def make_step(problem, option):
+def make_step(problem, option, callbacks=True):
     """Build the inner-step function ``step(state) -> (state, info)``;
-    ``info`` is a dict of [B] tensors with the JAX step's keys."""
+    ``info`` is a dict of [B] tensors with the JAX step's keys, and the
+    problem's callback metrics unless ``callbacks`` is False.  The
+    fixed-budget loop reads only the residual and the converged flag, and
+    builds its step without them, as XLA drops the JAX step's unread
+    callback from the compiled loop."""
     check_slice(option)
     man = problem.manifold
     dim = man.dim
@@ -347,6 +352,7 @@ def make_step(problem, option):
     ff_compl = option["forcing_function_complementarity"]
     ff_second = option["forcing_function_second_order"]
     inner_maxiter = option["inner_maxiter"]
+    compensated = option["compensated_reductions"]
     tcg_kw = dict(
         theta=option["tCG_theta"],
         kappa=option["tCG_kappa"],
@@ -450,7 +456,10 @@ def make_step(problem, option):
         xfeas = torch.all(c_new > 0, dim=-1)
         yfeas = torch.all(y_new > 0, dim=-1)
         norm_grad_lag = man.norm(x_new, problem.lag_rgrad(x_new, y_new))
-        compl = torch.linalg.vector_norm(y_new * c_new - mu[:, None], dim=-1)
+        if compensated:
+            compl = complementarity_norm(y_new, c_new, mu)
+        else:
+            compl = torch.linalg.vector_norm(y_new * c_new - mu[:, None], dim=-1)
         crit_lag = norm_grad_lag <= ff_lag(mu)
         crit_compl = compl <= ff_compl(mu)
 
@@ -470,7 +479,7 @@ def make_step(problem, option):
                 # deterministic start: barrier gradient plus the transported step
                 v0 = cx_new + 0.5 * man.transport(x, x_new, dx)
                 _, _, ritz = lanczos(
-                    hw_new, v0, lambda u, t: man.inner(x_new, u, t),
+                    hw_new, v0, man.inner_at(x_new),
                     min(option["second_order_lanczos_iters"], dim),
                 )
                 mineig = torch.where(first_ok, ritz[:, 0].to(dt), mineig)
@@ -486,11 +495,13 @@ def make_step(problem, option):
         # ared = [f(x) - f(xNew)] + mu * sum(log(cNew_i / c_i)): the
         # reference's phi(x) - phi(xNew) without the catastrophic
         # cancellation of two O(n) barrier sums.
-        safe_c = torch.where(c > 0, c, torch.ones_like(c))
-        ratio = torch.where((c_new > 0) & (c > 0), c_new / safe_c, torch.ones_like(c))
-        ared_raw = (problem.cost(x) - problem.cost(x_new)) + mu * torch.sum(
-            torch.log(ratio), dim=-1
-        )
+        if compensated:
+            barrier = barrier_log_ratio_sum(c_new, c, mu)
+        else:
+            safe_c = torch.where(c > 0, c, torch.ones_like(c))
+            ratio = torch.where((c_new > 0) & (c > 0), c_new / safe_c, torch.ones_like(c))
+            barrier = mu * torch.sum(torch.log(ratio), dim=-1)
+        ared_raw = (problem.cost(x) - problem.cost(x_new)) + barrier
         phi_cur = _log_barrier(problem, x, mu)  # scale only (regularization)
         eps_dt = torch.finfo(dt).eps
         red_reg = (
@@ -601,7 +612,7 @@ def make_step(problem, option):
             c_vec=c_vec,
         )
 
-        info = evaluation(problem, x, x_next, y_next)
+        info = evaluation(problem, x, x_next, y_next, callback=callbacks)
         skipped = converged | infeasible | forced
         has_ineq = problem.has_ineq
         inf = torch.full_like(normdx, math.inf)
@@ -845,7 +856,7 @@ class RIPTRM:
         """solve(state, target) -> (state, steps, done, best) on every lane
         of ``state``, through ``base.compiled_best_while``."""
         option = self.option
-        step = make_step(problem, option)
+        step = make_step(problem, option, callbacks=False)
         tolresid = option["tolresid"]
         maxiter = option["maxiter"]
 

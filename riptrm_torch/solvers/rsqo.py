@@ -90,13 +90,14 @@ def _schulz(option):
     return option.get("quadoptim_linear_solver") in ("schulz", "schulz_polish")
 
 
-def state_from_numpy(d, device=None, dtype=None) -> RsqoState:
+def state_from_numpy(d, device=None, dtype=None, manifold=None) -> RsqoState:
     """Port's state from a dict of arrays (e.g. a JAX ``RsqoState``'s
     ``_asdict()``, whose ``qp_xinv`` is None outside the schulz solvers)."""
     d = dict(d)
     if d.get("qp_xinv") is None:
         d["qp_xinv"] = np.zeros(np.shape(d["rho"]) + (0, 0))
-    return base.state_from_numpy(RsqoState, d, scalar_field="rho", device=device, dtype=dtype)
+    return base.state_from_numpy(RsqoState, d, scalar_field="rho", device=device, dtype=dtype,
+                                 manifold=manifold)
 
 
 def state_to_numpy(state: RsqoState) -> dict:

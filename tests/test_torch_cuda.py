@@ -11,6 +11,9 @@ the CPU parity suite (K1 atol 2e-4; K2/K3 atol 2e-4, rtol 1e-3; the
 Stiefel-bound kernel eta atol 1e-5, rtol 1e-4 and Heta atol 1e-4, rtol
 1e-3, the JAX suite's bounds between its two layouts) with iteration
 counts and stop codes equal; the two chains (K5, K6) as stated below.
+The families without a kernel (StableIdentification, Rosenbrock,
+LowRank) take three RIPTRM steps on the card against the same steps on
+the CPU, float64, rtol 1e-8.
 """
 
 import numpy as np
@@ -614,3 +617,46 @@ def test_baseline_step_on_card_matches_cpu(dev, case):
     for k, v in out["cpu"].items():
         if v is not None:
             np.testing.assert_allclose(out[str(dev)][k], v, rtol=1e-8, atol=1e-12, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# The families without a kernel: one RIPTRM step on the card against the
+# same step on the CPU, float64, rtol 1e-8 (cuSOLVER's Cholesky, SVD and QR
+# against LAPACK's, a few flops deep)
+# ---------------------------------------------------------------------------
+def _family(name, device):
+    from riptrm_torch.problems import low_rank, rosenbrock, stable_identification
+
+    kw = dict(dtype=torch.float64, device=device)
+    if name == "sid":
+        return stable_identification.load_problem("dataset/StableIdentification/1", "a", **kw)
+    if name == "rosenbrock":
+        return rosenbrock.make_problem(5, 3, **kw)
+    return low_rank.load_problem("dataset/LowRank/1", "a", **kw)
+
+
+@pytest.mark.parametrize("name,mode", [("sid", "tCG"), ("sid", "Exact_RepMat"),
+                                       ("rosenbrock", "tCG"), ("rosenbrock", "Exact_RepMat"),
+                                       ("lowrank", "tCG")])
+def test_new_family_step_on_card_matches_cpu(dev, name, mode):
+    from riptrm_torch.solvers import riptrm
+
+    option = RIPTRM({"TRS_solver": mode, "second_order_stationarity": False}).option
+    out = {}
+    for device in ("cpu", dev):
+        problem = _family(name, device)
+        state = riptrm.init_state(problem, option)
+        step = riptrm.make_step(problem, option)
+        for _ in range(3):
+            state, info = step(state)
+        out[str(device)] = (problem, state, info)
+    (pc, sc, ic), (pg, sg, ig) = out["cpu"], out[str(dev)]
+    man = pc.manifold
+    if hasattr(man, "embed_point"):  # the factors carry the SVD's signs
+        np.testing.assert_allclose(man.embed_point(sg.x).cpu().numpy(),
+                                   man.embed_point(sc.x).numpy(), rtol=1e-8, atol=1e-12)
+    else:
+        np.testing.assert_allclose(sg.x.cpu().numpy(), sc.x.numpy(), rtol=1e-8, atol=1e-12)
+    np.testing.assert_allclose(sg.y.cpu().numpy(), sc.y.numpy(), rtol=1e-8, atol=1e-12)
+    for key in ("residual", "cost", "normdx"):
+        np.testing.assert_allclose(float(ig[key][0]), float(ic[key][0]), rtol=1e-8, err_msg=key)

@@ -26,6 +26,15 @@ MODULES = [
     "riptrm_torch.solvers.ralm",
     "riptrm_torch.solvers.subsolvers",
     "riptrm_torch.manifolds.euclidean",
+    "riptrm_torch.manifolds.grassmann",
+    "riptrm_torch.manifolds.spd",
+    "riptrm_torch.manifolds.product",
+    "riptrm_torch.manifolds.fixed_rank",
+    "riptrm_torch.ops.compensated",
+    "riptrm_torch.problems.rosenbrock",
+    "riptrm_torch.problems.stable_identification",
+    "riptrm_torch.problems.embedded",
+    "riptrm_torch.problems.low_rank",
     "riptrm_torch.parallel.sweep",
     "riptrm_torch.parallel",
     "riptrm_torch.utils",

@@ -198,7 +198,6 @@ def test_fused_tcg_option_solves_on_cpu(problems):
 @pytest.mark.parametrize(
     "option",
     [
-        SLICE | {"compensated_reductions": True},
         SLICE | {"checkpoint_path": "ckpt.npz"},
         SLICE | {"wandb_logging": True},
     ],
@@ -216,9 +215,10 @@ def test_options_outside_the_slice_raise(problems, option):
         {"second_order_stationarity": False},
         {"TRS_solver": "tCG"},
         SLICE | {"checkTRSoptimality": True},
+        SLICE | {"compensated_reductions": True},
     ],
 )
 def test_exact_and_second_order_options_are_in_the_slice(option):
-    """Exact mode, the second-order criterion and the TRS self-check are
-    ported: ``check_slice`` takes them."""
+    """Exact mode, the second-order criterion, the TRS self-check and the
+    compensated reductions are ported: ``check_slice`` takes them."""
     trm.check_slice(trm.RIPTRM(option).option)
