@@ -10,7 +10,9 @@ size of the JAX package's own chip sweeps, with second-order certificates
 of the sweeps' final points; the baseline solvers RIPM, RSQO and RALM on
 NonnegPCA, golden and at n = 1000, single-lane and swept; StableIdentification,
 Rosenbrock and LowRank, golden and at the JAX package's chip widths,
-single-lane and swept; and the roofline
+single-lane and swept; the experiment layer's CLIs (simulate, checkpoint
+and resume, the sweep CLI with the fused kernels, the protocol speedrun);
+and the roofline
 (``python -m riptrm_torch.experiment.roofline``) at its default shapes.
 Checks the six hand-written kernels
 (``riptrm_torch/csrc/sphere_tcg.cu``: K2-K3;
@@ -119,6 +121,19 @@ Phases:
      phase 7's starts: finite, the median below the starting median, the
      lanes off the manifold counted;
   -- launch counters read after each of 5e-7e: every one 0 --
+  -- launch counters reset: the experiment layer --
+  10. the experiment layer's CLIs, every output under a fresh temporary
+     directory: ``simulate`` of the four solvers on dataset/NonnegPCA/1 a
+     (float64, SIM_MAXITER outer iterations; every CSV present, the golden
+     cost where a solver converged); RIPTRM's checkpoint and resume, whose
+     log equals the uninterrupted run's; ``chip_sweep --fused`` at
+     NonnegPCA n = 1000, B = 128 and BoundedPCA St(128, 8), B = 16 from the
+     JAX package's committed starts (median residual <= 1e-3, as phases 7
+     and 7b); ``protocol_speedrun`` of NonnegPCA's four groups and
+     Rosenbrock's RIPTRM and RIPM groups (``PROTOCOL_RUNS``), held to the
+     JAX package's round-5 targets (ROADMAP queue 3 records the group the
+     port can miss, held to the reference's batched sweep);
+  -- launch counters read: K3 and the Stiefel-bound kernel launched --
   8. CUDA-event times of each kernel and its plain version (events around
      windows of back-to-back calls, divided by the count), each with its
      bound (``riptrm_torch/experiment/roofline.py``'s accounting) and, for
@@ -153,8 +168,9 @@ import torch
 
 N = 1000
 SOLVE_STEPS = 400
-# the step budget of phase 7b's plain-tCG BoundedPCA sweep (host-bound)
-PLAIN_SWEEP_STEPS = 120
+# the step budget of phase 7b's plain-tCG BoundedPCA sweep (host-bound; its
+# median is reported only)
+PLAIN_SWEEP_STEPS = 40
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATASET = os.path.join(ROOT, "dataset", "NonnegPCA", "1")
 BPCA_DATASET = os.path.join(ROOT, "dataset", "BoundedPCA", "1")
@@ -1653,6 +1669,168 @@ class FamilySmoke:
         self.counters_zero("phase 7e")
 
 
+# -- phase 10: the experiment layer ------------------------------------------
+GOLDEN_COST = -1.537809
+SIM_MAXITER = 30  # 10: simulate's solver_option.common.maxiter
+SWEEP_CASES = (  # 10: chip_sweep runs, (problem, size, batch, the kernel they launch)
+    ("NonnegPCA", 1000, 128, "fused_tcg_sphere_quadratic_batched"),
+    ("BoundedPCA", 128, 16, STIEFEL_KERNEL),
+)
+# 10: protocol_speedrun runs, (--problems, --solvers).  Rosenbrock's RSQO and
+# RALM groups are left to the CLI's own run (PERF.md): on the card they take
+# thousands of ~50 ms steps and hundreds of ~0.7 s steps, beyond this
+# phase's time.
+PROTOCOL_RUNS = (("NonnegPCA", "RSQO,RIPTRM,RALM,RIPM"), ("Rosenbrock", "RIPTRM,RIPM"))
+PROTOCOL_STEPS = 3000  # 10: protocol_speedrun --max-steps (lanes that miss run all of it)
+PROTOCOL_R5 = os.path.join(ROOT, "result", "protocol_speedrun_r5.json")
+# ROADMAP queue 3: the port's RALM group on NonnegPCA/1 misses r5's target
+# (the reference's own batched sweep misses it too, at 4.777e-4 on the CPU);
+# it is held to that batched result instead.
+PROTOCOL_KNOWN_MISS = {"NonnegPCA/1/RALM_SteepestDescent": 4.7766e-4}
+
+
+class ExperimentSmoke:
+    """Phase 10: the experiment layer through its CLIs on the card, every
+    output under a fresh temporary directory: ``simulate`` of the four
+    solvers on dataset/NonnegPCA/1 a (float64), RIPTRM's checkpoint and
+    resume, ``chip_sweep --fused`` at the JAX chip sweeps' shapes (K3 and
+    the Stiefel-bound kernel), and ``protocol_speedrun`` held to the JAX
+    package's round-5 targets (``result/protocol_speedrun_r5.json``)."""
+
+    def __init__(self, device):
+        import tempfile
+
+        self.device = device
+        self.tmp = tempfile.mkdtemp(prefix="riptrm_experiment_")
+        self.dev_args = [] if device.type == "cuda" else ["--device", "cpu"]
+
+    def phase_simulate(self):
+        from riptrm_torch.experiment import simulator
+        from riptrm_torch.experiment.analyzer import load_log
+
+        out = os.path.join(self.tmp, "simulate")
+        solvers = ("RIPTRM", "RIPM", "RSQO", "RALM")
+        t0 = time.perf_counter()
+        simulator.main(["--problem", "NonnegPCA", f"solver_name=[{','.join(solvers)}]",
+                        f"solver_option.common.maxiter={SIM_MAXITER}", f"output_path={out}"]
+                       + self.dev_args)
+        t = time.perf_counter() - t0
+        names = sorted(f[:-len("_log.csv")] for f in os.listdir(out) if f.endswith("_log.csv"))
+        check(len(names) == len(solvers), f"10 simulate: logs {names}")
+        for name in names:
+            check(all(os.path.exists(os.path.join(out, f"{name}_{a}.csv"))
+                      for a in ("x", "ineqLagmult", "eqLagmult", "option", "log")),
+                  f"10 simulate {name}: an output file is missing")
+            log = load_log(out, name)
+            res, cost = log["residual"], log["cost"]
+            converged = res[-1] <= 1e-6
+            say(f"phase 10 simulate {name}: {len(res) - 1} rows, residual {res[-1]:.3e} (least "
+                f"{res.min():.3e}), cost {cost[-1]:.7f}"
+                + (" (converged: golden cost checked)" if converged else ""))
+            check(bool(np.all(np.isfinite(res))), f"10 simulate {name}: non-finite residual")
+            if converged:
+                check(abs(cost[-1] - GOLDEN_COST) <= 1e-4, f"10 simulate {name}: cost {cost[-1]}")
+        check(sum(load_log(out, n)["residual"][-1] <= 1e-6 for n in names) >= 3,
+              "10 simulate: fewer than three solvers converged")
+        say(f"phase 10 simulate: {t:.1f} s")
+
+    def phase_checkpoint(self):
+        from riptrm_torch.problems import nonneg_pca
+        from riptrm_torch.solvers.riptrm import RIPTRM
+
+        p = nonneg_pca.load_problem(DATASET, "a", dtype=torch.float64, device=self.device)
+        path = os.path.join(self.tmp, "riptrm.npz")
+        opt = {"maxtime": 300, "tolresid": 1e-9, "TRS_solver": "tCG",
+               "second_order_stationarity": False, "checkpoint_every": 0.0}
+        t0 = time.perf_counter()
+        whole = RIPTRM(opt | {"maxiter": 10}).run(p)
+        first = RIPTRM(opt | {"maxiter": 4, "checkpoint_path": path}).run(p)
+        resumed = RIPTRM(opt | {"maxiter": 10, "checkpoint_path": path, "resume": True}).run(p)
+        t = time.perf_counter() - t0
+        a, b = np.array(whole.log["residual"]), np.array(resumed.log["residual"])
+        n1 = len(first.log["residual"])
+        say(f"phase 10 checkpoint: {n1} rows, then {len(b)} resumed against {len(a)} "
+            f"uninterrupted; final residual {b[-1]:.3e} against {a[-1]:.3e}; {t:.1f} s")
+        check(len(a) == len(b) and max(resumed.log["iteration"]) >= 10,
+              "10 checkpoint: the resumed log is not the uninterrupted run's length")
+        check(np.allclose(b, a, rtol=1e-10, atol=0.0),
+              f"10 checkpoint: resumed residuals part from the uninterrupted run "
+              f"(max rel {np.max(np.abs(b - a) / a):.2e})")
+        check(np.array_equal(b[:n1], np.array(first.log["residual"])),
+              "10 checkpoint: the resumed log's prefix is not the first run's log")
+
+    def phase_chip_sweep(self):
+        from riptrm_torch.experiment import chip_sweep
+        from riptrm_torch.ops import kernels as k
+
+        os.environ["RIPTRM_CACHE_DIR"] = os.path.join(self.tmp, "cache")
+        for problem, size, batch, kernel in SWEEP_CASES:
+            before = k.launch_counts()[kernel]
+            t0 = time.perf_counter()
+            out = chip_sweep.main(["--problem", problem, "--size", str(size), "--batch",
+                                   str(batch), "--fused", "--reps", "1"] + self.dev_args)
+            t = time.perf_counter() - t0
+            launches = k.launch_counts()[kernel] - before
+            say(f"phase 10 chip_sweep {problem} {size} B={batch} --fused: "
+                f"{out['solves_per_sec']:.2f} solves/s ({out['sweep_ms']:.1f} ms a sweep), "
+                f"median residual {out['median_residual']:.3e}, mean steps "
+                f"{out['mean_steps']:.1f}, cache {out['cache']}, {kernel} launches {launches}, "
+                f"warm-up {out['warmup_s']:.2f} s, {t:.1f} s in all")
+            check(out["cache"] == "jax", f"10 chip_sweep {problem}: not the JAX package's starts")
+            check(out["median_residual"] <= 1e-3,
+                  f"10 chip_sweep {problem}: median residual {out['median_residual']}")
+            check(launches > 0, f"10 chip_sweep {problem}: {kernel} was not launched")
+
+    def phase_protocol(self):
+        from riptrm_torch.experiment import protocol_speedrun
+
+        with open(PROTOCOL_R5) as f:
+            r5 = json.load(f)["groups"]
+        t0 = time.perf_counter()
+        groups, run_s, warmup_s = {}, 0.0, 0.0
+        for problems, solvers in PROTOCOL_RUNS:
+            report = protocol_speedrun.main(
+                ["--problems", problems, "--solvers", solvers, "--slack", "1.05",
+                 "--max-steps", str(PROTOCOL_STEPS), "--out",
+                 os.path.join(self.tmp, f"protocol_{problems}.json")] + self.dev_args)
+            groups |= report["groups"]
+            run_s += report["total"]["run_s"]
+            warmup_s += report["total"]["warmup_s"]
+        t = time.perf_counter() - t0
+        reached = 0
+        for key, g in groups.items():
+            check(np.allclose(g["targets"], r5[key]["targets"], rtol=1e-12, atol=0.0),
+                  f"10 protocol {key}: targets {g['targets']}, r5 {r5[key]['targets']}")
+            say(f"phase 10 protocol {key}: best {g['best'][0]:.4e}, target "
+                f"{g['targets'][0]:.4e}, {g['steps'][0]} steps (r5: {r5[key]['steps'][0]}), "
+                f"{g['run_s']:.2f} s (warm-up {g['warmup_s']:.2f} s)"
+                + (f", certificate {g['second_order_mineig'][0]:.4e}"
+                   if "second_order_mineig" in g else ""))
+            reached += sum(g["reached"])
+            if all(g["reached"]):
+                continue
+            check(key in PROTOCOL_KNOWN_MISS, f"10 protocol {key}: target missed")
+            check(max(g["best"]) <= PROTOCOL_KNOWN_MISS[key],
+                  f"10 protocol {key}: best {g['best']} above the reference's batched "
+                  f"{PROTOCOL_KNOWN_MISS[key]}")
+        check(len(groups) == sum(len(s.split(",")) for _, s in PROTOCOL_RUNS),
+              f"10 protocol: groups {sorted(groups)}")
+        say(f"phase 10 protocol_speedrun: {reached}/{len(groups)} targets reached, run "
+            f"{run_s:.2f} s, warm-up {warmup_s:.2f} s, {t:.1f} s in all")
+
+    def run(self):
+        cwd = os.getcwd()
+        os.chdir(ROOT)  # the CLIs read configs/ and dataset/ from the repository root
+        try:
+            for phase in (self.phase_simulate, self.phase_checkpoint, self.phase_chip_sweep,
+                          self.phase_protocol):
+                t0 = time.perf_counter()
+                phase()
+                say(f"  {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+        finally:
+            os.chdir(cwd)
+
+
 def phase_certificates(smoke, stiefel):
     """7c: second-order certificates at full width.  ``certify_second_order``
     (ratio_cap 1e8) on phase 7's fused NonnegPCA final points (B = 16 and
@@ -1950,6 +2128,12 @@ def main(argv):
     families.phase_sweep()
     say(f"StableIdentification, Rosenbrock and LowRank paths: "
         f"{time.perf_counter() - t_path:.1f} s")
+
+    k.reset_launch_counts()  # the experiment layer's paths start here
+    t_path = time.perf_counter()
+    ExperimentSmoke(device).run()
+    read_counts("experiment layer", (SPHERE_KERNELS[2], STIEFEL_KERNEL), report, keep=())
+    say(f"experiment layer (phase 10): {time.perf_counter() - t_path:.1f} s")
 
     smoke.phase_timings()
     stiefel.phase_timings()

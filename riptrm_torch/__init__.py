@@ -11,9 +11,12 @@ fixed-rank manifold), with the compensated reductions; the three baseline solver
 conjugate residual of ``ops/conjres.py``), RSQO (``solvers/rsqo.py``, with
 the QP IPM of ``ops/qp.py``) and RALM (``solvers/ralm.py``, with the
 subsolvers of ``solvers/subsolvers.py``); the batched sweeps of all four
-solvers with RIPTRM's second-order certificate, and the roofline entry
-point, with a hand-written Hopper kernel for every Pallas
-kernel of the JAX package (``ops/kernels.py``, ``csrc/``).
+solvers with RIPTRM's second-order certificate; the experiment layer
+(``experiment/``: the ``simulate``, ``generate``, ``analyze``,
+``benchmark``, ``protocol_speedrun``, ``chip_sweep`` and ``roofline``
+CLIs, configs, registries and checkpoint/resume); with a hand-written
+Hopper kernel for every Pallas kernel of the JAX package
+(``ops/kernels.py``, ``csrc/``).
 
 Conventions:
 

@@ -50,7 +50,9 @@ def compute_maxmean_violations(problem, x):
 
 def evaluation(problem, x_prev, x, y, z=None, callback=True):
     """Per-iteration metric dict of [B] tensors, with the problem's callback
-    metrics unless ``callback`` is False."""
+    metrics unless ``callback`` is False.  Its keys come sorted, as a jitted
+    JAX function returns a dict: they set the order of the logs' first
+    columns."""
     residual, gradnorm, compl, nonneg, manvio = compute_residual(problem, x, y, z)
     maxvio, meanvio = compute_maxmean_violations(problem, x)
     ev = {
@@ -64,4 +66,6 @@ def evaluation(problem, x_prev, x, y, z=None, callback=True):
         "maxviolation": maxvio,
         "meanviolation": meanvio,
     }
-    return problem.apply_callback(x, y, z, ev) if callback else ev
+    if callback:
+        ev = problem.apply_callback(x, y, z, ev)
+    return dict(sorted(ev.items()))

@@ -2,9 +2,10 @@
 the single-level solvers' host runner and the lane-batched fixed-budget
 solve loop.
 
-Counterpart of ``riptrm_tpu/solvers/base.py``.  The wandb hooks wait for
-the experiment layer (ROADMAP.md queue 1, item 6): ``wandb_logging=True``
-is refused (``refuse_wandb``).
+Counterpart of ``riptrm_tpu/solvers/base.py``, with its optional wandb
+hooks (``maybe_wandb_init``/``_log``/``_finish``): ``wandb_logging=True``
+logs the rows to wandb where the package is installed, and elsewhere warns
+and turns the option off, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -91,13 +92,65 @@ class WallClock:
         return self.elapsed() >= self.maxtime
 
 
-def refuse_wandb(option):
-    """Raise NotImplementedError for ``wandb_logging``, as RIPTRM's
-    ``check_slice`` does."""
-    if option.get("wandb_logging"):
-        raise NotImplementedError(
-            f"wandb_logging={option['wandb_logging']!r} waits for ROADMAP.md queue 1 item 6"
-        )
+def _wandb():
+    """Optional wandb import: disabled with a warning when absent (it is an
+    optional extra, as in the reference's pip list)."""
+    try:
+        import wandb
+
+        return wandb
+    except ImportError:
+        import warnings
+
+        warnings.warn("wandb_logging requested but wandb is not installed; disabled.")
+        return None
+
+
+def maybe_wandb_init(option: dict, name: str):
+    """Start a wandb run for a solver's ``run`` when ``wandb_logging`` is on;
+    without wandb, warn and set the option to False."""
+    if not option.get("wandb_logging", False):
+        return None
+    wandb = _wandb()
+    if wandb is None:
+        option["wandb_logging"] = False
+        return None
+    wandb.finish()
+    # The reference's project template
+    # ``${problem_name}-${problem_instance}-${problem_initialpoint}``: config
+    # runs get it by interpolation, direct callers from the problem-identity
+    # option keys when present.
+    project = option.get("wandb_project")
+    if not project:
+        keys = ("problem_name", "problem_instance", "problem_initialpoint")
+        if all(k in option for k in keys):
+            project = "-".join(str(option[k]) for k in keys)
+        else:
+            project = "riptrm_torch"
+    return wandb.init(
+        project=project,
+        name=name,
+        config={k: v for k, v in option.items() if not callable(v)},
+    )
+
+
+def maybe_wandb_log(option: dict, row: dict):
+    """Log one row's scalar entries when ``wandb_logging`` is on."""
+    if not option.get("wandb_logging", False):
+        return
+    wandb = _wandb()
+    if wandb is None:
+        option["wandb_logging"] = False
+        return
+    wandb.log({k: v for k, v in row.items() if not isinstance(v, (list, np.ndarray))})
+
+
+def maybe_wandb_finish(option: dict):
+    if not option.get("wandb_logging", False):
+        return
+    wandb = _wandb()
+    if wandb is not None:
+        wandb.finish()
 
 
 def lane0_to_host(d: dict) -> dict:
@@ -149,6 +202,7 @@ def host_run(*, option, state, step, evaluate, status_row, get_x, verbosity_line
         # Log accumulation is host bookkeeping, not solve time.
         t_log = time.time()
         log.add(iteration, run_time, ev, lane0_to_host(status_row(state, info)))
+        maybe_wandb_log(option, ev | {"time": run_time})
         clock.excluded += time.time() - t_log
 
         residual = ev["residual"]

@@ -26,8 +26,9 @@ from riptrm_torch.solvers.base import (
     compiled_best_while,
     host_run,
     max_abs_multiplier,
+    maybe_wandb_finish,
+    maybe_wandb_init,
     merge_options,
-    refuse_wandb,
 )
 from riptrm_torch.solvers.subsolvers import conjugate_gradient, steepest_descent
 
@@ -87,7 +88,6 @@ state_to_numpy = base.state_to_numpy
 
 
 def _check_slice(option):
-    refuse_wandb(option)
     if option["innersubsolver"] not in SUBSOLVERS:
         raise ValueError(f"innersubsolver {option['innersubsolver']!r}: one of "
                          f"{tuple(SUBSOLVERS)}")
@@ -252,6 +252,7 @@ class RALM:
     def run(self, problem) -> Output:
         """Host loop on one lane with the reference's run protocol."""
         option = self.option
+        maybe_wandb_init(option, self.name)
         state = init_state(problem, option)
         step = make_step(problem, option)
 
@@ -275,6 +276,7 @@ class RALM:
             ),
         )
         self.option["stoppingcriterion"] = stop_reason
+        maybe_wandb_finish(option)
         y_eval, z_eval = eval_multipliers(problem, state, option)
         opt_out = {k: v for k, v in self.option.items() if not callable(v)}
         return Output(

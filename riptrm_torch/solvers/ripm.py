@@ -35,8 +35,9 @@ from riptrm_torch.solvers.base import (
     compiled_best_while,
     host_run,
     max_abs_multiplier,
+    maybe_wandb_finish,
+    maybe_wandb_init,
     merge_options,
-    refuse_wandb,
 )
 from riptrm_torch.utils.lanes import bcast as _bc
 from riptrm_torch.utils.lanes import dot as _dot
@@ -129,7 +130,6 @@ def _solve_nan(a, b):
 
 
 def _check_slice(option):
-    refuse_wandb(option)
     if option["KrylovPreconditioner"] not in ("none", "jacobi_theta"):
         raise ValueError(f"KrylovPreconditioner {option['KrylovPreconditioner']!r}")
 
@@ -516,6 +516,7 @@ class RIPM:
     def run(self, problem) -> Output:
         """Host loop on one lane with the reference's run protocol."""
         option = self.option
+        maybe_wandb_init(option, self.name)
         step_fn = make_step(problem, option)
         state, tau_1, tau_2 = init_state(problem, option)
 
@@ -553,6 +554,7 @@ class RIPM:
             ),
         )
         self.option["stoppingcriterion"] = stop_reason
+        maybe_wandb_finish(option)
         opt_out = {k: v for k, v in self.option.items() if not callable(v)}
         return Output(
             name=self.name,

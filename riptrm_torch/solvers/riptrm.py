@@ -24,9 +24,11 @@ lane: a lane's values depend on that lane alone.
 
 ``compensated_reductions`` computes the complementarity norm and ared's
 barrier log-ratio sum with the compensated reductions of
-``ops/compensated.py``, as the JAX step does.  Not ported yet, and refused
-with ``NotImplementedError`` when asked for (ROADMAP.md queue 1):
-``checkpoint_path`` and ``wandb_logging`` (item 6).
+``ops/compensated.py``, as the JAX step does.  ``RIPTRM.run`` checkpoints
+its state, elapsed budget and log to ``checkpoint_path`` every
+``checkpoint_every`` seconds of row time and, with ``resume``, continues
+from that file (``experiment/checkpoint.py``); ``wandb_logging`` logs its
+rows through ``solvers/base.py``'s wandb hooks.
 
 ``use_fused_tcg`` (the JAX ``use_pallas_tcg``, which the port refuses by
 that name) routes the tCG to a fused kernel by the problem's structure,
@@ -46,6 +48,8 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
+import os
+import time
 
 import torch
 
@@ -67,6 +71,9 @@ from riptrm_torch.solvers.base import (
     WallClock,
     compiled_best_while,
     lane0_to_host,
+    maybe_wandb_finish,
+    maybe_wandb_init,
+    maybe_wandb_log,
     merge_options,
 )
 from riptrm_torch.utils.lanes import dot as _dot
@@ -160,10 +167,6 @@ def default_option():
 
 
 _NOT_PORTED = (
-    ("checkpoint_path", lambda v: v is not None,
-     "checkpoint_path={!r}: checkpoint/resume waits for ROADMAP.md queue 1 item 6"),
-    ("wandb_logging", bool,
-     "wandb_logging={!r} waits for ROADMAP.md queue 1 item 6"),
     ("use_pallas_tcg", bool,
      "use_pallas_tcg={!r} is the JAX package's name: the port's option is "
      "use_fused_tcg"),
@@ -713,6 +716,7 @@ class RIPTRM:
         per-iteration logging, the reference's stopping semantics (residual
         check at outer transitions, budget resets)."""
         option = self.option
+        maybe_wandb_init(option, self.name)
         log = LogAccumulator()
         state = init_state(problem, option)
         step = make_step(problem, option)
@@ -721,7 +725,22 @@ class RIPTRM:
         force_outer = (
             make_force_outer(option) if option["inner_maxtime"] is not None else None
         )
-        clock = WallClock(option["maxtime"])
+
+        # Resume from a checkpoint: the state, the elapsed budget and the
+        # log so far.
+        ckpt_path = option["checkpoint_path"]
+        initial_elapsed = 0.0
+        resumed = False
+        if ckpt_path and option["resume"] and os.path.exists(ckpt_path):
+            from riptrm_torch.experiment.checkpoint import load_state
+
+            state, meta = load_state(ckpt_path, state, manifold=problem.manifold)
+            initial_elapsed = float(meta.get("elapsed", 0.0))
+            for k, v in meta.get("log", {}).items():
+                log.log[k] = list(v)
+            resumed = True
+        clock = WallClock(option["maxtime"], initial_elapsed)
+        last_ckpt = clock.elapsed()
         inner_start = clock.elapsed()
 
         eval0 = lane0_to_host(evaluation(problem, state.x, state.x, state.y))
@@ -744,7 +763,9 @@ class RIPTRM:
                 float(torch.amax(torch.abs(state.y))) if problem.has_ineq else 0.0
             ),
         }
-        log.add(0, 0.0, eval0, status0)
+        if not resumed:  # the iteration-0 row is in the restored log
+            log.add(0, 0.0, eval0, status0)
+            maybe_wandb_log(option, eval0 | {"time": 0.0})
 
         stop_reason = None
         if eval0["residual"] <= option["tolresid"]:
@@ -770,7 +791,18 @@ class RIPTRM:
             row_iter = outer_iter if info["exit_inner"] else outer_iter + 1
             row_time = clock.elapsed()
             if option["save_inner_iteration"] or info["exit_inner"]:
-                log.add(row_iter, row_time, self._format_info(info))
+                # Logging is host bookkeeping, excluded from the budget.
+                t_log = time.time()
+                row = self._format_info(info)
+                log.add(row_iter, row_time, row)
+                maybe_wandb_log(option, row | {"time": row_time})
+                clock.excluded += time.time() - t_log
+
+            if ckpt_path and row_time - last_ckpt >= option["checkpoint_every"]:
+                from riptrm_torch.experiment.checkpoint import save_state
+
+                save_state(ckpt_path, state, {"elapsed": row_time, "log": log.as_dict()})
+                last_ckpt = row_time
 
             if option["verbosity"] >= 1 and converged:
                 print(
@@ -823,6 +855,7 @@ class RIPTRM:
                 break
 
         self.option["stoppingcriterion"] = stop_reason
+        maybe_wandb_finish(option)
         opt_out = {k: v for k, v in self.option.items() if not callable(v)}
         return Output(
             name=self.name,

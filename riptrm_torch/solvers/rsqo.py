@@ -35,8 +35,9 @@ from riptrm_torch.solvers.base import (
     compiled_best_while,
     host_run,
     max_abs_multiplier,
+    maybe_wandb_finish,
+    maybe_wandb_init,
     merge_options,
-    refuse_wandb,
 )
 from riptrm_torch.utils.lanes import bcast
 from riptrm_torch.utils.lanes import dot as _dot
@@ -203,7 +204,6 @@ def _ell1_line_search(problem, option, x, direction, rho, df0):
 
 
 def _check_slice(option):
-    refuse_wandb(option)
     if option["quadoptim_type"] not in QUADOPTIM_TYPES:
         raise ValueError(f"quadoptim_type {option['quadoptim_type']!r}: one of {QUADOPTIM_TYPES}")
     if option["quadoptim_linear_solver"] not in METHODS:
@@ -406,6 +406,7 @@ class RSQO:
     def run(self, problem) -> Output:
         """Host loop on one lane with the reference's run protocol."""
         option = self.option
+        maybe_wandb_init(option, self.name)
         state = init_state(problem, option)
         step = make_step(problem, option)
 
@@ -425,6 +426,7 @@ class RSQO:
             ),
         )
         self.option["stoppingcriterion"] = stop_reason
+        maybe_wandb_finish(option)
         opt_out = {k: v for k, v in self.option.items() if not callable(v)}
         return Output(
             name=self.name,

@@ -40,6 +40,18 @@ MODULES = [
     "riptrm_torch.utils",
     "riptrm_torch.experiment",
     "riptrm_torch.experiment.roofline",
+    "riptrm_torch.experiment.cfg",
+    "riptrm_torch.experiment.registry",
+    "riptrm_torch.experiment.checkpoint",
+    "riptrm_torch.experiment.simulator",
+    "riptrm_torch.experiment.simulate",
+    "riptrm_torch.experiment.generate",
+    "riptrm_torch.experiment.analyzer",
+    "riptrm_torch.experiment.analyze",
+    "riptrm_torch.experiment.benchmark",
+    "riptrm_torch.experiment.protocol_speedrun",
+    "riptrm_torch.experiment.chip_sweep",
+    "riptrm_torch.parallel.distributed",
 ]
 
 

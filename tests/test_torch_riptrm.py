@@ -9,6 +9,8 @@ the golden instance ``dataset/NonnegPCA/1``, point a (n = 50), float64.
 (e) ``solve_compiled`` against ``run`` (``test_compiled_matches_host``).
 """
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -195,17 +197,26 @@ def test_fused_tcg_option_solves_on_cpu(problems):
     assert out.log["cost"][-1] == pytest.approx(-1.537809, abs=1e-4)
 
 
-@pytest.mark.parametrize(
-    "option",
-    [
-        SLICE | {"checkpoint_path": "ckpt.npz"},
-        SLICE | {"wandb_logging": True},
-    ],
-)
-def test_options_outside_the_slice_raise(problems, option):
+@pytest.mark.parametrize("key", ["checkpoint_path", "wandb_logging"])
+def test_options_outside_the_slice_raise(problems, key, tmp_path):
+    """``checkpoint_path`` and ``wandb_logging`` were refused until the
+    experiment layer was ported; now a run with ``checkpoint_path`` writes
+    its checkpoint (state, elapsed budget and log), and ``wandb_logging``
+    without wandb installed warns and turns itself off."""
     _, tp = problems
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        trm.RIPTRM(option).run(tp)
+    opt = SLICE | {"maxiter": 2}
+    if key == "checkpoint_path":
+        path = tmp_path / "ckpt.npz"
+        out = trm.RIPTRM(opt | {key: str(path), "checkpoint_every": 0.0}).run(tp)
+        with np.load(path) as data:
+            assert "leaf.x" in data and "leaf.h_lam" in data
+            meta = json.loads(str(data["__meta__"]))
+        assert meta["log"]["residual"] == out.log["residual"]
+    else:
+        solver = trm.RIPTRM(opt | {key: True})
+        with pytest.warns(UserWarning, match="wandb is not installed"):
+            solver.run(tp)
+        assert solver.option[key] is False
 
 
 @pytest.mark.parametrize(
