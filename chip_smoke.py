@@ -12,7 +12,8 @@ NonnegPCA, golden and at n = 1000, single-lane and swept; StableIdentification,
 Rosenbrock and LowRank, golden and at the JAX package's chip widths,
 single-lane and swept; the experiment layer's CLIs (simulate, checkpoint
 and resume, the sweep CLI with the fused kernels, the protocol speedrun);
-and the roofline
+the checkpointed, traced, staged-precision and instance-batched sweeps and
+the 10-instance paper sweep; and the roofline
 (``python -m riptrm_torch.experiment.roofline``) at its default shapes.
 Checks the six hand-written kernels
 (``riptrm_torch/csrc/sphere_tcg.cu``: K2-K3;
@@ -134,6 +135,24 @@ Phases:
      JAX package's round-5 targets (ROADMAP queue 3 records the group the
      port can miss, held to the reference's batched sweep);
   -- launch counters read: K3 and the Stiefel-bound kernel launched --
+  -- launch counters reset: the sweep API, instance batching, staged precision --
+  11. ``SweepApiSmoke``, float32 at full width: ``run_sweep_checkpointed``
+     at n = 1000, B = 128 from phase 7's starts, fused (K3), in segments of
+     25, once uninterrupted and once killed after segment 2 and resumed
+     from its file (the same x, steps and residuals bit for bit; the median
+     within 5 % of phase 7's); ``solve_compiled_traced`` of one lane, fused
+     (K2; NaN / -1 past the stop, the last row the state's residual);
+     ``chip_sweep --staged-precision --fused`` at B = 128 (phase 2's median
+     below phase 1's, no lane above its phase 1) and
+     ``staged_precision_ripm_solve`` at B = 16 ('high', then 'highest');
+     ``instance_batched_riptrm`` over 8 NonnegPCA n = 1000 instances x 2
+     starts drawn on the card, fused (K2 once a lane a step, K3 never; each
+     lane within ``INSTANCE_X_TOL`` of its own one-lane fused solve), 4
+     St(128, 8) instances x 2 starts (the Stiefel kernel once a lane at
+     B = 1) and 8 LowRank 64 x 32 rank-8 instances, plain; ``paper_sweep``'s
+     device configuration on the ten tracked n = 50 instances (every lane at
+     or below 1e-3), its report in a temporary directory;
+  -- launch counters read: K2, K3 and the Stiefel-bound kernel launched --
   8. CUDA-event times of each kernel and its plain version (events around
      windows of back-to-back calls, divided by the count), each with its
      bound (``riptrm_torch/experiment/roofline.py``'s accounting) and, for
@@ -665,6 +684,7 @@ class Smoke:
                 if fused:
                     self.final[b] = st
                     check(med <= 1e-3 and launches > 0, f"batched sweep B={b} failed")
+        self.medians = medians  # phase 11 holds its checkpointed sweep to them
         b = self.lanes[0]
         say(f"phase 7 B={b} median residual: fused {medians[(b, True)]:.3e}, "
             f"plain {medians[(b, False)]:.3e}")
@@ -1683,9 +1703,10 @@ SWEEP_CASES = (  # 10: chip_sweep runs, (problem, size, batch, the kernel they l
 PROTOCOL_RUNS = (("NonnegPCA", "RSQO,RIPTRM,RALM,RIPM"), ("Rosenbrock", "RIPTRM,RIPM"))
 PROTOCOL_STEPS = 3000  # 10: protocol_speedrun --max-steps (lanes that miss run all of it)
 PROTOCOL_R5 = os.path.join(ROOT, "result", "protocol_speedrun_r5.json")
-# ROADMAP queue 3: the port's RALM group on NonnegPCA/1 misses r5's target
-# (the reference's own batched sweep misses it too, at 4.777e-4 on the CPU);
-# it is held to that batched result instead.
+# ROADMAP queue 3's known behaviours: the port's RALM group on NonnegPCA/1
+# can miss r5's target (its subsolver's iteration count flips at step 4,
+# and the reference's own batched sweep misses it too, at 4.777e-4 on the
+# CPU); it is held to that batched result instead.
 PROTOCOL_KNOWN_MISS = {"NonnegPCA/1/RALM_SteepestDescent": 4.7766e-4}
 
 
@@ -1829,6 +1850,301 @@ class ExperimentSmoke:
                 say(f"  {phase.__name__}: {time.perf_counter() - t0:.1f} s")
         finally:
             os.chdir(cwd)
+
+
+# -- phase 11: the sweep API, instance batching, staged precision ----------
+CKPT_SEGMENT = 25  # 11: run_sweep_checkpointed's segment_steps
+CKPT_KILL_AFTER = 2  # 11: the killed run raises after this segment
+CKPT_MEDIAN_SLACK = 1.05  # 11: its median against phase 7's fused B = 128 median
+STAGED_RIPM_LANES = 16  # 11: staged_precision_ripm_solve's lanes (phase 7's B = 16 starts)
+STAGED_RIPM_STEPS = 60  # 11: each RIPM phase's step budget
+INSTANCES, INSTANCE_STARTS = 8, 2  # 11: NonnegPCA n = 1000 instances x starts
+INSTANCE_X_TOL = 1e-2  # 11: ||x_b - x_seq|| of a lane against its one-lane solve
+BPCA_INSTANCES, BPCA_STARTS, BPCA_STEPS = 4, 2, 100  # 11: St(128, 8) instances x starts
+LOWRANK_INSTANCES = 8  # 11: LowRank at LOWRANK_SHAPE, plain tCG
+PAPER_TOL = 1e-3  # 11: every paper_sweep lane at or below it
+PAPER_STEPS = 2000  # 11: paper_sweep --max-steps (the CLI's default)
+
+
+class SweepApiSmoke:
+    """Phase 11: the single-card sweep API, instance batching and staged
+    precision at full width, float32, on phase 6's n = 1000 instance (K3
+    against one shared Zs; K2 once a lane under instance batching) and on
+    St(128, 8) instances (the Stiefel kernel once a lane at B = 1)."""
+
+    def __init__(self, smoke):
+        import tempfile
+
+        self.smoke = smoke
+        self.device = smoke.device
+        self.tmp = tempfile.mkdtemp(prefix="riptrm_sweep_api_")
+        self.gen = torch.Generator(self.device).manual_seed(11)
+        self.f32 = dict(dtype=torch.float32, device=self.device)
+        self.dev_args = [] if self.device.type == "cuda" else ["--device", "cpu"]
+
+    def phase_checkpointed(self):
+        """11.1: ``run_sweep_checkpointed`` at B = 128 from phase 7's starts,
+        fused (K3), uninterrupted, then killed after segment 2 and resumed
+        from its file: the same final x, steps and residuals, bit for bit."""
+        from riptrm_torch.ops import kernels as k
+        from riptrm_torch.parallel.sweep import run_sweep_checkpointed
+
+        smoke = self.smoke
+        b = max(smoke.lanes)
+        st0 = smoke.start[b]
+        opt = smoke.option | {"use_fused_tcg": True}
+        kw = dict(max_steps=smoke.steps, segment_steps=CKPT_SEGMENT)
+        before = k.launch_counts()[SPHERE_KERNELS[2]]
+        (x_ref, _, ks_ref, res_ref), t_ref = wall(
+            lambda: run_sweep_checkpointed(smoke.problem, opt, st0.x, st0.y, **kw), self.device)
+        launches = k.launch_counts()[SPHERE_KERNELS[2]] - before
+        path = os.path.join(self.tmp, "sweep.npz")
+
+        class Kill(Exception):
+            pass
+
+        def killer(n_seg, steps, res, done):
+            if n_seg == CKPT_KILL_AFTER:
+                raise Kill
+
+        t0 = time.perf_counter()
+        try:
+            run_sweep_checkpointed(smoke.problem, opt, st0.x, st0.y, checkpoint_path=path,
+                                   on_segment=killer, **kw)
+            check(False, "11.1: the killed sweep ran to its end")
+        except Kill:
+            pass
+        t_kill = time.perf_counter() - t0
+        segs = []
+        (x, _, ks, res), t_res = wall(
+            lambda: run_sweep_checkpointed(smoke.problem, opt, st0.x, st0.y,
+                                           checkpoint_path=path,
+                                           on_segment=lambda n, s, r, d: segs.append(n), **kw),
+            self.device)
+        med, med7 = float(torch.median(res_ref)), smoke.medians[(b, True)]
+        top = int(ks_ref.max())
+        say(f"phase 11.1 run_sweep_checkpointed n={smoke.n} B={b} fused, segments of "
+            f"{CKPT_SEGMENT}: median residual {med:.3e} (phase 7 {med7:.3e}), steps max {top}, "
+            f"K3 launches {launches}, {t_ref:.3f} s uninterrupted ({1e3 * t_ref / max(top, 1):.2f} "
+            f"ms a step); killed after segment {CKPT_KILL_AFTER} in {t_kill:.3f} s, resumed at "
+            f"segment {segs[0] if segs else None} in {t_res:.3f} s; the checkpoint "
+            f"{os.path.getsize(path) / 1e6:.2f} MB")
+        check(segs[:1] == [CKPT_KILL_AFTER + 1], f"11.1: resumed at segment {segs[:1]}")
+        check(torch.equal(x, x_ref) and torch.equal(ks, ks_ref) and torch.equal(res, res_ref),
+              "11.1: the resumed sweep is not the uninterrupted one bit for bit")
+        check(med <= CKPT_MEDIAN_SLACK * med7, f"11.1: median {med} above phase 7's {med7}")
+        check(launches > 0, "11.1: K3 was not launched")
+
+    def phase_traced(self):
+        """11.2: ``solve_compiled_traced`` of one lane at n = 1000, fused
+        (K2): finite rows to the lane's stop, NaN / -1 after, the last row's
+        residual the returned state's."""
+        from riptrm_torch.ops import kernels as k
+        from riptrm_torch.ops.kkt import compute_residual
+        from riptrm_torch.solvers.riptrm import RIPTRM
+
+        smoke = self.smoke
+        solver = RIPTRM(smoke.option | {"use_fused_tcg": True})
+        solve = solver.solve_compiled_traced(smoke.problem, smoke.steps)
+        before = k.launch_counts()[SPHERE_KERNELS[1]]
+        (st, kk, trace), t = wall(lambda: solve(smoke.state0), self.device)
+        launches = k.launch_counts()[SPHERE_KERNELS[1]] - before
+        n = int(kk[0])
+        res = trace["residual"][0]
+        final = compute_residual(smoke.problem, st.x, st.y)[0][0]
+        say(f"phase 11.2 solve_compiled_traced n={smoke.n} fused: {n} steps, residual "
+            f"{float(res[0]):.3e} -> {float(res[n - 1]):.3e} (state {float(final):.3e}), outer "
+            f"{int(trace['outer_iter'][0, n - 1])}, K2 launches {launches}, {t:.3f} s")
+        check(n > 0 and bool(torch.isfinite(res[:n]).all()), "11.2: a non-finite row")
+        check(bool(torch.isnan(res[n:]).all()) and bool((trace["outer_iter"][0, n:] == -1).all())
+              and bool((trace["inner_status"][0, n:] == -1).all()),
+              "11.2: rows past the stop are not NaN / -1")
+        check(bool(res[n - 1] == final), "11.2: the last row is not the state's residual")
+        check(launches > 0, "11.2: K2 was not launched")
+
+    def phase_staged(self):
+        """11.3: ``chip_sweep --staged-precision --fused`` at n = 1000,
+        B = 128 (K3), then ``staged_precision_ripm_solve`` at B = 16, plain,
+        'high' then 'highest'."""
+        import dataclasses
+
+        from riptrm_torch.experiment import chip_sweep
+        from riptrm_torch.ops import kernels as k
+        from riptrm_torch.parallel.sweep import staged_precision_ripm_solve
+
+        smoke = self.smoke
+        os.environ["RIPTRM_CACHE_DIR"] = os.path.join(self.tmp, "cache")
+        before = k.launch_counts()[SPHERE_KERNELS[2]]
+        t0 = time.perf_counter()
+        out = chip_sweep.main(["--problem", "NonnegPCA", "--size", str(smoke.n), "--batch",
+                               str(max(smoke.lanes)), "--fused", "--staged-precision",
+                               "--reps", "1"] + self.dev_args)
+        t = time.perf_counter() - t0
+        launches = k.launch_counts()[SPHERE_KERNELS[2]] - before
+        say(f"phase 11.3 chip_sweep --staged-precision --fused n={smoke.n} "
+            f"B={max(smoke.lanes)}: phase 1 ('{out['precision']}') median "
+            f"{out['phase1_median_residual']:.3e} max {out['phase1_max_residual']:.3e}, phase 2 "
+            f"('highest', tolresid {out['staged_tolresid']:g}) median "
+            f"{out['median_residual']:.3e} max {out['max_residual']:.3e}, "
+            f"{out['floor_improvement_x']:.2f}x; {out['sweep_ms']:.1f} ms a staged sweep, "
+            f"mean steps {out['mean_steps']:.1f} (max {out['max_steps_taken']}), lanes above "
+            f"phase 1 {out['lanes_above_phase1']}, K3 launches {launches}, cache "
+            f"{out['cache']}, {t:.1f} s in all")
+        check(out["median_residual"] < out["phase1_median_residual"],
+              "11.3: phase 2's median is not below phase 1's")
+        check(out["lanes_above_phase1"] == 0, "11.3: a lane ended phase 2 above phase 1")
+        check(launches > 0, "11.3: K3 was not launched")
+
+        b = STAGED_RIPM_LANES
+        st0 = smoke.start[b]
+        lo = dataclasses.replace(smoke.problem, matmul_precision="high")
+        hi = dataclasses.replace(smoke.problem, matmul_precision="highest")
+        opt_lo = SWEEP_OPTIONS["RIPM"]
+        opt_hi = opt_lo | {"tolresid": opt_lo["tolresid"] / 10}
+        staged = staged_precision_ripm_solve(lo, hi, opt_lo, opt_hi, STAGED_RIPM_STEPS)
+        (_, ks, res2, res1), t = wall(lambda: staged(st0.x, st0.y), self.device)
+        med1, med2 = float(torch.median(res1)), float(torch.median(res2))
+        say(f"phase 11.3 staged_precision_ripm_solve n={smoke.n} B={b}: phase 1 ('high') median "
+            f"{med1:.3e}, phase 2 ('highest', tolresid {opt_hi['tolresid']:g}) median "
+            f"{med2:.3e}, steps max {int(ks.max())}, {t:.3f} s")
+        check(bool(torch.isfinite(res2).all()), "11.3: non-finite staged RIPM residuals")
+        check(bool((res2 <= res1 * (1.0 + 1e-4)).all()),
+              "11.3: a staged RIPM lane ended above its phase 1")
+
+    def phase_instances(self):
+        """11.4: ``instance_batched_riptrm`` over NonnegPCA n = 1000
+        instances x starts drawn on the card, fused (K2 once a lane, K3
+        never), each lane held to its own one-lane fused solve; St(128, 8)
+        instances (the Stiefel kernel once a lane at B = 1); LowRank
+        instances at the JAX chip width, plain."""
+        from riptrm_torch.ops import kernels as k
+        from riptrm_torch.ops.kkt import compute_residual
+        from riptrm_torch.parallel.sweep import instance_batched_riptrm
+        from riptrm_torch.problems import bounded_pca, low_rank, nonneg_pca
+        from riptrm_torch.solvers.riptrm import RIPTRM, init_state
+
+        smoke, dev, f32 = self.smoke, self.device, self.f32
+        n, b = smoke.n, INSTANCES * INSTANCE_STARTS
+        z = torch.stack([nonneg_pca.generate_instance(self.gen, n, **f32)["Z"]
+                         for _ in range(INSTANCES)]).repeat_interleave(INSTANCE_STARTS, 0)
+        xs = torch.abs(torch.randn(b, n, generator=self.gen, **f32))
+        xs = xs / torch.linalg.vector_norm(xs, dim=-1, keepdim=True)
+        ys = torch.ones(b, n, **f32)
+        opt = smoke.option | {"use_fused_tcg": True}
+        solve = instance_batched_riptrm(opt, smoke.steps)
+        before = k.launch_counts()
+        (x, _, ks, res), t = wall(lambda: solve(z, xs, ys), dev)
+        after = k.launch_counts()
+        k2 = after[SPHERE_KERNELS[1]] - before[SPHERE_KERNELS[1]]
+        k3 = after[SPHERE_KERNELS[2]] - before[SPHERE_KERNELS[2]]
+        top = int(ks.max())
+        say(f"phase 11.4 instance_batched_riptrm NonnegPCA n={n}, {INSTANCES} instances x "
+            f"{INSTANCE_STARTS} starts fused: median residual {float(torch.median(res)):.3e}, "
+            f"max {float(res.max()):.3e}, steps max {top}, K2 launches {k2}, K3 launches {k3}, "
+            f"{t:.3f} s ({1e3 * t / max(top, 1):.2f} ms a step)")
+        check(k2 >= top and k3 == 0, f"11.4: K2 launches {k2}, K3 launches {k3}")
+        solver = RIPTRM(opt)
+        dists, seq = [], []
+        t0 = time.perf_counter()
+        for i in range(b):
+            p = nonneg_pca.make_problem(z[i], xs[i])
+            st, _ = solver.solve_compiled(p, smoke.steps)(init_state(p, solver.option))
+            seq.append(float(compute_residual(p, st.x, st.y)[0][0]))
+            dists.append(float(torch.linalg.vector_norm(x[i] - st.x[0])))
+        say(f"  each lane against its one-lane fused solve ({time.perf_counter() - t0:.1f} s): "
+            f"max ||x_b - x_seq|| {max(dists):.3e} (limit {INSTANCE_X_TOL:g}), one-lane "
+            f"residuals max {max(seq):.3e}")
+        check(float(res.max()) <= 1e-3 and max(seq) <= 1e-3, "11.4: a residual above 1e-3")
+        check(max(dists) <= INSTANCE_X_TOL, f"11.4: a lane {max(dists)} from its own solve")
+
+        # BoundedPCA St(128, 8): the Stiefel kernel once a lane at B = 1
+        m, p_ = 128, 8
+        zb = torch.stack([bounded_pca.generate_instance(self.gen, m, **f32)["Z"]
+                          for _ in range(BPCA_INSTANCES)]).repeat_interleave(BPCA_STARTS, 0)
+        nb = BPCA_INSTANCES * BPCA_STARTS
+        frames = torch.stack([bounded_pca.generate_initialpoint(self.gen, m, p_, **f32)
+                              for _ in range(nb)])
+        bprob = bounded_pca.make_problem(zb, frames)
+        floor = 2e-4 * max(1.0, (bprob.num_ineq / 200) ** 0.5)
+        widths, launch = [], k._launch_stiefel
+
+        def spy(zs_, d, x_, *rest):
+            widths.append(x_.shape[0])
+            return launch(zs_, d, x_, *rest)
+
+        k._launch_stiefel = spy
+        try:
+            solve = instance_batched_riptrm(bench_option(floor) | {"use_fused_tcg": True},
+                                            BPCA_STEPS,
+                                            problem_builder=bounded_pca.make_problem)
+            before = k.launch_counts()[STIEFEL_KERNEL]
+            (xb, _, kb, resb), t = wall(
+                lambda: solve(zb, frames, torch.ones(nb, bprob.num_ineq, **f32)), dev)
+            stl = k.launch_counts()[STIEFEL_KERNEL] - before
+        finally:
+            k._launch_stiefel = launch
+        orth = torch.linalg.matrix_norm(xb.mT @ xb - torch.eye(p_, **f32)).max()
+        say(f"phase 11.4 instance_batched_riptrm St({m}, {p_}), {BPCA_INSTANCES} instances x "
+            f"{BPCA_STARTS} starts fused, {BPCA_STEPS} steps: median residual "
+            f"{float(torch.median(resb)):.3e}, max {float(resb.max()):.3e}, steps max "
+            f"{int(kb.max())}, Stiefel kernel launches {stl}, widest {max(widths, default=0)}, "
+            f"max ||x'x - I|| {float(orth):.2e}, {t:.3f} s")
+        check(bool(torch.isfinite(resb).all()), "11.4: non-finite St(128, 8) residuals")
+        check(stl >= int(kb.max()) and stl == len(widths) and set(widths) == {1},
+              f"11.4: Stiefel launches {stl}, widths {sorted(set(widths))}")
+
+        # LowRank at the JAX chip width, plain
+        mm, nn, kk = LOWRANK_SHAPE
+        a = torch.stack([low_rank.generate_instance(self.gen, mm, nn, kk, **f32)["A"]
+                         for _ in range(LOWRANK_INSTANCES)])
+        starts = [low_rank.generate_initialpoint(self.gen, mm, nn, kk, **f32)
+                  for _ in range(LOWRANK_INSTANCES)]
+        lprob = low_rank.make_problem(a, starts[0])
+        xl = torch.stack([lprob.manifold.pack(s) for s in starts])
+        yl = torch.ones(LOWRANK_INSTANCES, lprob.num_ineq, **f32)
+        r0 = compute_residual(lprob, xl, yl)[0]
+        floor = 2e-4 * math.sqrt(lprob.num_ineq / 200)
+        before = k.launch_counts()
+        solve = instance_batched_riptrm(bench_option(floor), FAMILY_SWEEP_STEPS["LowRank"],
+                                        problem_builder=low_rank.make_problem)
+        (_, _, kl, resl), t = wall(lambda: solve(a, xl, yl), dev)
+        moved = {n_: v - before[n_] for n_, v in k.launch_counts().items() if v != before[n_]}
+        say(f"phase 11.4 instance_batched_riptrm LowRank {mm} x {nn} rank {kk}, "
+            f"{LOWRANK_INSTANCES} instances plain: median residual "
+            f"{float(torch.median(r0)):.3e} -> {float(torch.median(resl)):.3e}, steps max "
+            f"{int(kl.max())}, {t:.3f} s, kernel launches {moved}")
+        check(bool(torch.isfinite(resl).all()), "11.4: non-finite LowRank residuals")
+        check(float(torch.median(resl)) < float(torch.median(r0)),
+              "11.4: LowRank's median residual did not fall")
+        check(not moved, "11.4: a kernel launched on LowRank's plain path")
+
+    def phase_paper_sweep(self):
+        """11.5: ``paper_sweep``'s device configuration (float32, tolresid
+        2e-4, the float32 floors, TF32 scoped to the problems) on the ten
+        tracked n = 50 instances, its report in a scratch directory."""
+        from riptrm_torch.experiment import paper_sweep
+
+        out_path = os.path.join(self.tmp, "paper_sweep.json")
+        t0 = time.perf_counter()
+        out = paper_sweep.main(["--out", out_path, "--max-steps", str(PAPER_STEPS),
+                                "--plot", os.path.join(self.tmp, "paper_sweep.png")]
+                               + self.dev_args)
+        t = time.perf_counter() - t0
+        res = [job["residual"] for job in out["jobs"].values()]
+        say(f"phase 11.5 paper_sweep ({out['dtype']}, {len(res)} lanes): residuals "
+            + ", ".join(f"{lab} {job['residual']:.3e} ({job['steps']})"
+                        for lab, job in out["jobs"].items())
+            + f"; median {out['median_residual']:.3e}, solve {out['solve_s']:.3f} s, "
+            f"{t:.1f} s in all")
+        check(len(res) == paper_sweep.N_INSTANCES and max(res) <= PAPER_TOL,
+              f"11.5: a paper_sweep lane above {PAPER_TOL}")
+
+    def run(self):
+        for phase in (self.phase_checkpointed, self.phase_traced, self.phase_staged,
+                      self.phase_instances, self.phase_paper_sweep):
+            t0 = time.perf_counter()
+            phase()
+            say(f"  {phase.__name__}: {time.perf_counter() - t0:.1f} s")
 
 
 def phase_certificates(smoke, stiefel):
@@ -2134,6 +2450,13 @@ def main(argv):
     ExperimentSmoke(device).run()
     read_counts("experiment layer", (SPHERE_KERNELS[2], STIEFEL_KERNEL), report, keep=())
     say(f"experiment layer (phase 10): {time.perf_counter() - t_path:.1f} s")
+
+    k.reset_launch_counts()  # the sweep API's paths start here
+    t_path = time.perf_counter()
+    SweepApiSmoke(smoke).run()
+    read_counts("sweep API", SPHERE_KERNELS[1:] + (STIEFEL_KERNEL,), report, keep=())
+    say(f"sweep API, instance batching, staged precision (phase 11): "
+        f"{time.perf_counter() - t_path:.1f} s")
 
     smoke.phase_timings()
     stiefel.phase_timings()

@@ -10,6 +10,8 @@ do, passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -38,3 +40,29 @@ def as_tensor(a, dtype=None, device=None) -> torch.Tensor:
         )
     dtype, device = resolve(dtype, device)
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)  # a copy
+
+
+# A problem's ``matmul_precision`` names, as in the JAX package: 'high' is
+# TF32 on CUDA (torch's own name), 'highest' full float32.
+MATMUL_PRECISIONS = ("high", "highest")
+
+
+def check_matmul_precision(precision):
+    """``precision`` if it is None or one of ``MATMUL_PRECISIONS``; raises
+    otherwise."""
+    if precision is not None and precision not in MATMUL_PRECISIONS:
+        raise ValueError(f"matmul_precision={precision!r}: None, 'high' (TF32 on CUDA) or "
+                         "'highest' (full float32)")
+    return precision
+
+
+@contextlib.contextmanager
+def matmul_precision(precision: str):
+    """``torch``'s float32 matmul precision set to ``precision`` inside the
+    block and restored on exit, however the block ends."""
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(check_matmul_precision(precision))
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(old)

@@ -3,11 +3,14 @@
 Counterpart of ``riptrm_tpu/experiment/checkpoint.py``:
 
 * solver level: a solver state (one of the port's state dataclasses, or a
-  flat dict of arrays) is saved as an .npz keyed by field name under the
-  JAX package's key names (``leaf.x``, ``leaf.h_lam``; ``leaf['a']`` for a
-  dict), with JSON metadata (elapsed time, log so far) inside the archive,
-  so a host-driven run resumes mid-budget (``RIPTRM.run`` with
-  ``checkpoint_path`` and ``resume``);
+  dict of arrays and states) is saved as an .npz keyed by field name under
+  the JAX package's key names (``leaf.x``, ``leaf.h_lam``; ``leaf['a']``
+  for a dict, ``leaf['state'].x`` for a state inside one, as a
+  checkpointed sweep's carry holds it), with JSON metadata (elapsed time,
+  log so far) inside the archive, so a host-driven run resumes mid-budget
+  (``RIPTRM.run`` with ``checkpoint_path`` and ``resume``) and a
+  checkpointed sweep resumes at its last segment
+  (``parallel/sweep.py::run_sweep_checkpointed``);
 * sweep level: the simulator skips (instance, initial point, solver) jobs
   whose log already exists (``skip_existing``), so multirun sweeps restart
   shard by shard.
@@ -30,14 +33,20 @@ import numpy as np
 import torch
 
 
-def _fields(state):
-    """[(archive key, value)] of a state dataclass or a flat dict."""
+def _fields(state, prefix="leaf"):
+    """[(archive key, value)] of a state dataclass, or of a dict of arrays
+    and state dataclasses (the keys of ``jax.tree_util.keystr``)."""
     if dataclasses.is_dataclass(state):
-        return [(f"leaf.{f.name}", getattr(state, f.name)) for f in dataclasses.fields(state)]
+        return [(f"{prefix}.{f.name}", getattr(state, f.name))
+                for f in dataclasses.fields(state)]
     if isinstance(state, dict):
-        return [(f"leaf[{k!r}]", v) for k, v in state.items()]
+        out = []
+        for k, v in state.items():
+            key = f"{prefix}[{k!r}]"
+            out += _fields(v, key) if dataclasses.is_dataclass(v) else [(key, v)]
+        return out
     raise TypeError(f"cannot checkpoint a {type(state).__name__}: a state dataclass "
-                    "or a dict of arrays")
+                    "or a dict of arrays and states")
 
 
 def _numpy(a):
@@ -115,8 +124,10 @@ def load_state(path: str, template: Any, manifold=None) -> Tuple[Any, dict]:
 
     A dataclass template gets torch tensors; a field stored without the
     template's lane axis (a JAX one-lane checkpoint) gets it back, and a
-    tuple point is packed by ``manifold.pack``.  A dict template gets numpy
-    arrays.  A checkpoint of another state layout raises ``ValueError``."""
+    tuple point is packed by ``manifold.pack``.  A dict template gets each
+    entry in the kind of its template entry: a state, a tensor (the
+    template's dtype and device) or a numpy array.  A checkpoint of another
+    state layout raises ``ValueError``."""
     entries = _fields(template)
     keys = [k for k, _ in entries]
     with np.load(path) as data:
@@ -137,12 +148,21 @@ def load_state(path: str, template: Any, manifold=None) -> Tuple[Any, dict]:
             with open(path + ".meta.json") as f:
                 meta = json.load(f)
     if isinstance(template, dict):
-        return {k: np.asarray(stored[key], dtype=_numpy(v).dtype)
-                for (key, v), k in zip(entries, template)}, meta
+        out = {}
+        for k, v in template.items():
+            key = f"leaf[{k!r}]"
+            if dataclasses.is_dataclass(v):
+                out[k] = _to_state(v, stored, manifold, key)
+            elif isinstance(v, torch.Tensor):
+                out[k] = torch.as_tensor(np.asarray(stored[key]), dtype=v.dtype,
+                                         device=v.device)
+            else:
+                out[k] = np.asarray(stored[key], dtype=_numpy(v).dtype)
+        return out, meta
     return _to_state(template, stored, manifold), meta
 
 
-def _to_state(template, stored, manifold):
+def _to_state(template, stored, manifold, prefix="leaf"):
     """A state of ``template``'s class from its stored fields, through
     ``base.state_from_numpy``: unbatched fields (a JAX host run's) become
     one lane; each field keeps the template's dtype and device."""
@@ -151,14 +171,13 @@ def _to_state(template, stored, manifold):
     d, unbatched = {}, []
     for f in dataclasses.fields(template):
         t = getattr(template, f.name)
-        v = stored[f"leaf.{f.name}"]
+        v = stored[f"{prefix}.{f.name}"]
         if isinstance(v, tuple):
-            shape = tuple(manifold.pack(tuple(torch.as_tensor(a[None]) for a in v)).shape)
-            unbatched.append(True)
+            shape = tuple(manifold.pack(tuple(torch.as_tensor(np.asarray(a)) for a in v)).shape)
         else:
             shape = tuple(np.shape(v))
-            unbatched.append(shape == tuple(t.shape[1:]) and tuple(t.shape[:1]) == (1,))
-            shape = (1,) + shape if unbatched[-1] else shape
+        unbatched.append(shape == tuple(t.shape[1:]) and tuple(t.shape[:1]) == (1,))
+        shape = (1,) + shape if unbatched[-1] else shape
         if shape != tuple(t.shape):
             raise ValueError(f"checkpoint field {f.name} has shape {shape}, the state "
                              f"{tuple(t.shape)}: another problem or lane count")

@@ -33,13 +33,25 @@ float32, with the JAX chip sweep's float32 forcing floors.
 ``--fused`` routes the tCG to the hand-written kernels (``use_fused_tcg``:
 K3 on NonnegPCA, the Stiefel-bound kernel on BoundedPCA).  Runs on CUDA
 device 0 unless ``--device cpu``; raises without CUDA otherwise.
-Reduced matmul precisions (``--precision``) and the staged-precision
-modes (``--staged-*``) wait for ROADMAP.md queue 1 item 7.
+
+``--precision high|highest`` sets NonnegPCA's or StableIdentification's
+``matmul_precision``, scoped to the problem's operators ('high' is TF32
+on CUDA; without the flag the port's float32 matmuls run in full float32,
+where the JAX CLI defaults to 'high').  ``--staged-precision`` (RIPTRM,
+NonnegPCA) runs ``staged_precision_riptrm_solve``: phase 1 at
+``--precision`` (default 'high') with the float32 floors, phase 2
+continuing every lane at 'highest' with 10x tighter floors, a stall window
+of 25 and ``--staged-tolresid``; both phases' residuals are reported.
+With ``--fused`` the kernels compute in float32 under either setting, so
+the phases differ in their tolerances only.  ``--staged-compact`` and
+``--staged-segment-steps`` (the compacted staged solve) are not ported
+(ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import pathlib
@@ -109,17 +121,20 @@ def _cache_store(problem_name: str, size: int, batch: int, seed: int, payload):
 
 
 def build_sweep(problem_name: str, size: int, batch: int, seed: int = 0, cache: bool = True,
-                *, dtype=torch.float32, device=None):
+                *, dtype=torch.float32, device=None, matmul_precision=None):
     """An instance and a stacked batch of starts -> (problem, xs0 [B, ...],
     ys0 [B, m]) on ``device`` (default CUDA device 0) in ``dtype``.
     ``cache=True`` reads the JAX package's payload or the port's own, and
-    stores a payload it had to generate (``torch_`` key)."""
+    stores a payload it had to generate (``torch_`` key).
+    ``matmul_precision`` goes to the families that take it (NonnegPCA,
+    StableIdentification)."""
     payload, _ = _cache_load(problem_name, size, batch, seed) if cache else (None, None)
     if payload is None:
         payload = _generate_payload(problem_name, size, batch, seed)
         if cache:
             _cache_store(problem_name, size, batch, seed, payload)
-    return _build_from_payload(problem_name, size, batch, payload, dtype=dtype, device=device)
+    return _build_from_payload(problem_name, size, batch, payload, dtype=dtype, device=device,
+                               matmul_precision=matmul_precision)
 
 
 def _rosenbrock_k(n: int) -> int:
@@ -199,8 +214,11 @@ def _generate_payload(problem_name: str, size: int, batch: int, seed: int):
                      f"BoundedPCA and LowRank; got {problem_name}")
 
 
+PRECISION_FAMILIES = ("NonnegPCA", "StableIdentification")
+
+
 def _build_from_payload(problem_name: str, size: int, batch: int, payload, *,
-                        dtype=torch.float32, device=None):
+                        dtype=torch.float32, device=None, matmul_precision=None):
     """(problem, xs0, ys0) from a (possibly cached) payload; a start of a
     product or fixed-rank manifold is packed into the port's one tensor a
     lane."""
@@ -208,6 +226,10 @@ def _build_from_payload(problem_name: str, size: int, batch: int, payload, *,
 
     dtype, device = resolve(dtype, device)
     kw = dict(dtype=dtype, device=device)
+    if matmul_precision is not None and problem_name not in PRECISION_FAMILIES:
+        raise ValueError(f"matmul_precision: {problem_name} takes none (only "
+                         f"{', '.join(PRECISION_FAMILIES)} do)")
+    prec = {} if matmul_precision is None else {"matmul_precision": matmul_precision}
 
     def tensor(a):
         return torch.as_tensor(np.asarray(a), **kw)
@@ -216,13 +238,13 @@ def _build_from_payload(problem_name: str, size: int, batch: int, payload, *,
         from riptrm_torch.problems import nonneg_pca
 
         xs0 = tensor(payload["b_xs0"])
-        problem = nonneg_pca.make_problem(payload["Z"], xs0[0], **kw)
+        problem = nonneg_pca.make_problem(payload["Z"], xs0[0], **kw, **prec)
     elif problem_name == "StableIdentification":
         from riptrm_torch.problems import stable_identification as si
 
         starts = (payload["b_J"], payload["b_R"], payload["b_Q"])
         problem = si.make_problem(size, list(payload["trajs"]), payload["constset"],
-                                  tuple(a[0] for a in starts), **kw)
+                                  tuple(a[0] for a in starts), **kw, **prec)
         xs0 = problem.manifold.pack(tuple(tensor(a) for a in starts))
     elif problem_name == "Rosenbrock":
         from riptrm_torch.problems import rosenbrock
@@ -266,12 +288,15 @@ def _solve_fn(problem, option, max_steps, solver):
     return run
 
 
-def measure_sweep(problem, xs0, ys0, option, max_steps, reps=3, solver="RIPTRM"):
+def measure_sweep(problem, xs0, ys0, option, max_steps, reps=3, solver="RIPTRM",
+                  make_solve=None):
     """Wall time of the batched solver sweep, averaged over ``reps`` runs.
 
-    A one-step run first pays the one-time costs (library handles, the
-    first launch of each kernel); with ``use_fused_tcg`` on the card the
-    kernels are built before it.  Each timed run lies between two CUDA
+    ``make_solve(max_steps) -> run(xs, ys) -> (final, steps, residuals)``
+    replaces the solver's own sweep (the staged solve does).  A one-step
+    run first pays the one-time costs (library handles, the first launch
+    of each kernel); with ``use_fused_tcg`` on the card the kernels are
+    built before it.  Each timed run lies between two CUDA
     events (a host clock on the CPU) around a synchronised call.  Returns
     (seconds per sweep, final residuals [B] (numpy), warm-up seconds,
     steps [B] (numpy), final (x, y), hand-written kernel launches in the
@@ -286,14 +311,16 @@ def measure_sweep(problem, xs0, ys0, option, max_steps, reps=3, solver="RIPTRM")
         if cuda:
             torch.cuda.synchronize(xs0.device)
 
-    warm = _solve_fn(problem, option, 1, solver)
+    if make_solve is None:
+        make_solve = lambda steps: _solve_fn(problem, option, steps, solver)  # noqa: E731
+    warm = make_solve(1)
     sync()
     t0 = time.perf_counter()
     warm(xs0, ys0)
     sync()
     warmup_s = time.perf_counter() - t0
 
-    run = _solve_fn(problem, option, max_steps, solver)
+    run = make_solve(max_steps)
     before = kernels.launch_counts()
     times = []
     for _ in range(reps):
@@ -355,18 +382,33 @@ def main(argv=None):
     parser.add_argument("--reps", type=int, default=3, help="timed runs to average")
     parser.add_argument("--device", default=None,
                         help="torch device (default: CUDA device 0; 'cpu' for the CPU)")
-    for flag in ("--precision", "--staged-tolresid", "--staged-segment-steps"):
-        parser.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    for flag in ("--staged-precision", "--staged-compact"):
-        parser.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--precision", choices=["high", "highest"], default=None,
+                        help="the problem's matmul_precision (NonnegPCA, StableIdentification; "
+                             "'high' is TF32 on CUDA); default: full float32, and 'high' for "
+                             "--staged-precision's phase 1")
+    parser.add_argument("--staged-precision", action="store_true",
+                        help="two-phase staged precision (RIPTRM, NonnegPCA): phase 1 at "
+                             "--precision with the float32 floors, phase 2 continuing every "
+                             "lane at 'highest' with 10x tighter floors and --staged-tolresid; "
+                             "both phases' residuals reported")
+    parser.add_argument("--staged-tolresid", type=float, default=3e-6,
+                        help="phase-2 residual target for --staged-precision")
+    parser.add_argument("--staged-compact", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--staged-segment-steps", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
-    for name in ("precision", "staged_precision", "staged_compact", "staged_tolresid",
-                 "staged_segment_steps"):
+    for name in ("staged_compact", "staged_segment_steps"):
         if getattr(args, name) not in (None, False):
             raise NotImplementedError(
-                f"--{name.replace('_', '-')}: reduced matmul precisions and the staged-"
-                "precision sweeps wait for ROADMAP.md queue 1 item 7 (the port's float32 "
-                "matmuls run in full float32)")
+                f"--{name.replace('_', '-')}: the compacted staged-precision solve "
+                "(staged_precision_riptrm_compacted) is not ported (ROADMAP.md queue 1 item 7)")
+    if args.staged_precision and (args.solver != "RIPTRM" or args.exact
+                                  or args.problem != "NonnegPCA"):
+        parser.error("--staged-precision is the RIPTRM tCG NonnegPCA floor-chasing mode (phase "
+                     "2 rebuilds the problem at matmul_precision='highest')")
+    precision = args.precision or ("high" if args.staged_precision else None)
+    if precision is not None and args.problem not in PRECISION_FAMILIES:
+        parser.error(f"--precision applies to {', '.join(PRECISION_FAMILIES)} (the families "
+                     "with a matmul_precision)")
     if args.certify and (args.solver != "RIPTRM" or args.problem == "StableIdentification"):
         parser.error("--certify needs RIPTRM final states and affine constraints "
                      "(StableIdentification's annulus terminal duals make any terminal "
@@ -385,7 +427,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     _, source = _cache_load(args.problem, args.size, args.batch, args.seed)
     problem, xs0, ys0 = build_sweep(args.problem, args.size, args.batch, args.seed,
-                                    dtype=dtype, device=device)
+                                    dtype=dtype, device=device, matmul_precision=precision)
     gen_s = time.perf_counter() - t0
 
     # float32 forcing floors.  The complementarity criterion is a 2-norm
@@ -411,9 +453,36 @@ def main(argv=None):
         option["sweep_stall_window"] = args.stall_window
     option.update(parse_option(kv) for kv in args.option)
 
+    make_solve, staged_res1 = None, []
+    if args.staged_precision:
+        from riptrm_torch.parallel.sweep import staged_precision_riptrm_solve
+
+        # Phase 2: the same problem at 'highest', floors 10x lower, and a
+        # stall guard so that floored lanes do not hold the lockstep budget.
+        problem_hi = dataclasses.replace(problem, matmul_precision="highest")
+        compl_floor_hi = compl_floor / 10.0
+        option_hi = option | {
+            "tolresid": args.staged_tolresid,
+            "forcing_function_Lagrangian": lambda mu: torch.clamp(mu, min=1e-5),
+            "forcing_function_complementarity":
+                lambda mu: torch.clamp(1e-3 * mu, min=compl_floor_hi),
+            "sweep_stall_window": option.get("sweep_stall_window", 25),
+        }
+
+        def make_solve(steps):
+            staged = staged_precision_riptrm_solve(problem, problem_hi, option, option_hi,
+                                                   steps)
+
+            def run(xs, ys):
+                st, ks, res2, res1 = staged(xs, ys)
+                staged_res1[:] = [res1]  # the last run's phase-1 residuals
+                return (st.x, st.y), ks, res2
+
+            return run
+
     per_sweep, res, warmup_s, steps, final, launches = measure_sweep(
         problem, xs0, ys0, option, max_steps=args.max_steps, reps=args.reps,
-        solver=args.solver)
+        solver=args.solver, make_solve=make_solve)
     if device.type == "cuda":
         from riptrm_torch.utils.devices import name_and_power_limit
 
@@ -425,10 +494,14 @@ def main(argv=None):
         "size": args.size,
         "batch": args.batch,
         "solver": args.solver,
-        "mode": "exact" if args.exact else "tCG",
+        "mode": ("staged_precision" if args.staged_precision
+                 else "exact" if args.exact else "tCG"),
         "fused": args.fused,
-        # which iterate the residuals score: RALM defaults to its best one
-        "point": "best" if option.get("keep_best_point", args.solver == "RALM") else "final",
+        "precision": precision,
+        # which iterate the residuals score: RALM and the staged
+        # continuation default to their best one
+        "point": ("best" if args.staged_precision
+                  or option.get("keep_best_point", args.solver == "RALM") else "final"),
         **({"rsqo_linear_solver": args.rsqo_linear_solver} if args.solver == "RSQO" else {}),
         "solves_per_sec": args.batch / per_sweep,
         "sweep_ms": per_sweep * 1e3,
@@ -444,6 +517,17 @@ def main(argv=None):
         "warmup_s": warmup_s,
         "device": card,
     }
+    if args.staged_precision:
+        res1 = staged_res1[0].cpu().numpy()
+        out |= {
+            "phase2_precision": "highest",
+            "staged_tolresid": args.staged_tolresid,
+            "phase1_median_residual": float(np.median(res1)),
+            "phase1_max_residual": float(np.max(res1)),
+            "phase1_residuals": [float(r) for r in res1],
+            "floor_improvement_x": float(np.median(res1) / max(np.median(res), 1e-30)),
+            "lanes_above_phase1": int(np.sum(res > res1)),
+        }
     if args.certify:
         from riptrm_torch.parallel.sweep import certify_second_order
 

@@ -6,7 +6,7 @@ directions of the lane-batched operator (dim batched applications; one
 per component on a ``Product``, ``Manifold.map_basis``) and one batched
 projection; ``constraint_grad_rows`` fans one frozen ``vjp`` out
 over the constraints the same way.  ``materialize_sharded`` is not ported
-yet (ROADMAP.md queue 1, item 7).
+yet (ROADMAP.md queue 1, item 5).
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ reference scales out by Hydra multirun forking OS processes, and
 across the processes of a run.  The process index and count come from an
 initialised ``torch.distributed`` group, else 0 of 1.  Initialising the
 group (the JAX module's ``initialize``) waits for ROADMAP.md queue 1
-item 7 (scale-out).
+item 5 (scale-out).
 """
 
 from __future__ import annotations

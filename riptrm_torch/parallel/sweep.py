@@ -1,17 +1,25 @@
 """Batched multi-start sweeps over the lane axis.
 
 Counterpart of ``riptrm_tpu/parallel/sweep.py``: ``init_state_from``,
-``batched_riptrm_solve``, the solver-generic sweeps of all four solvers
-(``batched_solver_sweep``, ``batched_protocol_sweep``, ``protocol_single``,
-through ``_solver_plumbing``), ``batched_ripm_continue`` and
+``batched_riptrm_solve`` and its continuation ``batched_riptrm_continue``,
+the solver-generic sweeps of all four solvers (``batched_solver_sweep``,
+``batched_protocol_sweep``, ``protocol_single``, through
+``_solver_plumbing``), ``batched_ripm_continue``, the staged-precision
+solves (``staged_precision_riptrm_solve``, ``staged_precision_ripm_solve``),
+``run_sweep`` and the checkpointed segments (``make_segment_solver``,
+``run_sweep_checkpointed``), ``instance_batched_riptrm`` and
 ``certify_second_order``.  The JAX package ``vmap``s a per-lane
 ``lax.while_loop``; here the solver state carries the lanes and one
 lane-batched step runs them in lockstep, a finished lane frozen at its
 stop.  With ``use_fused_tcg`` every step's tCG is one launch of a batched
 kernel against the shared Zs: K3 on NonnegPCA, the Stiefel-bound kernel on
-BoundedPCA.  ``certify_second_order`` certifies a batch of final points.
-Meshes, sharding and staged precision (``staged_precision_ripm_solve``
-among them) wait for ROADMAP.md queue 1 item 7.
+BoundedPCA; under instance batching, where each lane has its own Zs, one
+one-lane launch per lane (``solvers/riptrm.py::fused_tcg_route``).
+``certify_second_order`` certifies a batch of final points.  Meshes and
+sharding (``sharded_riptrm_solve``, the ``mesh`` of ``run_sweep`` and
+``run_sweep_checkpointed``) wait for ROADMAP.md queue 1 item 5; the
+compacted staged solve (``staged_precision_riptrm_compacted``) is not
+ported (item 7).
 
 The JAX package's ``_warn_vmapped_lanczos`` is not ported: under ``vmap``
 the tCG mode's Lanczos certificate runs on every step of every lane, but
@@ -22,11 +30,15 @@ hold.
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 
+import numpy as np
 import torch
 
 from riptrm_torch.ops.kkt import compute_residual
 from riptrm_torch.ops.spectrum import lanczos
+from riptrm_torch.solvers.base import select_lanes
 from riptrm_torch.solvers.riptrm import RIPTRM, RiptrmState, _barrier_ops, init_state
 
 
@@ -74,6 +86,57 @@ def batched_riptrm_solve(problem, option, max_steps: int):
         state, k = solve(init_state_from(problem, solver.option, xs0, ys0))
         res = compute_residual(problem, state.x, state.y)[0]
         return state, k, res
+
+    return run
+
+
+def batched_riptrm_continue(problem, option, max_steps: int):
+    """Fixed-budget RIPTRM solve continuing from prior final states
+    (``RiptrmState`` over lanes), phase 2 of a staged-precision sweep: the
+    outer and inner counters and the inner-reset anchors (x, y, radius) are
+    re-seeded on every lane and the exact-mode cache invalidated (the new
+    problem's matmul precision changes the materialisation), while mu and
+    the trust region carry on.  ``keep_best_point`` is on unless ``option``
+    says otherwise: the continuation works at the precision floor, where a
+    lane must not hand back a state worse than its own best.  Returns a
+    function (states) -> (state, steps [B], residuals [B])."""
+    option = {"keep_best_point": True, **(option or {})}
+    solver = RIPTRM(_batched_exact_defaults(option))
+    solve = solver.solve_compiled(problem, max_steps)
+
+    def run(st):
+        st = dataclasses.replace(
+            st,
+            outer_iter=torch.zeros_like(st.outer_iter),
+            inner_count=torch.zeros_like(st.inner_count),
+            inner_x0=st.x,
+            inner_y0=st.y,
+            inner_tr0=st.tr_radius,
+            cache_valid=torch.zeros_like(st.cache_valid),
+        )
+        state, k = solve(st)
+        return state, k, compute_residual(problem, state.x, state.y)[0]
+
+    return run
+
+
+def staged_precision_riptrm_solve(problem_lo, problem_hi, option_lo, option_hi,
+                                  max_steps: int):
+    """Two-phase staged-precision batched solve: phase 1 runs
+    ``problem_lo`` (e.g. ``matmul_precision='high'``, TF32 on CUDA) to its
+    float32 floor, phase 2 continues every lane under ``problem_hi`` (e.g.
+    'highest') with ``option_hi``'s tighter tolerances and forcing floors
+    (``batched_riptrm_continue``).  The fused tCG kernels compute in FP32
+    under either setting, so on the fused route the phases differ in their
+    tolerances only.  Returns a function (xs0, ys0) -> (final states, total
+    steps [B], phase-2 residuals [B], phase-1 residuals [B])."""
+    s1 = batched_riptrm_solve(problem_lo, option_lo, max_steps)
+    s2 = batched_riptrm_continue(problem_hi, option_hi, max_steps)
+
+    def run(xs0, ys0):
+        st1, k1, res1 = s1(xs0, ys0)
+        st2, k2, res2 = s2(st1)
+        return st2, k1 + k2, res2, res1
 
     return run
 
@@ -215,6 +278,27 @@ def batched_ripm_continue(problem, option, max_steps: int):
     return run
 
 
+def staged_precision_ripm_solve(problem_lo, problem_hi, option_lo, option_hi,
+                                max_steps: int):
+    """Two-phase staged-precision batched RIPM solve, the RIPM counterpart
+    of ``staged_precision_riptrm_solve``: phase 1 runs ``problem_lo`` to
+    its floor, phase 2 continues every lane under ``problem_hi`` with
+    ``option_hi`` (``batched_ripm_continue``).  Returns a function (xs0,
+    ys0) -> (final states, total steps [B], phase-2 residuals [B], phase-1
+    residuals [B])."""
+    solve1, start1, _ = _solver_plumbing(problem_lo, "RIPM", option_lo, max_steps)
+    cont = batched_ripm_continue(problem_hi, option_hi, max_steps)
+
+    def run(xs0, ys0):
+        st0, extras = start1(xs0, ys0)
+        st1, k1, _ = solve1(st0, *extras, -math.inf)
+        res1 = compute_residual(problem_lo, st1.x, st1.z, st1.y)[0]
+        st2, k2, res2 = cont(st1)
+        return st2, k1 + k2, res2, res1
+
+    return run
+
+
 def certificate_operator(problem, xs, ys, ratio_cap=None):
     """(hw, cx, feasible [B]): the condensed barrier Hessian Hw at each (x, y)
     that ``certify_second_order`` certifies, the start direction's gradient
@@ -261,3 +345,198 @@ def certify_second_order(problem, xs, ys, *, num_iters=64, ratio_cap=None):
     _, _, ritz = lanczos(hw, v0, man.inner_at(xs),
                          min(num_iters, man.dim))
     return torch.where(feasible, ritz[:, 0], torch.full_like(ritz[:, 0], float("nan")))
+
+
+def instance_batched_riptrm(option, max_steps: int, problem_builder=None):
+    """Fixed-budget RIPTRM solve over problem instances x starts at once:
+    lane b solves instance ``data[b]`` from ``xs0[b]``.
+
+    ``problem_builder(data [B, ...], xs0 [B, ...]) -> Problem`` builds one
+    problem over the B instances, its per-lane data lane-leading
+    (``Problem.data``); the default is ``nonneg_pca.make_problem`` with
+    data Z [B, n, n], and e.g. ``low_rank.make_problem`` takes A [B, m, n]
+    with packed (U, S, V) starts.  With ``use_fused_tcg`` each lane's tCG
+    is its own one-lane launch against its own Zs (K2 on the sphere, the
+    Stiefel kernel at B = 1), never K3.  Returns a function (data, xs0,
+    ys0 [B, m]) -> (x_final, y_final, steps [B], residuals [B])."""
+    if problem_builder is None:
+        from riptrm_torch.problems import nonneg_pca
+
+        problem_builder = nonneg_pca.make_problem
+    solver = RIPTRM(_batched_exact_defaults(option))
+
+    def run(data, xs0, ys0):
+        problem = problem_builder(data, xs0)
+        solve = solver.solve_compiled(problem, max_steps)
+        st, k = solve(init_state_from(problem, solver.option, xs0, ys0))
+        return st.x, st.y, k, compute_residual(problem, st.x, st.y)[0]
+
+    return run
+
+
+def _as_lanes(problem, a):
+    """``a`` as a tensor on the problem's device, in its dtype."""
+    like = problem.y0
+    if not isinstance(a, torch.Tensor):
+        a = np.array(a)  # a writable copy (a JAX array's view is read-only)
+    return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+
+
+def _as_stacked_points(problem, xs0):
+    """Starts as one lane-leading tensor: a list of points stacks, and a
+    tuple of lane-leading components (the JAX package's (J, R, Q) or
+    (U, S, V) pytree points) is packed by ``manifold.pack`` into the port's
+    layout."""
+    if isinstance(xs0, list):
+        return torch.stack([_as_lanes(problem, a) for a in xs0])
+    if isinstance(xs0, tuple):
+        return problem.manifold.pack(tuple(_as_lanes(problem, a) for a in xs0))
+    return _as_lanes(problem, xs0)
+
+
+def _no_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            f"mesh={mesh!r}: sharded sweeps wait for ROADMAP.md queue 1 item 5 (scale-out "
+            "on torch.distributed)")
+
+
+def run_sweep(problem, option, xs0, ys0, *, max_steps=2000, mesh=None, axis="dp"):
+    """Convenience wrapper of ``batched_riptrm_solve``: starts as arrays,
+    lists or tuple points (``_as_stacked_points``).  Returns (x_final,
+    y_final, steps [B], residuals [B])."""
+    _no_mesh(mesh)
+    states, ks, res = batched_riptrm_solve(problem, option, max_steps)(
+        _as_stacked_points(problem, xs0), _as_lanes(problem, ys0))
+    return states.x, states.y, ks, res
+
+
+def make_segment_solver(problem, option, segment_steps: int):
+    """One checkpointable segment of a batched RIPTRM sweep.
+
+    Returns a function (states, done [B]) -> (states, steps [B], residuals
+    [B], done [B]) that runs at most ``segment_steps`` further steps a lane.
+    A lane flagged ``done`` is frozen bit for bit and reports 0 steps (its
+    target +inf is met by its starting residual, so it does not hold the
+    others' loop either); the others' done-ness is the solve's own stop
+    flag, not ``steps < segment_steps``, which cannot tell a lane that
+    stopped on the segment's last step.  The state carries everything the
+    solve resumes from (outer iteration, mu, trust region), so segments
+    compose exactly."""
+    solve = RIPTRM(_batched_exact_defaults(option))._solve_loop(problem, segment_steps)
+
+    def run(states, done):
+        target = torch.where(done, math.inf, -math.inf).to(states.mu.dtype)
+        new, k, stopped, _ = solve(states, target)
+        out = select_lanes(done, states, new)
+        k = torch.where(done, torch.zeros_like(k), k)
+        return out, k, compute_residual(problem, out.x, out.y)[0], done | stopped
+
+    return run
+
+
+# The identity of a sweep hashes the JAX package's option names and values,
+# so both packages stamp one sweep alike: the port's options that have a JAX
+# counterpart under another name enter under that name, options only the
+# port has are left out, and options only the JAX package has enter at its
+# defaults.  Both lists are empty while the defaults differ only by the
+# renamed key (checked in tests/test_torch_sweep_api.py).
+_JAX_OPTION_NAMES = {"use_fused_tcg": "use_pallas_tcg"}
+_PORT_ONLY_OPTIONS = ()
+_JAX_ONLY_DEFAULTS = {}
+
+
+def _sweep_identity(problem, option, xs0, ys0) -> str:
+    """Fingerprint of a checkpointed sweep's inputs: the starts (each
+    component of a packed point, as the JAX package's tuple leaves), the
+    non-callable solver options and the problem's dimensions.  A checkpoint
+    resumed at the same path discards the caller's starts, so a checkpoint
+    of another sweep with the same shapes must be refused.  The same
+    starts, options and dimensions hash to the JAX function's bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    parts = problem.manifold.unpack(xs0)
+    for leaf in (parts if isinstance(parts, tuple) else (parts,)) + (ys0,):
+        arr = np.ascontiguousarray(leaf.detach().cpu().numpy())
+        h.update(str(arr.shape).encode())
+        h.update(str(arr.dtype).encode())
+        h.update(arr.tobytes())
+    opts = {_JAX_OPTION_NAMES.get(k, k): v for k, v in option.items()
+            if not callable(v) and k not in _PORT_ONLY_OPTIONS}
+    opts = _JAX_ONLY_DEFAULTS | opts
+    h.update(repr(sorted(opts.items(), key=lambda kv: kv[0])).encode())
+    h.update(f"m={problem.num_ineq},dim={problem.manifold.dim}".encode())
+    return h.hexdigest()[:16]
+
+
+def run_sweep_checkpointed(problem, option, xs0, ys0, *, max_steps=2000, segment_steps=500,
+                           checkpoint_path=None, mesh=None, axis="dp", meta=None,
+                           on_segment=None):
+    """Fault-tolerant batched sweep: the carry (every lane's solver state,
+    its done flag and its steps) is checkpointed after each segment of
+    ``segment_steps`` steps, and a rerun with the same ``checkpoint_path``
+    resumes from the last completed segment, also from a checkpoint the JAX
+    package wrote (``experiment/checkpoint.py`` reads its key names).
+
+    The budget is exact: the last segment is truncated to ``max_steps``,
+    and the steps done ride in the checkpoint's metadata (``steps_done``;
+    an older checkpoint's ``segments_done`` x its ``segment_steps``), so a
+    resume may take another segment size.  A checkpoint stamped by another
+    sweep (``_sweep_identity``) is refused; one with no stamp resumes with
+    a warning.  ``on_segment(segment, steps_done, residuals, done)`` is
+    called on the host after each segment.  Returns (x_final, y_final,
+    steps [B], residuals [B])."""
+    from riptrm_torch.experiment.checkpoint import load_state, save_state
+
+    _no_mesh(mesh)
+    xs0 = _as_stacked_points(problem, xs0)
+    ys0 = _as_lanes(problem, ys0)
+    solver = RIPTRM(_batched_exact_defaults(option))
+    batch, dev = ys0.shape[0], ys0.device
+    carry = {
+        "state": init_state_from(problem, solver.option, xs0, ys0),
+        "done": torch.zeros(batch, dtype=torch.bool, device=dev),
+        "ks": torch.zeros(batch, dtype=torch.int64, device=dev),
+    }
+    sweep_id = _sweep_identity(problem, solver.option, xs0, ys0)
+    start_meta = {}
+    if checkpoint_path is not None and os.path.exists(checkpoint_path):
+        carry, start_meta = load_state(checkpoint_path, carry, manifold=problem.manifold)
+        saved_id = start_meta.get("sweep_id")
+        if saved_id is not None and saved_id != sweep_id:
+            raise ValueError(
+                f"checkpoint {checkpoint_path} was saved by a DIFFERENT sweep (sweep_id "
+                f"{saved_id} != {sweep_id}): refusing to resume, which would discard the "
+                "caller's xs0/ys0/option; use a fresh checkpoint_path (or delete the file)")
+        if saved_id is None:
+            import warnings
+
+            warnings.warn(
+                f"resuming legacy checkpoint {checkpoint_path} with no sweep identity "
+                "stamp: the caller's xs0/ys0 are ignored in favor of the checkpointed state",
+                stacklevel=2)
+    steps_done = int(start_meta.get(
+        "steps_done",
+        start_meta.get("segments_done", 0) * start_meta.get("segment_steps", segment_steps)))
+    n_seg = int(start_meta.get("segments_done", 0))
+
+    segments = {}  # at most two lengths: segment_steps and the truncated last
+    res = None
+    while steps_done < max_steps and not bool(carry["done"].all()):
+        length = min(segment_steps, max_steps - steps_done)
+        if length not in segments:
+            segments[length] = make_segment_solver(problem, option, length)
+        states, ks, res, done = segments[length](carry["state"], carry["done"])
+        carry = {"state": states, "done": done, "ks": carry["ks"] + ks}
+        steps_done += length
+        n_seg += 1
+        if checkpoint_path is not None:
+            save_state(checkpoint_path, carry, dict(meta or {}, segments_done=n_seg,
+                                                    steps_done=steps_done, sweep_id=sweep_id))
+        if on_segment is not None:
+            on_segment(n_seg, steps_done, res.cpu().numpy(), done.cpu().numpy())
+    st = carry["state"]
+    if res is None:  # a resumed finished sweep, or a zero budget
+        res = compute_residual(problem, st.x, st.y)[0]
+    return st.x, st.y, carry["ks"], res

@@ -5,7 +5,8 @@
 with D = diag(d_1 > ... > d_p > 0).  Counterpart of
 ``riptrm_tpu/problems/bounded_pca.py``; its docstring says why the bound
 is two-sided and why the weights are distinct.  The 2 n p constraints are
-one stacked function [x - b, -x - b], flattened row-major.
+one stacked function [x - b, -x - b], flattened row-major.  A lane-leading
+Z [B, n, n] makes one problem over B instances, each lane's Zs its data.
 """
 
 from __future__ import annotations
@@ -25,14 +26,22 @@ from riptrm_torch.utils.io import loadtxt
 def make_problem(Z, x0, y0=None, bound: float = 0.8, dtype=None, device=None,
                  weights=None) -> Problem:
     """Problem from numpy arrays or tensors (``Z`` [n, n], ``x0`` [n, p],
-    ``y0`` [2 n p]); the default Brockett weights are d_k = 1 + (p - k)/p."""
+    ``y0`` [2 n p]); the default Brockett weights are d_k = 1 + (p - k)/p.
+    A lane-leading ``Z`` [B, n, n] gives the problem of B instances (data
+    and structure ``Zs`` [B, n, n]; of an ``x0`` [B, n, p] lane 0 is
+    kept)."""
     Z = as_tensor(Z, dtype, device)
-    Zs = 0.5 * (Z + Z.T)
+    Zs = 0.5 * (Z + Z.mT)
+    lanes = Z.ndim == 3
     dt, dev = Z.dtype, Z.device
     x0 = as_tensor(x0, dt, dev)
+    if lanes and x0.ndim == 3:
+        x0 = x0[0]
     n, p = x0.shape
     m = 2 * n * p
     y0 = torch.ones(m, dtype=dt, device=dev) if y0 is None else as_tensor(y0, dt, dev)
+    if lanes and y0.ndim == 2:
+        y0 = y0[0]
     b = torch.tensor(bound, dtype=dt, device=dev)
     if weights is None:
         d = 1.0 + torch.arange(p - 1, -1, -1, dtype=dt, device=dev) / p
@@ -40,14 +49,14 @@ def make_problem(Z, x0, y0=None, bound: float = 0.8, dtype=None, device=None,
         d = as_tensor(weights, dt, dev)
     eye = torch.eye(p, dtype=dt, device=dev)
 
-    def cost_fn(x):
-        return -torch.sum((x * (Zs @ x)) * d)
+    def cost_fn(x, zs=Zs):
+        return -torch.sum((x * (zs @ x)) * d)
 
-    def ineq_fn(x):
+    def ineq_fn(x, *_):
         # feasible: x <= b and -x <= b, stacked [2 n p]
         return torch.cat([(x - b).reshape(-1), (-x - b).reshape(-1)])
 
-    def manvio_fn(x):
+    def manvio_fn(x, *_):
         return torch.linalg.matrix_norm(x.mT @ x - eye)
 
     return Problem(
@@ -62,6 +71,7 @@ def make_problem(Z, x0, y0=None, bound: float = 0.8, dtype=None, device=None,
         manvio_fn=manvio_fn,
         # routes the tCG to the Stiefel-bound kernel (ops/kernels.py)
         structure={"kind": "stiefel_bound", "Zs": Zs, "bound": b, "d": d},
+        data=Zs if lanes else None,
     )
 
 

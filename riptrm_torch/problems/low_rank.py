@@ -25,23 +25,33 @@ from riptrm_torch.utils.io import loadtxt
 
 def make_problem(A, x0, y0=None, lb: float = 0.0, dtype=None, device=None) -> EmbeddedProblem:
     """``A``: the target [m, n]; ``x0``: the (U [m, k], S [k], V [n, k])
-    triple, packed into ``problem.x0``; feasibility is X >= lb
-    elementwise (m*n stacked constraints)."""
+    triple or its packed tensor, packed into ``problem.x0``; feasibility is
+    X >= lb elementwise (m*n stacked constraints).  A lane-leading ``A``
+    [B, m, n] gives the problem of B instances, each lane's A its data; of
+    starts over lanes (``x0`` [B, ...]) lane 0 is kept."""
     A = as_tensor(A, dtype, device)
-    m, n = A.shape
+    lanes = A.ndim == 3
+    m, n = A.shape[-2:]
+    if isinstance(x0, torch.Tensor):  # packed, one lane or B
+        k = _packed_rank(x0.shape[-1], m, n)
+        x0 = FixedRankEmbedded(m, n, k).unpack(as_tensor(x0, A.dtype, A.device))
     u0, s0, v0 = (as_tensor(a, A.dtype, A.device) for a in x0)
+    if lanes and u0.ndim == 3:
+        u0, s0, v0 = u0[0], s0[0], v0[0]
     k = u0.shape[1]
     man = FixedRankEmbedded(m, n, k)
     y0 = (torch.ones(m * n, dtype=A.dtype, device=A.device) if y0 is None
           else as_tensor(y0, A.dtype, A.device))
+    if lanes and y0.ndim == 2:
+        y0 = y0[0]
 
-    def cost(X):
-        return 0.5 * torch.sum((X - A) ** 2)
+    def cost(X, a=A):
+        return 0.5 * torch.sum((X - a) ** 2)
 
-    def ineq(X):
+    def ineq(X, *_):
         return (lb - X).reshape(-1)  # feasible: X >= lb elementwise
 
-    def manvio_fn(x):
+    def manvio_fn(x, *_):
         """Factored-representation consistency: orthonormal U, V and S > 0."""
         u, s, v = man.unpack(x)
         eye = torch.eye(k, dtype=s.dtype, device=s.device)
@@ -57,7 +67,17 @@ def make_problem(A, x0, y0=None, lb: float = 0.0, dtype=None, device=None) -> Em
         num_ineq=m * n,
         num_eq=0,
         manvio_fn=manvio_fn,
+        data=A if lanes else None,
     )
+
+
+def _packed_rank(width: int, m: int, n: int) -> int:
+    """k of a packed fixed-rank point of ``width`` = (m + n + 1) k."""
+    k, rem = divmod(width, m + n + 1)
+    if rem or k < 1:
+        raise ValueError(f"a packed point of width {width} is no rank-k point of "
+                         f"{m} x {n} matrices")
+    return k
 
 
 def load_problem(dataset_path: str, initialpoint: str = "a", lb: float = 0.0, dtype=None,

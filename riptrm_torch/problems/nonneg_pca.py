@@ -1,10 +1,11 @@
 """Nonnegative PCA: max x^T Z x on the sphere S^{n-1} with x >= 0.
 
 Counterpart of ``riptrm_tpu/problems/nonneg_pca.py``.  The n per-element
-constraints are one stacked function g(x) = -x.  The TPU-only knobs of the
-JAX version (``matmul_precision`` and the ``Zs`` sharding re-pin) are
-dropped: a float32 matmul on the card runs in full float32 unless TF32 is
-switched on by the caller.
+constraints are one stacked function g(x) = -x.  ``matmul_precision``
+('high': TF32 on CUDA; 'highest': full float32) is scoped to the problem's
+own operators (``problems/problem.py``).  A lane-leading Z [B, n, n] makes
+one problem over B instances, each lane's Zs its data (instance batching).
+The JAX version's ``Zs`` sharding re-pin waits for the port's scale-out.
 """
 
 from __future__ import annotations
@@ -12,34 +13,40 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from riptrm_torch.config import as_tensor, resolve
+from riptrm_torch.config import as_tensor, check_matmul_precision, resolve
 from riptrm_torch.manifolds import Sphere
 from riptrm_torch.problems.problem import Problem
 from riptrm_torch.utils.io import loadtxt
 
 
-def make_problem(Z, x0, y0=None, dtype=None, device=None) -> Problem:
+def make_problem(Z, x0, y0=None, dtype=None, device=None, matmul_precision=None) -> Problem:
     """Problem from numpy arrays or tensors (``Z`` [n, n], ``x0``/``y0`` [n]).
 
     Both packages build from the same ``Zs = 0.5 (Z + Z')``: -x'Zx equals
     -x'Zs x exactly, and the symmetric form makes every Hessian application
-    one matvec."""
+    one matvec.  A lane-leading ``Z`` [B, n, n] gives the problem of B
+    instances: its data and its structure's ``Zs`` are [B, n, n], and
+    ``x0``/``y0`` may be [B, n], of which lane 0 is kept (the sweeps take
+    their starts as arguments)."""
     Z = as_tensor(Z, dtype, device)
-    Zs = 0.5 * (Z + Z.T)
+    Zs = 0.5 * (Z + Z.mT)
+    lanes = Z.ndim == 3
     x0 = as_tensor(x0, Z.dtype, Z.device)
-    n = Z.shape[0]
+    n = Z.shape[-1]
     if y0 is None:
         y0 = torch.ones(n, dtype=Z.dtype, device=Z.device)
     else:
         y0 = as_tensor(y0, Z.dtype, Z.device)
+    if lanes:
+        x0, y0 = (a[0] if a.ndim == 2 else a for a in (x0, y0))
 
-    def cost_fn(x):
-        return -(x @ (Zs @ x))
+    def cost_fn(x, zs=Zs):
+        return -(x @ (zs @ x))
 
-    def ineq_fn(x):
+    def ineq_fn(x, *_):
         return -x  # feasible: x >= 0
 
-    def manvio_fn(x):
+    def manvio_fn(x, *_):
         return torch.linalg.vector_norm(x) - 1.0
 
     return Problem(
@@ -53,6 +60,8 @@ def make_problem(Z, x0, y0=None, dtype=None, device=None) -> Problem:
         num_eq=0,
         manvio_fn=manvio_fn,
         structure={"kind": "sphere_quadratic", "Zs": Zs},
+        data=Zs if lanes else None,
+        matmul_precision=check_matmul_precision(matmul_precision),
     )
 
 

@@ -10,6 +10,22 @@ lane-batched points ``[B, ...]`` and maps the per-lane functions with
 ``torch.func.vmap``.  Constraint values are always flat, ``[B, m]``.  Derivatives come from
 ``torch.func.grad``/``vjp``/``jvp``.
 
+Per-lane instance data (``data`` [B, ...], instance batching in
+``parallel/sweep.py::instance_batched_riptrm``): each per-lane function then
+takes its lane's data as its last argument, ``cost_fn(point, data)``, and
+every method maps the data together with the point.  The JAX package builds
+a problem inside ``vmap`` so that its closed-over data is traced per lane;
+here the data is an argument of the mapped functions instead, so one
+problem serves B instances.
+
+``matmul_precision`` ('high' or 'highest', or None for the process's own
+setting) scopes ``torch``'s float32 matmul precision to the problem's
+operators: every method, and every operator a point-frozen factory returns,
+sets it on entry and restores it on exit, so the derivative products that
+autograd forms inside run at it too, as the JAX package's precision
+reaches a dot's transposes.  On CUDA 'high' is TF32; on the CPU both
+settings compute full float32.
+
 Sign conventions (as in the reference):
   feasible      <=>  ineq(x) <= 0 elementwise (and eq(x) = 0)
   slack         c(x) = -ineq(x) > 0 at strictly feasible points
@@ -28,12 +44,37 @@ per-application ``jvp(grad(...))``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional
 
 import torch
 from torch.func import grad, jvp, vjp, vmap
 
+from riptrm_torch.config import matmul_precision as _precision_scope
 from riptrm_torch.manifolds.base import Manifold
+
+
+def scoped(method):
+    """A ``Problem`` method run under the problem's ``matmul_precision``;
+    an operator it returns (a point-frozen factory's) runs under it too."""
+
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        precision = self.matmul_precision
+        if precision is None:
+            return method(self, *args, **kwargs)
+        with _precision_scope(precision):
+            out = method(self, *args, **kwargs)
+        if not callable(out):
+            return out
+
+        def op(*a):
+            with _precision_scope(precision):
+                return out(*a)
+
+        return op
+
+    return run
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +96,12 @@ class Problem:
     # "Zs": ...} or {"kind": "stiefel_bound", "Zs", "bound", "d"} routes the
     # tCG to a hand-written kernel (ops/kernels.py).
     structure: Optional[dict] = None
+    # Per-lane instance data [B, ...]: the last argument of every per-lane
+    # function above, mapped with the point (None: no such argument).
+    data: Any = None
+    # float32 matmul precision of the problem's operators ('high',
+    # 'highest' or None), set and restored around each of them.
+    matmul_precision: Optional[str] = None
 
     @property
     def has_ineq(self) -> bool:
@@ -64,31 +111,42 @@ class Problem:
     def has_eq(self) -> bool:
         return self.num_eq > 0
 
+    def _map(self, fn):
+        """``fn`` of one lane mapped over the lanes, each lane's data
+        appended to its arguments."""
+        data = () if self.data is None else (self.data,)
+        return lambda *args: vmap(fn)(*args, *data)
+
     # ------------------------------------------------------------------
     # Values over lanes
     # ------------------------------------------------------------------
+    @scoped
     def cost(self, x):
-        return vmap(self.cost_fn)(x)
+        return self._map(self.cost_fn)(x)
 
+    @scoped
     def ineq_val(self, x):
         if not self.has_ineq:
             return x.new_zeros((x.shape[0], 0))
-        return vmap(self.ineq_fn)(x)
+        return self._map(self.ineq_fn)(x)
 
+    @scoped
     def eq_val(self, x):
         if not self.has_eq:
             return x.new_zeros((x.shape[0], 0))
-        return vmap(self.eq_fn)(x)
+        return self._map(self.eq_fn)(x)
 
     def slack(self, x):
         """c(x) = -ineq(x); positive at strictly feasible points."""
         return -self.ineq_val(x)
 
+    @scoped
     def manvio(self, x):
         if self.manvio_fn is None:
             return x.new_zeros(x.shape[0])
-        return vmap(self.manvio_fn)(x)
+        return self._map(self.manvio_fn)(x)
 
+    @scoped
     def apply_callback(self, x, y, z, ev):
         if self.callback is None:
             return ev
@@ -97,53 +155,58 @@ class Problem:
     # ------------------------------------------------------------------
     # First-order operators
     # ------------------------------------------------------------------
+    @scoped
     def egrad(self, x):
-        return vmap(grad(self.cost_fn))(x)
+        return self._map(grad(self.cost_fn))(x)
 
     def rgrad(self, x):
         return self.manifold.egrad2rgrad(x, self.egrad(x))
 
+    @scoped
     def rhess(self, x, v):
         """Riemannian Hessian-vector product of the cost: one jvp of the
         gradient."""
-        eg, eh = jvp(vmap(grad(self.cost_fn)), (x,), (v,))
+        eg, eh = jvp(self._map(grad(self.cost_fn)), (x,), (v,))
         return self.manifold.ehess2rhess(x, eg, eh, v)
 
     # ------------------------------------------------------------------
     # Lagrangian operators (all constraints at once)
     # ------------------------------------------------------------------
-    def _lag(self, x, y, z):
-        val = self.cost_fn(x)
+    def _lag(self, x, y, z, *data):
+        val = self.cost_fn(x, *data)
         if self.has_ineq:
-            val = val + torch.dot(y, self.ineq_fn(x))
+            val = val + torch.dot(y, self.ineq_fn(x, *data))
         if self.has_eq:
-            val = val + torch.dot(z, self.eq_fn(x))
+            val = val + torch.dot(z, self.eq_fn(x, *data))
         return val
 
     def _z(self, x, z):
         return x.new_zeros((x.shape[0], 0)) if z is None else z
 
+    @scoped
     def lag_egrad(self, x, y, z=None):
-        return vmap(grad(self._lag))(x, y, self._z(x, z))
+        return self._map(grad(self._lag))(x, y, self._z(x, z))
 
     def lag_rgrad(self, x, y, z=None):
         """Riemannian gradient of the Lagrangian."""
         return self.manifold.egrad2rgrad(x, self.lag_egrad(x, y, z))
 
+    @scoped
     def lag_rhess(self, x, y, v, z=None):
         """Riemannian Hessian-vector product of the Lagrangian: one jvp of
         its gradient (``lag_rhess_at`` freezes the point's work instead)."""
         z = self._z(x, z)
-        eg, eh = jvp(lambda xx: vmap(grad(self._lag))(xx, y, z), (x,), (v,))
+        eg, eh = jvp(lambda xx: self._map(grad(self._lag))(xx, y, z), (x,), (v,))
         return self.manifold.ehess2rhess(x, eg, eh, v)
 
+    @scoped
     def lag_rhess_at(self, x, y, z=None):
         """Returns v -> Riemannian Hessian-vector product of L at (x, y, z).
 
         The frozen pullback of the lane-batched Lagrangian gradient is
         H v (the Hessian is symmetric, the lanes independent)."""
         z = self._z(x, z)
-        eg, pullback = vjp(lambda xx: vmap(grad(self._lag))(xx, y, z), x)
+        eg, pullback = vjp(lambda xx: self._map(grad(self._lag))(xx, y, z), x)
 
         def hvp(v):
             (eh,) = pullback(v)
@@ -154,15 +217,17 @@ class Problem:
     # ------------------------------------------------------------------
     # Constraint-Jacobian operators in terms of the slack c = -g
     # ------------------------------------------------------------------
+    @scoped
     def gx_adj(self, x, dx):
         """Gxaj(dx)_i = d/dt c_i(x + t dx): one jvp."""
-        _, dg = jvp(lambda xx: vmap(self.ineq_fn)(xx), (x,), (dx,))
+        _, dg = jvp(self._map(self.ineq_fn), (x,), (dx,))
         return -dg
 
+    @scoped
     def gx_at(self, x):
         """Returns v -> Gx(v), the Riemannian gradient of x -> v . c(x),
         with the constraint pullback frozen."""
-        _, pullback = vjp(lambda xx: vmap(self.ineq_fn)(xx), x)
+        _, pullback = vjp(self._map(self.ineq_fn), x)
 
         def gx(v):
             (eg,) = pullback(-v)
@@ -181,10 +246,11 @@ class Problem:
     # ------------------------------------------------------------------
     # Equality-constraint operators (the analogues of gx / gx_adj on h)
     # ------------------------------------------------------------------
+    @scoped
     def hx_at(self, x):
         """Returns v -> Hx(v), the Riemannian gradient of x -> v . h(x),
         with the equality pullback frozen."""
-        _, pullback = vjp(lambda xx: vmap(self.eq_fn)(xx), x)
+        _, pullback = vjp(self._map(self.eq_fn), x)
 
         def hx(v):
             (eg,) = pullback(v)
@@ -196,7 +262,8 @@ class Problem:
         """Hx(v) = sum_i v_i rgrad h_i: one vjp."""
         return self.hx_at(x)(v)
 
+    @scoped
     def hx_adj(self, x, dx):
         """Hxaj(dx)_i = d/dt h_i(x + t dx): one jvp."""
-        _, dh = jvp(lambda xx: vmap(self.eq_fn)(xx), (x,), (dx,))
+        _, dh = jvp(self._map(self.eq_fn), (x,), (dx,))
         return dh

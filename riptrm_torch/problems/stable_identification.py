@@ -17,10 +17,10 @@ the JAX package takes from ``jax.random`` come here from a
 ``torch.Generator``.  ``generate_interior_initialpoint_lsq`` runs all its
 starts as lanes of one lane-masked conjugate gradient.
 
-Not ported: the ``mesh``/``data_axis`` sharding of the trajectory data
-(ROADMAP.md queue 1 item 7).  ``matmul_precision`` takes None and
-'highest' only: a float32 matmul on the card runs in full float32 unless
-the caller switches TF32 on.
+``matmul_precision`` ('high': TF32 on CUDA; 'highest': full float32) is
+scoped to the problem's own operators (``problems/problem.py``).  Not
+ported: the ``mesh``/``data_axis`` sharding of the trajectory data
+(ROADMAP.md queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ import numpy as np
 import torch
 from torch.func import grad, vmap
 
-from riptrm_torch.config import as_tensor, resolve
+from riptrm_torch.config import as_tensor, check_matmul_precision, resolve
 from riptrm_torch.manifolds import Product, SkewSymmetric, SymmetricPositiveDefinite
 from riptrm_torch.ops.spectrum import eigvalsh_nan
 from riptrm_torch.problems.problem import Problem
@@ -113,12 +113,8 @@ def make_problem(
     if mesh is not None:
         raise NotImplementedError(
             f"mesh={mesh!r}, data_axis={data_axis!r}: sharding the trajectory data "
-            "waits for ROADMAP.md queue 1 item 7")
-    if matmul_precision not in (None, "highest"):
-        raise NotImplementedError(
-            f"matmul_precision={matmul_precision!r}: the port's float32 matmuls run in "
-            "full float32 (None and 'highest' are that); reduced-precision passes are "
-            "not ported")
+            "waits for ROADMAP.md queue 1 item 5")
+    check_matmul_precision(matmul_precision)
     if not x_trajs and not cost_zero:
         raise ValueError(
             "make_problem got no trajectories with cost_zero=False: the "
@@ -187,6 +183,7 @@ def make_problem(
         num_ineq=m,
         num_eq=0,
         manvio_fn=manvio_fn,
+        matmul_precision=matmul_precision,
     )
 
 

@@ -36,7 +36,13 @@ where the kernel's plan holds the problem (``fused_tcg_route``): a
 ``sphere_quadratic`` problem to ``ops/kernels.py`` (K2 at B = 1, K3 at
 B > 1), a ``stiefel_bound`` problem to the Stiefel-bound kernel of the same
 module (one kernel for K4a and K4b, at every B); elsewhere the plain
-``truncated_cg`` runs, as in the JAX package.  Exact mode runs no tCG.
+``truncated_cg`` runs, as in the JAX package.  A structure whose Zs is per
+lane [B, n, n] (instance batching) runs one one-lane launch a lane (K2, or
+the Stiefel kernel at B = 1): both kernels share one Zs across their
+lanes.  Exact mode runs no tCG.
+
+``solve_compiled(..., return_done=True)`` also returns each lane's stop
+flag; ``solve_compiled_traced`` records a per-lane, per-step trace.
 
 ``sweep_stall_window`` and ``keep_best_point`` (the JAX options of the
 same names) reach ``base.compiled_best_while`` from the fixed-budget
@@ -77,6 +83,7 @@ from riptrm_torch.solvers.base import (
     merge_options,
 )
 from riptrm_torch.utils.lanes import dot as _dot
+from riptrm_torch.utils.lanes import sym_mv as _sym_mv
 from riptrm_torch.utils.lanes import where_lanes as _lanes
 
 # inner_status codes
@@ -258,23 +265,33 @@ def _outer_update(option, mu):
     return torch.clamp(simple, min=option["min_barrier_parameter"])
 
 
-def fused_tcg_route(kind, manifold, lanes, device):
+def fused_tcg_route(kind, manifold, lanes, device, per_lane=False):
     """The fused tCG kernel that takes a step's tCG, by the problem's
     structure ``kind``, or None for the plain ``truncated_cg``: decided by
     the kernels' plans before any launch, as the JAX package gates its
     kernels on ``fits_in_vmem``.  ``sphere_quadratic``: K2/K3 wherever
     ``ops/kernels.py::tcg_plan`` has a kernel route (n <= 7232);
     ``stiefel_bound``: the Stiefel-bound kernel wherever
-    ``stiefel_plan`` fits."""
+    ``stiefel_plan`` fits.
+
+    ``per_lane``: the structure's Zs carries a lane axis (instance
+    batching).  Both kernels share one Zs across their lanes, so each lane
+    is then its own one-lane launch (K2 on the sphere, the Stiefel kernel
+    at B = 1), as the JAX package's vmap rules ``lax.map`` one-lane kernels
+    over a batched Zs; the route is named ``<kind>_per_lane``."""
     sms = kernels._sms(device)
+    plan_lanes = 1 if per_lane else lanes
+    suffix = "_per_lane" if per_lane else ""
     if kind == "sphere_quadratic":
-        return kind if kernels.tcg_plan(manifold.n, lanes, sms).route != "plain" else None
+        if kernels.tcg_plan(manifold.n, plan_lanes, sms).route == "plain":
+            return None
+        return kind + suffix
     if kind == "stiefel_bound":
         try:
-            kernels.stiefel_plan(manifold.n, manifold.p, lanes, sms)
+            kernels.stiefel_plan(manifold.n, manifold.p, plan_lanes, sms)
         except ValueError:
             return None
-        return kind
+        return kind + suffix
     return None
 
 
@@ -305,9 +322,9 @@ def _materialize_structured(problem, x, y, mu):
     (cost -x'Zs x, constraints -x): Hw's ambient form is A = -2 Zs +
     diag(y/c) with curvature kappa = x'(-2 Zs x - y), so its matrix is one
     O(n^2) congruence per lane, not dim HVPs."""
-    zs = problem.structure["Zs"].to(y.dtype)
+    zs = problem.structure["Zs"].to(y.dtype)  # [n, n], or [B, n, n] per lane
     c = problem.slack(x)
-    zsx = x @ zs  # Zs x per lane (Zs is symmetric)
+    zsx = _sym_mv(zs, x)
     a_mat = -2.0 * zs + torch.diag_embed(y / c)
     kappa = _dot(x, -2.0 * zsx - y)
     h_mat = sphere_householder_congruence(x, a_mat, kappa)
@@ -367,29 +384,37 @@ def make_step(problem, option, callbacks=True):
         kind = (problem.structure or {}).get("kind")
 
     def direction(x, y, c, hw, cx, tr_radius):
-        fused = fused_tcg_route(kind, man, x.shape[0], x.device)
+        zs = problem.structure["Zs"] if kind else None
+        per_lane = zs is not None and zs.ndim == 3
+        fused = fused_tcg_route(kind, man, x.shape[0], x.device, per_lane)
         if fused is None:
             return truncated_cg(man, x, hw, cx, tr_radius, **tcg_kw)
-        zs = problem.structure["Zs"]
-        if fused == "stiefel_bound":
+        if per_lane:
+            # one one-lane launch per lane, each against its own Zs
+            outs = [launch(fused, zs[i], x[i:i + 1], y[i:i + 1], c[i:i + 1], cx[i:i + 1],
+                           tr_radius[i:i + 1]) for i in range(x.shape[0])]
+            dx, h_dx, it, code = (torch.cat(parts) for parts in zip(*outs))
+        else:
+            dx, h_dx, it, code = launch(fused, zs, x, y, c, cx, tr_radius)
+        return dx.to(x.dtype), h_dx.to(x.dtype), it, code
+
+    def launch(fused, zs, x, y, c, cx, tr_radius):
+        """The fused tCG of the lanes of ``x`` against one Zs: the
+        Stiefel-bound kernel, or K2 (one lane) or K3 (several)."""
+        if fused.startswith("stiefel_bound"):
             # one kernel at every B (a single lane is B = 1, as in JAX)
             d = problem.structure["d"]
             ws, ss = kernels.stiefel_bound_pieces(zs, d, x, y, c)
-            dx, h_dx, it, code = kernels.fused_tcg_stiefel_bound_batched(
+            return kernels.fused_tcg_stiefel_bound_batched(
                 zs, d, x, ws, ss, cx, tr_radius, **tcg_kw
             )
-            return dx.to(x.dtype), h_dx.to(x.dtype), it, code
         w = y / c
         if x.shape[0] == 1:
             dx, h_dx, it, code = kernels.fused_tcg_sphere_quadratic(
                 zs, x[0], w[0], cx[0], tr_radius[0], **tcg_kw
             )
-            dx, h_dx, it, code = dx[None], h_dx[None], it.reshape(1), code.reshape(1)
-        else:
-            dx, h_dx, it, code = kernels.fused_tcg_sphere_quadratic_batched(
-                zs, x, w, cx, tr_radius, **tcg_kw
-            )
-        return dx.to(x.dtype), h_dx.to(x.dtype), it, code
+            return dx[None], h_dx[None], it.reshape(1), code.reshape(1)
+        return kernels.fused_tcg_sphere_quadratic_batched(zs, x, w, cx, tr_radius, **tcg_kw)
 
     def step(state: RiptrmState):
         x, y, mu, tr_radius = state.x, state.y, state.mu, state.tr_radius
@@ -912,18 +937,65 @@ class RIPTRM:
         return solve
 
     # ------------------------------------------------------------------
-    def solve_compiled(self, problem, max_steps: int):
+    def solve_compiled(self, problem, max_steps: int, return_done: bool = False):
         """Fixed-budget solve over the lanes of a state.
 
         The JAX package compiles this loop into one ``lax.while_loop``; the
         port's counterpart is a Python loop over device tensors with one
         host check of "every lane done" per step (CUDA graphs are left to a
-        later change).  Returns solve(state) -> (state, steps [B])."""
+        later change).  Returns solve(state) -> (state, steps [B]); with
+        ``return_done`` also each lane's stop flag [B], which tells "met its
+        stopping criterion" from "ran out of ``max_steps``" (a segmented
+        sweep needs it: a lane can stop on a segment's last step)."""
         inner = self._solve_loop(problem, max_steps)
 
         def solve(state):
-            st, k, _, _ = inner(state, -math.inf)
-            return st, k
+            st, k, done, _ = inner(state, -math.inf)
+            return (st, k, done) if return_done else (st, k)
+
+        return solve
+
+    # ------------------------------------------------------------------
+    def solve_compiled_traced(self, problem, max_steps: int):
+        """Fixed-budget solve that also records a per-step trace of every
+        lane, so a batched sweep keeps its residual trajectories.
+
+        Returns solve(state) -> (state, steps [B], trace): a dict of
+        [B, max_steps] tensors ``residual``, ``mu``, ``cost`` (NaN past a
+        lane's stop) and ``inner_status``, ``outer_iter`` (int32, -1 past
+        it).  The stop rule is ``_solve_loop``'s at target -inf; the loop
+        keeps one host check a step."""
+        option = self.option
+        step = make_step(problem, option, callbacks=False)
+        tolresid = option["tolresid"]
+        maxiter = option["maxiter"]
+
+        def solve(state):
+            b, dev, dt = state.mu.shape[0], state.mu.device, state.mu.dtype
+            trace = {name: torch.full((b, max_steps), math.nan, dtype=dt, device=dev)
+                     for name in ("residual", "mu", "cost")}
+            trace |= {name: torch.full((b, max_steps), -1, dtype=torch.int32, device=dev)
+                      for name in ("inner_status", "outer_iter")}
+            k = torch.zeros(b, dtype=torch.int64, device=dev)
+            done = torch.zeros(b, dtype=torch.bool, device=dev)
+            lane = torch.arange(b, device=dev)
+            for _ in range(max_steps):
+                if bool(done.all()):
+                    break
+                new_state, info = step(state)
+                row = {"residual": info["residual"], "mu": info["mu"], "cost": info["cost"],
+                       "inner_status": info["inner_status"].to(torch.int32),
+                       "outer_iter": new_state.outer_iter.to(torch.int32)}
+                live = lane[~done]
+                col = k[~done]
+                for name, buf in trace.items():
+                    buf[live, col] = row[name][~done].to(buf.dtype)
+                stop = (info["converged"] & (info["residual"] <= tolresid)) | (
+                    new_state.outer_iter >= maxiter)
+                state = base.select_lanes(done, state, new_state)
+                k = k + (~done).to(k.dtype)
+                done = done | stop
+            return state, k, trace
 
         return solve
 

@@ -42,6 +42,7 @@ from riptrm_torch.solvers.base import (
 from riptrm_torch.utils.lanes import bcast
 from riptrm_torch.utils.lanes import dot as _dot
 from riptrm_torch.utils.lanes import mv as _mv
+from riptrm_torch.utils.lanes import sym_mv as _sym_mv
 
 QUADOPTIM_TYPES = ("reghess", "reghess_operator", "reghess_shift", "eye")
 
@@ -239,9 +240,9 @@ def make_step(problem, option):
 
     def q_raw_at(x, y, z, basis):
         if structured_sphere:
-            zs = problem.structure["Zs"].to(y.dtype)
-            kappa = _dot(x, -2.0 * (x @ zs) - y)
-            a_mat = (-2.0 * zs).expand(x.shape[0], *zs.shape)
+            zs = problem.structure["Zs"].to(y.dtype)  # [n, n], or [B, n, n] per lane
+            kappa = _dot(x, -2.0 * _sym_mv(zs, x) - y)
+            a_mat = (-2.0 * zs).expand(x.shape[0], *zs.shape[-2:])
             return sphere_householder_congruence(x, a_mat, kappa)
         return materialize_symmetrized(man, x, basis, problem.lag_rhess_at(x, y, z))
 

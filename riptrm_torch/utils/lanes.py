@@ -16,6 +16,13 @@ def mv(a, v):
     return torch.einsum("bij,bj->bi", a, v)
 
 
+def sym_mv(a, v):
+    """A v per lane for a symmetric ``a`` shared by the lanes [n, n] or
+    given per lane [B, n, n] (a structure's Zs under instance batching);
+    ``v`` [B, n]."""
+    return mv(a, v) if a.ndim == 3 else v @ a
+
+
 def bcast(a, like):
     """A per-lane scalar or mask [B] shaped to broadcast against ``like``
     [B, ...]."""

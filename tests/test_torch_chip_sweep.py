@@ -142,8 +142,12 @@ def test_cli_json_line(capsys):
         assert line[key] > 0
 
 
-@pytest.mark.parametrize("flag", [["--precision", "high"], ["--staged-precision"],
-                                  ["--staged-compact"], ["--staged-tolresid", "1e-6"]])
+@pytest.mark.parametrize("flag", [["--staged-compact"], ["--staged-segment-steps", "50"],
+                                  ["--staged-precision", "--staged-compact"],
+                                  ["--staged-precision", "--staged-segment-steps", "50"]])
 def test_jax_only_flags_are_refused(flag):
+    """The compacted staged solve's flags, which are not ported (queue 1
+    item 7); --precision, --staged-precision and --staged-tolresid run
+    (tests/test_torch_staged_precision.py)."""
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         tcs.main(["--size", "32", "--batch", "2", "--device", "cpu"] + flag)

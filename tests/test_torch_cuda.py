@@ -13,7 +13,10 @@ Stiefel-bound kernel eta atol 1e-5, rtol 1e-4 and Heta atol 1e-4, rtol
 counts and stop codes equal; the two chains (K5, K6) as stated below.
 The families without a kernel (StableIdentification, Rosenbrock,
 LowRank) take three RIPTRM steps on the card against the same steps on
-the CPU, float64, rtol 1e-8.
+the CPU, float64, rtol 1e-8.  Instance batching's per-lane Zs runs K2 and
+the Stiefel kernel once a lane at one lane each (K3 never), each launch
+at the bounds above; a 'high' problem's gradient (TF32 in its scope)
+stays within TF32's elementwise bound of the 'highest' one's.
 """
 
 import numpy as np
@@ -660,3 +663,107 @@ def test_new_family_step_on_card_matches_cpu(dev, name, mode):
     np.testing.assert_allclose(sg.y.cpu().numpy(), sc.y.numpy(), rtol=1e-8, atol=1e-12)
     for key in ("residual", "cost", "normdx"):
         np.testing.assert_allclose(float(ig[key][0]), float(ic[key][0]), rtol=1e-8, err_msg=key)
+
+
+def _instances(b, n, dev, seed=3):
+    """B spiked Z [B, n, n] and feasible starts [B, n] from numpy, float32."""
+    rng = np.random.default_rng(seed)
+    zs = []
+    for _ in range(b):
+        v = (rng.permutation(n) < int(0.7 * n)) / np.sqrt(int(0.7 * n))
+        zs.append(np.sqrt(0.5) * np.outer(v, v) + rng.standard_normal((n, n)) / np.sqrt(n))
+    xs = np.abs(rng.standard_normal((b, n)))
+    xs /= np.linalg.norm(xs, axis=1, keepdims=True)
+    kw = dict(dtype=torch.float32, device=dev)
+    return torch.tensor(np.stack(zs), **kw), torch.tensor(xs, **kw)
+
+
+def test_per_lane_zs_runs_k2_once_a_lane(dev):
+    """Instance batching on the sphere: a [B, n, n] Zs takes K2 once a lane
+    (K3 never), each launch against its plain version at the K2 bounds."""
+    from riptrm_torch.parallel.sweep import init_state_from
+    from riptrm_torch.solvers import riptrm
+
+    b, n = 3, 250
+    zs, xs = _instances(b, n, dev)
+    p = nonneg_pca.make_problem(zs, xs)
+    opt = RIPTRM({"TRS_solver": "tCG", "second_order_stationarity": False,
+                  "use_fused_tcg": True}).option
+    st = init_state_from(p, opt, xs, torch.ones_like(xs))
+    tk.reset_launch_counts()
+    riptrm.make_step(p, opt)(st)
+    counts = tk.launch_counts()
+    assert counts["fused_tcg_sphere_quadratic"] == b
+    assert counts["fused_tcg_sphere_quadratic_batched"] == 0
+    c, _, cx = _barrier_ops(p, st.x, st.y, st.mu)
+    for i in range(b):
+        args = (p.structure["Zs"][i], st.x[i:i + 1], (st.y / c)[i:i + 1], cx[i:i + 1],
+                st.tr_radius[i:i + 1])
+        eta, heta, it, code = tk.fused_tcg_sphere_quadratic(
+            args[0], args[1][0], args[2][0], args[3][0], args[4][0], maxinner=n - 1)
+        e_p, h_p, it_p, code_p = tk.fused_tcg_plain(*args, maxinner=n - 1)
+        assert (int(it), int(code)) == (int(it_p[0]), int(code_p[0]))
+        torch.testing.assert_close(eta, e_p[0], atol=2e-4, rtol=1e-3)
+        torch.testing.assert_close(heta, h_p[0], atol=2e-4, rtol=1e-3)
+
+
+def test_per_lane_zs_runs_the_stiefel_kernel_at_one_lane(dev, monkeypatch):
+    """Instance batching on St(128, 8): a [B, n, n] Zs launches the Stiefel
+    kernel once a lane at B = 1 (never with B lanes), each launch against
+    its plain version at the Stiefel bounds."""
+    from riptrm_torch.parallel.sweep import init_state_from
+    from riptrm_torch.solvers import riptrm
+
+    b, n, p_ = 3, 128, 8
+    zs, _ = _instances(b, n, dev)
+    gen = torch.Generator().manual_seed(4)
+    frames = torch.stack([bounded_pca.generate_initialpoint(gen, n, p_, dtype=torch.float32,
+                                                            device="cpu")
+                          for _ in range(b)]).to(dev)
+    prob = bounded_pca.make_problem(zs, frames)
+    opt = RIPTRM({"TRS_solver": "tCG", "second_order_stationarity": False,
+                  "use_fused_tcg": True}).option
+    st = init_state_from(prob, opt, frames, torch.ones(b, prob.num_ineq, dtype=torch.float32,
+                                                       device=dev))
+    widths = []
+    launch = tk._launch_stiefel
+
+    def spy(zs_, d, xs, *rest):
+        widths.append(xs.shape[0])
+        return launch(zs_, d, xs, *rest)
+
+    monkeypatch.setattr(tk, "_launch_stiefel", spy)
+    tk.reset_launch_counts()
+    riptrm.make_step(prob, opt)(st)
+    assert widths == [1] * b
+    assert tk.launch_counts()["fused_tcg_stiefel_bound_batched"] == b
+    c, _, cx = _barrier_ops(prob, st.x, st.y, st.mu)
+    d = prob.structure["d"]
+    for i in range(b):
+        zi = prob.structure["Zs"][i]
+        ws, ss = tk.stiefel_bound_pieces(zi, d, st.x[i:i + 1], st.y[i:i + 1], c[i:i + 1])
+        args = (zi, d, st.x[i:i + 1], ws, ss, cx[i:i + 1], st.tr_radius[i:i + 1])
+        dim = prob.manifold.dim
+        etas, hetas, iters, codes = tk.fused_tcg_stiefel_bound_batched(*args, maxinner=dim)
+        e_p, h_p, it_p, code_p = tk.fused_tcg_stiefel_bound_plain(*args, maxinner=dim)
+        assert iters.tolist() == it_p.tolist() and codes.tolist() == code_p.tolist()
+        torch.testing.assert_close(etas, e_p, atol=1e-5, rtol=1e-4)
+        torch.testing.assert_close(hetas, h_p, atol=1e-4, rtol=1e-3)
+
+
+def test_tf32_scoped_problem_matches_fp32_within_tf32_bound(dev):
+    """A matmul_precision='high' problem's gradient (TF32 inside its scope)
+    against the 'highest' problem's, elementwise within TF32's bound: the
+    inputs rounded to a 10-bit mantissa (2 x 2^-11 relative) and float32
+    accumulation (n x 2^-24), times 2 |Zs| |x|; the process's setting is as
+    it was after the call."""
+    n, b = 1000, 4
+    zs, xs = _instances(1, n, dev)
+    xs = xs.expand(b, n).contiguous()
+    before = torch.get_float32_matmul_precision()
+    hi = nonneg_pca.make_problem(zs[0], xs[0], matmul_precision="high")
+    full = nonneg_pca.make_problem(zs[0], xs[0], matmul_precision="highest")
+    g_hi, g_full = hi.egrad(xs), full.egrad(xs)
+    assert torch.get_float32_matmul_precision() == before
+    bound = (2 * 2.0**-11 + n * 2.0**-24) * 2.0 * (xs.abs() @ full.structure["Zs"].abs())
+    assert bool(((g_hi - g_full).abs() <= bound).all())

@@ -295,6 +295,7 @@ def test_sid_refusals():
     x0 = tuple(np.eye(5) for _ in range(3))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ts.make_problem(5, [], constset, x0, cost_zero=True, mesh=object(), **CPU)
-    with pytest.raises(NotImplementedError, match="matmul_precision"):
-        ts.make_problem(5, [], constset, x0, cost_zero=True, matmul_precision="high", **CPU)
-    ts.make_problem(5, [], constset, x0, cost_zero=True, matmul_precision="highest", **CPU)
+    with pytest.raises(ValueError, match="matmul_precision"):
+        ts.make_problem(5, [], constset, x0, cost_zero=True, matmul_precision="medium", **CPU)
+    for precision in ("high", "highest"):
+        ts.make_problem(5, [], constset, x0, cost_zero=True, matmul_precision=precision, **CPU)
