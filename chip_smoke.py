@@ -13,7 +13,8 @@ Rosenbrock and LowRank, golden and at the JAX package's chip widths,
 single-lane and swept; the experiment layer's CLIs (simulate, checkpoint
 and resume, the sweep CLI with the fused kernels, the protocol speedrun);
 the checkpointed, traced, staged-precision and instance-batched sweeps and
-the 10-instance paper sweep; and the roofline
+the 10-instance paper sweep; scale-out on ``torch.distributed`` (one NCCL
+rank, and processes sharing the card on gloo); and the roofline
 (``python -m riptrm_torch.experiment.roofline``) at its default shapes.
 Checks the six hand-written kernels
 (``riptrm_torch/csrc/sphere_tcg.cu``: K2-K3;
@@ -153,6 +154,26 @@ Phases:
      device configuration on the ten tracked n = 50 instances (every lane at
      or below 1e-3), its report in a temporary directory;
   -- launch counters read: K2, K3 and the Stiefel-bound kernel launched --
+  -- launch counters reset: scale-out --
+  12. ``ScaleOutSmoke``, float32, after phase 11 so that no earlier phase
+     runs inside a process group: 12.1 this process joins a one-rank NCCL
+     group, ``sharded_riptrm_solve`` at n = 1000, B = 128, fused, from
+     phase 7's starts equals phase 7's solve bit for bit (K3; the gathered
+     residuals [128]); then one spawn of two processes sharing the card on
+     gloo (``riptrm_torch/parallel/dryrun.py``'s workers) runs 12.2
+     ``run_sweep`` over dp = 2 (64 lanes a rank, fused; K3 counted in each
+     process; the gathered residuals equal on both, their median at most
+     5 % above phase 7's; ``host_shard`` disjoint and covering) and the
+     checkpointed dp = 2 sweep killed after its first segment, which this
+     process resumes at world size 1 (its median at most 5 % above phase
+     7's); 12.3 StableIdentification d = 32 from phase 6e's instance (dim
+     1552): one data-sharded step against the unsharded step (rtol 1e-3)
+     and ``materialize_sharded`` against ``materialize`` (1e-5 of the
+     largest entry), no kernel launched; and the dry run (dp x tp = 1 x 2:
+     the tp-sharded NonnegPCA with the plain tCG, no kernel launched); 12.4
+     ``experiment/scaling.py::sweep_rate`` at d = 1 by CUDA events (d >= 2
+     not measured: one card);
+  -- launch counters read (K3) --
   8. CUDA-event times of each kernel and its plain version (events around
      windows of back-to-back calls, divided by the count), each with its
      bound (``riptrm_torch/experiment/roofline.py``'s accounting) and, for
@@ -453,6 +474,7 @@ class Smoke:
         # first and final states of the main path's solves, for phase 8
         self.start = {"single": self.state0}
         self.final = {}
+        self.sweep_time = {}
 
     # -- inputs at the main path's shapes ---------------------------------
     def chain_inputs(self):
@@ -683,6 +705,7 @@ class Smoke:
                     self.plain_sweep = (med, 1e3 * t / max(int(steps.max()), 1))
                 if fused:
                     self.final[b] = st
+                    self.sweep_time[b] = t  # phase 12.1 is timed beside it
                     check(med <= 1e-3 and launches > 0, f"batched sweep B={b} failed")
         self.medians = medians  # phase 11 holds its checkpointed sweep to them
         b = self.lanes[0]
@@ -1565,6 +1588,8 @@ class FamilySmoke:
             J, R, Q, _ = si.generate_interior_initialpoint_lsq(
                 self.gen, d, constset, lanes=b, dtype=torch.float64, device=dev)
             problem = si.make_problem(d, trajs, constset, (J[0], R[0], Q[0]), **f32)
+            self.sid_data = {"trajs": np.stack(trajs), "constset": constset, "J": J[0],
+                             "R": R[0], "Q": Q[0]}  # phase 12.3's instance
             xs = problem.manifold.pack(tuple(torch.tensor(a, **f32) for a in (J, R, Q)))
         elif name == "Rosenbrock":
             problem = rosenbrock.make_problem(ROSEN_N, ROSEN_K, alpha=1e7, **f32)
@@ -2147,6 +2172,219 @@ class SweepApiSmoke:
             say(f"  {phase.__name__}: {time.perf_counter() - t0:.1f} s")
 
 
+SCALE_RANKS = 2  # 12.2, 12.3 and the dry run: processes sharing the card on gloo
+SCALE_MEDIAN_SLACK = 1.05  # 12.2: the dp = 2 sweep's median against phase 7's
+SCALE_REPEATS = 3  # 12.1: timed runs each of 12.1's solve and phase 7's, after a warm-up
+SID_STEP_RTOL = 1e-3  # 12.3: the data-sharded step's residual against the unsharded one's
+MATERIALIZE_RTOL = 1e-5  # 12.3: materialize_sharded against materialize, of the largest entry
+
+
+class ScaleOutSmoke:
+    """Phase 12: scale-out on ``torch.distributed``, after phase 11 so that
+    no earlier phase runs inside a process group.  This process joins a
+    one-rank NCCL group (12.1, 12.4 and the resume of 12.2); 12.2, 12.3 and
+    the dry run are one spawn of ``SCALE_RANKS`` processes sharing the card
+    on gloo (``parallel/dryrun.py``'s workers), float32 throughout."""
+
+    def __init__(self, smoke, families):
+        import tempfile
+
+        self.smoke, self.families = smoke, families
+        self.device = smoke.device
+        self.tmp = tempfile.mkdtemp(prefix="riptrm_scale_out_")
+        b = max(smoke.lanes)
+        self.b, self.st0 = b, smoke.start[b]
+        self.option = smoke.option | {"use_fused_tcg": True}
+
+    def phase_one_rank(self):
+        """12.1: ``sharded_riptrm_solve`` in a one-rank NCCL group at
+        n = 1000, B = 128, fused, from phase 7's starts: phase 7's
+        ``batched_riptrm_solve`` on the same lanes bit for bit, K3 launched,
+        the gathered residuals [128].  Then, after the first run of each,
+        SCALE_REPEATS runs of each solve in turn, timed alike: their
+        median and spread."""
+        from riptrm_torch.ops import kernels as k
+        from riptrm_torch.parallel import distributed, sweep
+
+        distributed.initialize(f"file://{os.path.join(self.tmp, 'rendezvous')}", 1, 0,
+                               device=self.device)
+        self.mesh = sweep.make_mesh({"dp": 1}, self.device)
+        distributed.barrier()  # NCCL sets up its communicator here, not in the timed solve
+        smoke, st0 = self.smoke, self.st0
+        solve = sweep.sharded_riptrm_solve(smoke.problem, self.option, smoke.steps, self.mesh)
+        before = k.launch_counts()[SPHERE_KERNELS[2]]
+        (x, _, ks, res), t = wall(lambda: solve(st0.x, st0.y), self.device)
+        launches = k.launch_counts()[SPHERE_KERNELS[2]] - before
+        same = torch.equal(x, smoke.final[self.b].x)
+        say(f"phase 12.1 sharded_riptrm_solve, one NCCL rank, n={smoke.n} B={self.b} fused: "
+            f"median residual {float(res.median()):.3e}, steps max {int(ks.max())}, K3 "
+            f"launches {launches}, {t:.3f} s (phase 7 {smoke.sweep_time[self.b]:.3f} s); x "
+            f"{'equals' if same else 'differs from'} phase 7's bit for bit")
+        plain = sweep.batched_riptrm_solve(smoke.problem, self.option, smoke.steps)
+        t7 = wall(lambda: plain(st0.x, st0.y), self.device)[1]  # its first run here
+        times = {"12.1": [], "phase 7": []}
+        for _ in range(SCALE_REPEATS):
+            times["phase 7"].append(wall(lambda: plain(st0.x, st0.y), self.device)[1])
+            times["12.1"].append(wall(lambda: solve(st0.x, st0.y), self.device)[1])
+        say(f"phase 12.1 after one run of each (12.1 {t:.3f} s, phase 7's solve {t7:.3f} s), "
+            f"{SCALE_REPEATS} runs each in turn: " + "; ".join(
+                f"{name} median {statistics.median(ts):.3f} s, {min(ts):.3f}-{max(ts):.3f}"
+                for name, ts in times.items()))
+        check(tuple(res.shape) == (self.b,), f"12.1: gathered residuals {tuple(res.shape)}")
+        check(same, "12.1: the one-rank sharded solve is not phase 7's solve bit for bit")
+        check(launches > 0, "12.1: K3 was not launched")
+
+    def spawn(self):
+        """12.2, 12.3 and the dry run: one spawn of SCALE_RANKS processes
+        on gloo, their tasks in order."""
+        from riptrm_torch.parallel import dryrun
+
+        smoke, st0 = self.smoke, self.st0
+        inputs = os.path.join(self.tmp, "nonneg.npz")
+        np.savez(inputs, Z=smoke.zs.cpu().numpy(), xs=st0.x.cpu().numpy(),
+                 ys=st0.y.cpu().numpy())
+        sid = os.path.join(self.tmp, "sid.npz")
+        np.savez(sid, **self.families.sid_data)
+        floor = self.families.instance("StableIdentification")[3]
+        option = {"maxiter": 60, "tolresid": 3e-4, "TRS_solver": "tCG",
+                  "second_order_stationarity": False, "do_exit_on_error": False,
+                  "floors": [1e-4, 2e-4]}
+        self.ckpt = os.path.join(self.tmp, "sweep_dp2.npz")
+        nonneg = {"inputs": inputs, "option": option | {"use_fused_tcg": True},
+                  "max_steps": smoke.steps}
+        tasks = [("sweep", nonneg),
+                 ("checkpoint", nonneg | {"path": self.ckpt, "kill_after": 1,
+                                          "segment_steps": CKPT_SEGMENT}),
+                 ("sid_step", {"dataset": sid, "option": option | {"floors": [1e-4, floor]}}),
+                 ("materialize", {"dataset": sid}),
+                 ("dryrun", {})]
+        t0 = time.perf_counter()
+        self.ranks = dryrun.run_tasks(SCALE_RANKS, tasks, os.path.join(self.tmp, "out"),
+                                      device=None if self.device.type == "cuda" else "cpu",
+                                      backend="gloo", timeout=240)
+        say(f"phase 12 spawn of {SCALE_RANKS} processes on gloo (12.2, 12.3, the dry run): "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    def phase_two_processes(self):
+        """12.2: ``run_sweep`` over dp = 2 (``sharded_riptrm_solve``, 64
+        lanes a rank, fused) from phase 7's starts: K3 in each process, the
+        gathered residuals equal on both, their median at most
+        SCALE_MEDIAN_SLACK x phase 7's; ``host_shard`` disjoint and covering;
+        the dp = 2 checkpointed sweep killed after its first segment and
+        resumed here at world size 1."""
+        from riptrm_torch.parallel.sweep import run_sweep_checkpointed
+
+        smoke, ranks = self.smoke, self.ranks
+        med7 = smoke.medians[(self.b, True)]
+        res = [r["sweep.res"] for r in ranks]
+        k3 = [int(r[f"sweep.launches.{SPHERE_KERNELS[2]}"]) for r in ranks]
+        med = float(np.median(res[0]))
+        shards = [set(r["sweep.host_shard"].tolist()) for r in ranks]
+        secs = [round(float(r["sweep.seconds"]), 3) for r in ranks]
+        say(f"phase 12.2 run_sweep dp={SCALE_RANKS} on gloo, n={smoke.n} B={self.b} fused: "
+            f"median residual {med:.3e} (phase 7 {med7:.3e}), max {float(res[0].max()):.3e}, "
+            f"steps max {int(ranks[0]['sweep.ks'].max())}; K3 launches by rank {k3}; s by rank "
+            f"{secs} (phase 7 {smoke.sweep_time[self.b]:.3f} s); host_shard "
+            f"{[sorted(s) for s in shards]}")
+        dtoh, htod = (int(ranks[0][f"sweep.staging_{k}"]) for k in ("dtoh", "htod"))
+        if dtoh < 0:
+            moved = ("the host copies were not measured (the profiler's trace held no device "
+                     "event)")
+        else:
+            moved = (f"torch.profiler's trace of one all-gather of the residuals holds {dtoh} "
+                     f"device-to-host and {htod} host-to-device copies: gloo "
+                     + ("staged them through host memory" if dtoh and htod
+                        else "made no round trip through host memory"))
+        say("phase 12.2 the port passes gloo its CUDA tensors as they are; " + moved)
+        check(all(n > 0 for n in k3), "12.2: K3 was not launched in every process")
+        check(all(np.array_equal(r, res[0]) for r in res), "12.2: gathered residuals differ")
+        check(med <= SCALE_MEDIAN_SLACK * med7, f"12.2: median {med} above phase 7's {med7}")
+        check(shards[0] | shards[1] == set(range(7)) and not shards[0] & shards[1],
+              "12.2: host_shard is not a disjoint cover")
+        check(all(int(r["checkpoint.killed"]) == 1 for r in ranks), "12.2: no kill")
+        segs = []
+        (x, _, ks, res1), t = wall(lambda: run_sweep_checkpointed(
+            smoke.problem, self.option, self.st0.x, self.st0.y, max_steps=smoke.steps,
+            segment_steps=CKPT_SEGMENT, checkpoint_path=self.ckpt, mesh=self.mesh,
+            on_segment=lambda n, s, r, d: segs.append(n)), self.device)
+        med1 = float(res1.median())
+        say(f"phase 12.2 the dp={SCALE_RANKS} checkpoint (killed after segment 1) resumed at "
+            f"world size 1 from segment {segs[0] if segs else None}: median residual "
+            f"{med1:.3e}, max {float(res1.max()):.3e}, steps max {int(ks.max())}, {t:.3f} s")
+        check(segs[:1] == [2], f"12.2: resumed at segment {segs[:1]}")
+        check(bool(torch.isfinite(res1).all()) and med1 <= SCALE_MEDIAN_SLACK * med7,
+              f"12.2: the resumed sweep's median {med1} above phase 7's {med7}")
+
+    def phase_stableid(self):
+        """12.3: StableIdentification d = 32 (dim 1552) at SCALE_RANKS ranks:
+        one data-sharded step against the unsharded step (SID_STEP_RTOL),
+        ``materialize_sharded`` against ``materialize`` (MATERIALIZE_RTOL of
+        the largest entry); no kernel launched."""
+        for r, out in enumerate(self.ranks):
+            r_sh, r_un = float(out["sid_step.residual"]), float(out["sid_step.residual_plain"])
+            dense, sharded = out["materialize.dense"], out["materialize.sharded"]
+            err = float(np.abs(sharded - dense).max() / np.abs(dense).max())
+            counts = {key: int(v) for key, v in out.items()
+                      if key.startswith(("sid_step.launches.", "dryrun.launches."))}
+            say(f"phase 12.3 rank {r}: StableIdentification d={SID_D} data-sharded step "
+                f"residual {r_sh:.6e}, unsharded {r_un:.6e} (rel {abs(r_sh - r_un) / r_un:.2e}), "
+                f"{float(out['sid_step.seconds']):.3f} s against "
+                f"{float(out['sid_step.seconds_plain']):.3f} s; cost at the start "
+                f"{float(out['sid_step.cost']):.9e} against {float(out['sid_step.cost_plain']):.9e}"
+                f"; materialize_sharded {dense.shape} against materialize: max error "
+                f"{err:.2e} of the largest entry ({float(out['materialize.seconds_task']):.3f} s "
+                "for both)")
+            check(abs(r_sh - r_un) <= SID_STEP_RTOL * abs(r_un), "12.3: step residuals differ")
+            check(err <= MATERIALIZE_RTOL, f"12.3: materialize_sharded off by {err}")
+            check(not any(counts.values()), f"12.3 / dry run: a kernel launched {counts}")
+
+    def phase_dryrun(self):
+        """The dry run of ``parallel/dryrun.py`` (dp x tp = 1 x 2: the
+        tp-sharded NonnegPCA n = 256 with the plain tCG, the dp sweep's
+        gathered residuals, a data-sharded StableIdentification d = 8
+        step); it raises on a failed check."""
+        out = self.ranks[0]
+        say(f"phase 12 dry run at world size {SCALE_RANKS} "
+            f"({float(out['dryrun.seconds_task']):.1f} s): tp-sharded residuals "
+            f"{out['dryrun.res'].tolist()}, unsharded {out['dryrun.res_plain'].tolist()}, one "
+            f"step's x within {float(out['dryrun.step_x_diff']):.2e}; dp residuals gathered "
+            f"{out['dryrun.res_all'].shape}; StableIdentification step "
+            f"{float(out['dryrun.sid_residual']):.6e} against "
+            f"{float(out['dryrun.sid_residual_plain']):.6e}")
+
+    def phase_scaling(self):
+        """12.4: ``experiment/scaling.py::sweep_rate`` at d = 1 on the card
+        (CUDA events; n = 256, 4 lanes, the harness's options)."""
+        from riptrm_torch.experiment import scaling
+        from riptrm_torch.parallel.sweep import sharded_riptrm_solve
+
+        problem = scaling.make_instance(scaling.N, device=self.device)
+        rate, med, mx = scaling.sweep_rate(problem, scaling.option(), self.mesh,
+                                           scaling.PER_RANK, scaling.MAX_STEPS, tries=3)
+        clock = "CUDA events" if self.device.type == "cuda" else "the host clock"
+        b, n = scaling.PER_RANK, scaling.N
+        solve = sharded_riptrm_solve(problem, scaling.option(), scaling.MAX_STEPS, self.mesh)
+        (_, _, ks, _), t = wall(lambda: solve(*scaling.starts(problem, b)), self.device)
+        say(f"phase 12.4 scaling d=1 (n={n}, {b} lanes): {rate:.2f} solves/s by {clock}, "
+            f"median residual {med:.3e}, max {mx:.3e}; one more sweep: {int(ks.max())} "
+            f"steps, {1e3 * t / max(int(ks.max()), 1):.2f} ms a step")
+        say("phase 12.4 d >= 2: not measured (one card)")
+        check(rate > 0 and math.isfinite(med) and mx < 1e-3, "12.4: scaling row")
+
+    def run(self):
+        import torch.distributed as dist
+
+        try:
+            for phase in (self.phase_one_rank, self.spawn, self.phase_two_processes,
+                          self.phase_stableid, self.phase_dryrun, self.phase_scaling):
+                t0 = time.perf_counter()
+                phase()
+                say(f"  {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+
 def phase_certificates(smoke, stiefel):
     """7c: second-order certificates at full width.  ``certify_second_order``
     (ratio_cap 1e8) on phase 7's fused NonnegPCA final points (B = 16 and
@@ -2457,6 +2695,12 @@ def main(argv):
     read_counts("sweep API", SPHERE_KERNELS[1:] + (STIEFEL_KERNEL,), report, keep=())
     say(f"sweep API, instance batching, staged precision (phase 11): "
         f"{time.perf_counter() - t_path:.1f} s")
+
+    k.reset_launch_counts()  # the scale-out paths start here
+    t_path = time.perf_counter()
+    ScaleOutSmoke(smoke, families).run()
+    read_counts("scale-out", SPHERE_KERNELS[2:3], report, keep=())
+    say(f"scale-out (phase 12): {time.perf_counter() - t_path:.1f} s")
 
     smoke.phase_timings()
     stiefel.phase_timings()

@@ -115,6 +115,11 @@ class Manifold:
         basis axis."""
         return vmap(fn, in_dims=1, out_dims=out_dims)(basis)
 
+    def basis_slice(self, basis, start: int, stop: int):
+        """The basis vectors ``start`` to ``stop`` (exclusive) of ``basis``,
+        in the form ``map_basis`` takes."""
+        return basis[:, start:stop]
+
     def flat_dim(self, x) -> int:
         """Number of ambient scalars in one lane's point or tangent."""
         return x[0].numel()

@@ -152,6 +152,8 @@ class Product(Manifold):
         components, in one ``vmap`` each."""
         outs = []
         for k, bk in enumerate(basis):
+            if bk.shape[1] == 0:  # a component a ``basis_slice`` left out
+                continue
             zeros = [torch.zeros(b.shape[:1] + b.shape[2:], dtype=b.dtype, device=b.device)
                      for b in basis]
 
@@ -162,3 +164,14 @@ class Product(Manifold):
 
             outs.append(vmap(column, in_dims=1, out_dims=out_dims)(bk))
         return torch.cat(outs, dim=out_dims)
+
+    def basis_slice(self, basis, start: int, stop: int):
+        """The basis vectors ``start`` to ``stop`` of the concatenated
+        coordinates: each component's basis cut to its part of the range
+        (none of it: zero vectors, which ``map_basis`` skips)."""
+        out, off = [], 0
+        for m, bk in zip(self.manifolds, basis, strict=True):
+            lo, hi = min(max(start - off, 0), m.dim), min(max(stop - off, 0), m.dim)
+            out.append(bk[:, lo:hi])
+            off += m.dim
+        return tuple(out)

@@ -5,14 +5,17 @@ matrix per lane, built with ONE ``torch.func.vmap`` over the dim basis
 directions of the lane-batched operator (dim batched applications; one
 per component on a ``Product``, ``Manifold.map_basis``) and one batched
 projection; ``constraint_grad_rows`` fans one frozen ``vjp`` out
-over the constraints the same way.  ``materialize_sharded`` is not ported
-yet (ROADMAP.md queue 1, item 5).
+over the constraints the same way.  ``materialize_sharded`` splits the
+basis directions across the ranks of a mesh axis and all-gathers the
+columns.
 """
 
 from __future__ import annotations
 
 import torch
 from torch.func import vjp, vmap
+
+from riptrm_torch.ops.collectives import all_gather_cat, mesh_axis, shard_range
 
 
 def materialize(manifold, x, basis, op):
@@ -25,6 +28,24 @@ def materialize(manifold, x, basis, op):
         return manifold.to_coords(x, basis, op(b_j))
 
     return manifold.map_basis(basis, column, out_dims=2)
+
+
+def materialize_sharded(manifold, x, basis, op, mesh, axis: str = "tp"):
+    """``materialize`` with the basis directions split across the ranks of
+    ``mesh``'s axis ``axis``: each rank applies ``op`` to its dim / size
+    directions only (``Manifold.basis_slice``; on a ``Product`` each
+    component's share of them), then an all-gather gives every rank the
+    whole [B, dim, dim] matrix for the dense TRS or eigendecomposition
+    downstream.  dim must be divisible by the axis size."""
+    group, size, index = mesh_axis(mesh, axis)
+    cols = shard_range(manifold.dim, size, index, f"materialize_sharded: dim over {axis!r}")
+
+    def column(b_j):
+        return manifold.to_coords(x, basis, op(b_j))
+
+    mine = manifold.map_basis(manifold.basis_slice(basis, cols.start, cols.stop), column,
+                              out_dims=2)
+    return all_gather_cat(mine, group, dim=2)
 
 
 def materialize_symmetrized(manifold, x, basis, op):

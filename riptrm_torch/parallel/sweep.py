@@ -15,11 +15,17 @@ stop.  With ``use_fused_tcg`` every step's tCG is one launch of a batched
 kernel against the shared Zs: K3 on NonnegPCA, the Stiefel-bound kernel on
 BoundedPCA; under instance batching, where each lane has its own Zs, one
 one-lane launch per lane (``solvers/riptrm.py::fused_tcg_route``).
-``certify_second_order`` certifies a batch of final points.  Meshes and
-sharding (``sharded_riptrm_solve``, the ``mesh`` of ``run_sweep`` and
-``run_sweep_checkpointed``) wait for ROADMAP.md queue 1 item 5; the
-compacted staged solve (``staged_precision_riptrm_compacted``) is not
-ported (item 7).
+``certify_second_order`` certifies a batch of final points.  The compacted
+staged solve (``staged_precision_riptrm_compacted``) is not ported.
+
+Scale-out runs on ``torch.distributed``: ``make_mesh`` names the ranks'
+axes (``{"dp": d}`` or ``{"dp": d, "tp": t}``), ``sharded_riptrm_solve``
+(JAX: ``shard_map`` of the vmapped solve) runs each rank's B/d lanes and
+all-gathers the residuals, and ``run_sweep`` and ``run_sweep_checkpointed``
+take the mesh.  Every rank passes the whole batch of starts and takes its
+own lanes.  A lane's solve runs no collective: ranks stop at different
+steps, so the one collective of a solve comes after it (a segmented sweep
+adds one ``all_reduce`` a segment, the count of lanes still running).
 
 The JAX package's ``_warn_vmapped_lanczos`` is not ported: under ``vmap``
 the tCG mode's Lanczos certificate runs on every step of every lane, but
@@ -36,8 +42,10 @@ import os
 import numpy as np
 import torch
 
+from riptrm_torch.ops import collectives
 from riptrm_torch.ops.kkt import compute_residual
 from riptrm_torch.ops.spectrum import lanczos
+from riptrm_torch.parallel import distributed
 from riptrm_torch.solvers.base import select_lanes
 from riptrm_torch.solvers.riptrm import RIPTRM, RiptrmState, _barrier_ops, init_state
 
@@ -62,6 +70,27 @@ def _widen(state, lanes):
         f.name: getattr(state, f.name).expand(lanes, *getattr(state, f.name).shape[1:]).clone()
         for f in dataclasses.fields(state)
     })
+
+
+def make_mesh(axis_sizes: dict, device=None):
+    """A ``torch.distributed`` device mesh over the world's ranks, its axes
+    named and sized by ``axis_sizes`` in order (``{"dp": d}`` or ``{"dp": d,
+    "tp": t}``), on CUDA unless ``device`` says otherwise (``'cpu'`` for a
+    gloo world of CPU processes).  The process group must exist
+    (``parallel.distributed.initialize``) and the mesh must span it."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    names = tuple(axis_sizes)
+    sizes = tuple(int(axis_sizes[name]) for name in names)
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("make_mesh: no process group; call "
+                           "riptrm_torch.parallel.distributed.initialize first")
+    if math.prod(sizes) != dist.get_world_size():
+        raise ValueError(f"make_mesh: mesh {dict(zip(names, sizes))} has {math.prod(sizes)} "
+                         f"ranks, the world {dist.get_world_size()}")
+    dev_type = "cuda" if device is None else torch.device(device).type
+    return init_device_mesh(dev_type, sizes, mesh_dim_names=names)
 
 
 def init_state_from(problem, option, x0, y0) -> RiptrmState:
@@ -137,6 +166,28 @@ def staged_precision_riptrm_solve(problem_lo, problem_hi, option_lo, option_hi,
         st1, k1, res1 = s1(xs0, ys0)
         st2, k2, res2 = s2(st1)
         return st2, k1 + k2, res2, res1
+
+    return run
+
+
+def sharded_riptrm_solve(problem, option, max_steps: int, mesh, axis: str = "dp"):
+    """``batched_riptrm_solve`` with the lanes split across ``mesh``'s axis
+    ``axis``: rank i of d solves lanes [i B/d, (i+1) B/d) of the batch (B
+    divisible by d), the ranks of other axes alike.
+
+    Returns a function (xs0 [B, ...], ys0 [B, m], the whole batch on every
+    rank) -> (x, y, steps: this rank's lanes [B/d, ...]; residuals: every
+    lane's [B], all-gathered in lane order, the same on every rank).  No
+    collective runs inside the step loop, where ranks stop at different
+    steps; the residuals' all-gather follows the solve."""
+    solve = batched_riptrm_solve(problem, option, max_steps)
+    group, size, index = collectives.mesh_axis(mesh, axis)
+
+    def run(xs0, ys0):
+        lanes = collectives.shard_range(ys0.shape[0], size, index,
+                                        f"sharded_riptrm_solve: lanes over {axis!r}")
+        st, k, res = solve(xs0[lanes], ys0[lanes])
+        return st.x, st.y, k, collectives.all_gather_cat(res, group)
 
     return run
 
@@ -394,21 +445,19 @@ def _as_stacked_points(problem, xs0):
     return _as_lanes(problem, xs0)
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"mesh={mesh!r}: sharded sweeps wait for ROADMAP.md queue 1 item 5 (scale-out "
-            "on torch.distributed)")
-
-
 def run_sweep(problem, option, xs0, ys0, *, max_steps=2000, mesh=None, axis="dp"):
-    """Convenience wrapper of ``batched_riptrm_solve``: starts as arrays,
+    """Convenience wrapper: ``batched_riptrm_solve``, or with ``mesh``
+    ``sharded_riptrm_solve`` over its axis ``axis`` with every result
+    gathered, so each rank holds the whole sweep's.  Starts as arrays,
     lists or tuple points (``_as_stacked_points``).  Returns (x_final,
     y_final, steps [B], residuals [B])."""
-    _no_mesh(mesh)
-    states, ks, res = batched_riptrm_solve(problem, option, max_steps)(
-        _as_stacked_points(problem, xs0), _as_lanes(problem, ys0))
-    return states.x, states.y, ks, res
+    xs0, ys0 = _as_stacked_points(problem, xs0), _as_lanes(problem, ys0)
+    if mesh is None:
+        states, ks, res = batched_riptrm_solve(problem, option, max_steps)(xs0, ys0)
+        return states.x, states.y, ks, res
+    x, y, ks, res = sharded_riptrm_solve(problem, option, max_steps, mesh, axis)(xs0, ys0)
+    group = collectives.mesh_axis(mesh, axis)[0]
+    return (*(collectives.all_gather_cat(a, group) for a in (x, y, ks)), res)
 
 
 def make_segment_solver(problem, option, segment_steps: int):
@@ -470,6 +519,13 @@ def _sweep_identity(problem, option, xs0, ys0) -> str:
     return h.hexdigest()[:16]
 
 
+def _map_carry(fn, carry):
+    """``fn`` on every per-lane tensor of a checkpointed sweep's carry."""
+    st = carry["state"]
+    state = type(st)(**{f.name: fn(getattr(st, f.name)) for f in dataclasses.fields(st)})
+    return {"state": state, "done": fn(carry["done"]), "ks": fn(carry["ks"])}
+
+
 def run_sweep_checkpointed(problem, option, xs0, ys0, *, max_steps=2000, segment_steps=500,
                            checkpoint_path=None, mesh=None, axis="dp", meta=None,
                            on_segment=None):
@@ -485,11 +541,19 @@ def run_sweep_checkpointed(problem, option, xs0, ys0, *, max_steps=2000, segment
     resume may take another segment size.  A checkpoint stamped by another
     sweep (``_sweep_identity``) is refused; one with no stamp resumes with
     a warning.  ``on_segment(segment, steps_done, residuals, done)`` is
-    called on the host after each segment.  Returns (x_final, y_final,
-    steps [B], residuals [B])."""
+    called on the host after each segment.
+
+    With ``mesh`` the lanes are split across its axis ``axis``, as
+    ``sharded_riptrm_solve`` splits them (every rank passes the whole
+    batch).  Whether every lane is done is decided from one ``all_reduce``
+    a segment, so every rank runs the same segments.  The checkpoint holds
+    the whole carry, gathered after each segment and written by rank 0
+    before a barrier, so a resume loads it whole and takes its own lanes,
+    at any world size.  ``on_segment`` gets every lane's residuals and
+    flags on every rank.  Returns (x_final, y_final, steps [B], residuals
+    [B]), every lane's on every rank."""
     from riptrm_torch.experiment.checkpoint import load_state, save_state
 
-    _no_mesh(mesh)
     xs0 = _as_stacked_points(problem, xs0)
     ys0 = _as_lanes(problem, ys0)
     solver = RIPTRM(_batched_exact_defaults(option))
@@ -521,9 +585,27 @@ def run_sweep_checkpointed(problem, option, xs0, ys0, *, max_steps=2000, segment
         start_meta.get("segments_done", 0) * start_meta.get("segment_steps", segment_steps)))
     n_seg = int(start_meta.get("segments_done", 0))
 
+    if mesh is None:
+        def whole(t):
+            return t
+
+        def running(done):
+            return not bool(done.all())
+    else:
+        group, size, index = collectives.mesh_axis(mesh, axis)
+        lanes = collectives.shard_range(batch, size, index,
+                                        f"run_sweep_checkpointed: lanes over {axis!r}")
+        carry = _map_carry(lambda t: t[lanes], carry)
+
+        def whole(t):
+            return collectives.all_gather_cat(t, group)
+
+        def running(done):
+            return int(collectives.all_sum((~done).sum(), group)) > 0
+
     segments = {}  # at most two lengths: segment_steps and the truncated last
     res = None
-    while steps_done < max_steps and not bool(carry["done"].all()):
+    while steps_done < max_steps and running(carry["done"]):
         length = min(segment_steps, max_steps - steps_done)
         if length not in segments:
             segments[length] = make_segment_solver(problem, option, length)
@@ -532,11 +614,17 @@ def run_sweep_checkpointed(problem, option, xs0, ys0, *, max_steps=2000, segment
         steps_done += length
         n_seg += 1
         if checkpoint_path is not None:
-            save_state(checkpoint_path, carry, dict(meta or {}, segments_done=n_seg,
-                                                    steps_done=steps_done, sweep_id=sweep_id))
+            full = carry if mesh is None else _map_carry(whole, carry)
+            if mesh is None or distributed.rank() == 0:
+                save_state(checkpoint_path, full, dict(meta or {}, segments_done=n_seg,
+                                                       steps_done=steps_done,
+                                                       sweep_id=sweep_id))
+            if mesh is not None:
+                distributed.barrier()
         if on_segment is not None:
-            on_segment(n_seg, steps_done, res.cpu().numpy(), done.cpu().numpy())
+            on_segment(n_seg, steps_done, whole(res).cpu().numpy(),
+                       whole(done).cpu().numpy())
     st = carry["state"]
     if res is None:  # a resumed finished sweep, or a zero budget
         res = compute_residual(problem, st.x, st.y)[0]
-    return st.x, st.y, carry["ks"], res
+    return whole(st.x), whole(st.y), whole(carry["ks"]), whole(res)

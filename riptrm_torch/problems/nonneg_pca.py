@@ -5,7 +5,12 @@ constraints are one stacked function g(x) = -x.  ``matmul_precision``
 ('high': TF32 on CUDA; 'highest': full float32) is scoped to the problem's
 own operators (``problems/problem.py``).  A lane-leading Z [B, n, n] makes
 one problem over B instances, each lane's Zs its data (instance batching).
-The JAX version's ``Zs`` sharding re-pin waits for the port's scale-out.
+``mesh``/``axis`` split Zs's rows across the ranks of a mesh axis (the JAX
+package's row-sharded Z): the cost is the sum of the ranks' partial
+quadratic forms (``ops/collectives.py``'s ``enter`` and ``exit_sum``).
+Such a problem carries no structure: the fused tCG kernels and the closed
+forms of the solvers need the whole Zs, so every solver takes its generic
+path.
 """
 
 from __future__ import annotations
@@ -15,11 +20,13 @@ import torch
 
 from riptrm_torch.config import as_tensor, check_matmul_precision, resolve
 from riptrm_torch.manifolds import Sphere
+from riptrm_torch.ops.collectives import enter, exit_sum, mesh_axis
 from riptrm_torch.problems.problem import Problem
 from riptrm_torch.utils.io import loadtxt
 
 
-def make_problem(Z, x0, y0=None, dtype=None, device=None, matmul_precision=None) -> Problem:
+def make_problem(Z, x0, y0=None, dtype=None, device=None, matmul_precision=None, mesh=None,
+                 axis="tp") -> Problem:
     """Problem from numpy arrays or tensors (``Z`` [n, n], ``x0``/``y0`` [n]).
 
     Both packages build from the same ``Zs = 0.5 (Z + Z')``: -x'Zx equals
@@ -27,7 +34,15 @@ def make_problem(Z, x0, y0=None, dtype=None, device=None, matmul_precision=None)
     one matvec.  A lane-leading ``Z`` [B, n, n] gives the problem of B
     instances: its data and its structure's ``Zs`` are [B, n, n], and
     ``x0``/``y0`` may be [B, n], of which lane 0 is kept (the sweeps take
-    their starts as arguments)."""
+    their starts as arguments).
+
+    ``mesh``/``axis``: rank i of the axis's t ranks keeps rows [r_i, r_i+1)
+    of Zs (``torch.tensor_split``), and its partial cost -x[r_i:r_i+1]' Zs_i x
+    contracts them; the partial costs are summed across the axis, and so
+    are their gradients, so Zs x is the rows' products of every rank.  The
+    problem then has no ``sphere_quadratic`` structure (its Zs would be the
+    rank's rows only), so the solvers take the plain tCG and the generic
+    Hessian."""
     Z = as_tensor(Z, dtype, device)
     Zs = 0.5 * (Z + Z.mT)
     lanes = Z.ndim == 3
@@ -40,8 +55,18 @@ def make_problem(Z, x0, y0=None, dtype=None, device=None, matmul_precision=None)
     if lanes:
         x0, y0 = (a[0] if a.ndim == 2 else a for a in (x0, y0))
 
+    group = None
+    if mesh is not None:
+        group, size, index = mesh_axis(mesh, axis)
+        rows = torch.tensor_split(torch.arange(n), size)[index]
+        lo, hi = int(rows[0]), int(rows[-1]) + 1
+        Zs = Zs[..., lo:hi, :].contiguous()
+
     def cost_fn(x, zs=Zs):
-        return -(x @ (zs @ x))
+        if group is None:
+            return -(x @ (zs @ x))
+        xe = enter(x, group)
+        return exit_sum(-(xe[lo:hi] @ (zs @ xe)), group)
 
     def ineq_fn(x, *_):
         return -x  # feasible: x >= 0
@@ -59,7 +84,7 @@ def make_problem(Z, x0, y0=None, dtype=None, device=None, matmul_precision=None)
         num_ineq=n,
         num_eq=0,
         manvio_fn=manvio_fn,
-        structure={"kind": "sphere_quadratic", "Zs": Zs},
+        structure=None if group is not None else {"kind": "sphere_quadratic", "Zs": Zs},
         data=Zs if lanes else None,
         matmul_precision=check_matmul_precision(matmul_precision),
     )

@@ -18,9 +18,10 @@ the JAX package takes from ``jax.random`` come here from a
 starts as lanes of one lane-masked conjugate gradient.
 
 ``matmul_precision`` ('high': TF32 on CUDA; 'highest': full float32) is
-scoped to the problem's own operators (``problems/problem.py``).  Not
-ported: the ``mesh``/``data_axis`` sharding of the trajectory data
-(ROADMAP.md queue 1 item 5).
+scoped to the problem's own operators (``problems/problem.py``).
+``mesh``/``data_axis`` split the trajectory data's columns across the ranks
+of a mesh axis, the cost the sum of the ranks' partial sums
+(``ops/collectives.py``'s ``enter`` and ``exit_sum``).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from torch.func import grad, vmap
 from riptrm_torch.config import as_tensor, check_matmul_precision, resolve
 from riptrm_torch.manifolds import Product, SkewSymmetric, SymmetricPositiveDefinite
 from riptrm_torch.ops.spectrum import eigvalsh_nan
+from riptrm_torch.ops.collectives import enter, exit_sum, mesh_axis
 from riptrm_torch.problems.problem import Problem
 from riptrm_torch.utils.io import loadtxt
 
@@ -109,11 +111,16 @@ def make_problem(
     matmul_precision=None,
 ) -> Problem:
     """Build the StableIdentification problem; ``x0`` is the (J, R, Q)
-    triple (numpy arrays or tensors), packed into ``problem.x0`` [3, d, d]."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"mesh={mesh!r}, data_axis={data_axis!r}: sharding the trajectory data "
-            "waits for ROADMAP.md queue 1 item 5")
+    triple (numpy arrays or tensors), packed into ``problem.x0`` [3, d, d].
+
+    ``mesh``/``data_axis``: each rank of the axis holds [d, N/size] columns
+    of X and XP (zero-padded to a multiple of the size: a zero (x, x')
+    column pair adds 0 to the residual sum, and the cost still divides by
+    the true N).  Every cost, gradient and Hessian-vector evaluation
+    contracts the rank's own columns and sums the partial sums across the
+    axis; the point (J, R, Q) and the constraints stay replicated.  The
+    data is not collapsed to d x d Gram matrices: that is another
+    algorithm, with other rounding."""
     check_matmul_precision(matmul_precision)
     if not x_trajs and not cost_zero:
         raise ValueError(
@@ -132,6 +139,12 @@ def make_problem(
     XP = torch.tensor(np.hstack(xps) if xps else np.zeros((d, 0)), dtype=dtype,
                       device=device)
     n_cols = X.shape[1]
+    group = None
+    if mesh is not None and n_cols:
+        group, size, index = mesh_axis(mesh, data_axis)
+        pad = (-n_cols) % size
+        mine = slice(index * (n_cols + pad) // size, (index + 1) * (n_cols + pad) // size)
+        X, XP = (torch.nn.functional.pad(a, (0, pad))[:, mine].contiguous() for a in (X, XP))
 
     kinds, rows, cols, p1s, p2s = parse_constset(constset, interior_scaling)
     kinds_t = torch.tensor(kinds, device=device)
@@ -149,8 +162,11 @@ def make_problem(
             # quadratic keeps the gradient defined
             return 0.0 * torch.sum(J**2)
         A = (J - R) @ Q
-        resid = XP - (eye + h * A) @ X
-        return torch.sum(resid * resid) / n_cols
+        if group is None:
+            resid = XP - (eye + h * A) @ X
+            return torch.sum(resid * resid) / n_cols
+        resid = XP - (eye + h * enter(A, group)) @ X
+        return exit_sum(torch.sum(resid * resid), group) / n_cols
 
     def ineq_fn(x):
         A = (x[0] - x[1]) @ x[2]

@@ -767,3 +767,35 @@ def test_tf32_scoped_problem_matches_fp32_within_tf32_bound(dev):
     assert torch.get_float32_matmul_precision() == before
     bound = (2 * 2.0**-11 + n * 2.0**-24) * 2.0 * (xs.abs() @ full.structure["Zs"].abs())
     assert bool(((g_hi - g_full).abs() <= bound).all())
+
+
+def test_world_one_nccl_sharded_solve_launches_k3(dev, tmp_path):
+    """``sharded_riptrm_solve`` in a one-rank NCCL group at n = 1000, B = 16,
+    fused: K3 launches, and the rank's lanes are ``batched_riptrm_solve``'s
+    bit for bit (the same computation), the residuals gathered to [16]."""
+    import torch.distributed as dist
+
+    from riptrm_torch.parallel import distributed, sweep
+
+    n, b = 1000, 16
+    p = _problem(n, dev)
+    rng = np.random.default_rng(3)
+    xs = np.abs(rng.standard_normal((b, n)))
+    xs = torch.tensor(xs / np.linalg.norm(xs, axis=1, keepdims=True), dtype=torch.float32,
+                      device=dev)
+    ys = torch.ones(b, n, dtype=torch.float32, device=dev)
+    option = {"maxiter": 60, "tolresid": 3e-4, "TRS_solver": "tCG",
+              "second_order_stationarity": False, "use_fused_tcg": True,
+              "forcing_function_Lagrangian": lambda mu: torch.clamp(mu, min=1e-4),
+              "forcing_function_complementarity": lambda mu: torch.clamp(1e-3 * mu, min=2e-4)}
+    distributed.initialize(f"file://{tmp_path / 'rv'}", 1, 0)
+    try:
+        mesh = sweep.make_mesh({"dp": 1})
+        tk.reset_launch_counts()
+        x, y, ks, res = sweep.sharded_riptrm_solve(p, option, 100, mesh)(xs, ys)
+        assert tk.launch_counts()["fused_tcg_sphere_quadratic_batched"] > 0
+    finally:
+        dist.destroy_process_group()
+    st, ks1, res1 = sweep.batched_riptrm_solve(p, option, 100)(xs, ys)
+    assert res.shape == (b,)
+    assert torch.equal(x, st.x) and torch.equal(ks, ks1) and torch.equal(res, res1)

@@ -21,8 +21,9 @@
     search's start interior and Hurwitz, the
     low-rank instance nonnegative-ish of the right rank, its start
     strictly feasible with ordered singular values.
-(c) The refusals of ``stable_identification.make_problem``: a mesh, and a
-    matmul precision other than None and 'highest'.
+(c) The refusals of ``stable_identification.make_problem``: a mesh
+    without the data axis, and a matmul precision other than None, 'high'
+    and 'highest'.
 """
 
 import jax
@@ -290,11 +291,16 @@ def test_low_rank_generators():
     assert float(p.slack(p.x0[None]).min()) > 0.1 - 1e-12
 
 
+class _DpOnlyMesh:
+    mesh_dim_names, shape = ("dp",), (1,)
+
+
 def test_sid_refusals():
     constset = np.loadtxt(f"{SID}/constset.csv")
     x0 = tuple(np.eye(5) for _ in range(3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.make_problem(5, [], constset, x0, cost_zero=True, mesh=object(), **CPU)
+    traj = np.loadtxt(f"{SID}/noisyX_1.csv")
+    with pytest.raises(ValueError, match="no axis 'tp'"):  # the data axis is missing
+        ts.make_problem(5, [traj], constset, x0, mesh=_DpOnlyMesh(), **CPU)
     with pytest.raises(ValueError, match="matmul_precision"):
         ts.make_problem(5, [], constset, x0, cost_zero=True, matmul_precision="medium", **CPU)
     for precision in ("high", "highest"):

@@ -96,6 +96,13 @@ def test_continue_matches_jax(setup):
     assert torch.all(st2.outer_iter <= opt2["maxiter"])
 
 
+class _TpOnlyMesh:
+    """A mesh with a tp axis only: the sweeps' dp axis is missing (the
+    sharded paths themselves are tests/test_torch_distributed.py's)."""
+
+    mesh_dim_names, shape = ("tp",), (1,)
+
+
 def test_run_sweep_matches_jax_and_takes_lists(setup):
     tp, jp, xs, ys = setup
     x, y, k, res = ts.run_sweep(tp, OPT, xs, ys, max_steps=MAX_STEPS)
@@ -106,8 +113,8 @@ def test_run_sweep_matches_jax_and_takes_lists(setup):
     np.testing.assert_allclose(x.numpy(), np.asarray(jx), atol=1e-7)
     x2, _, k2, _ = ts.run_sweep(tp, OPT, list(xs), ys, max_steps=MAX_STEPS)
     assert torch.equal(x2, x) and torch.equal(k2, k)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        ts.run_sweep(tp, OPT, xs, ys, max_steps=MAX_STEPS, mesh=object())
+    with pytest.raises(ValueError, match="no axis 'dp'"):
+        ts.run_sweep(tp, OPT, xs, ys, max_steps=MAX_STEPS, mesh=_TpOnlyMesh())
 
 
 def test_segment_solver_freezes_done_lanes(setup):
@@ -215,8 +222,8 @@ def test_checkpoint_identity_mismatch_refuses_resume(setup, tmp_path):
     with pytest.raises(ValueError, match="sweep_id"):
         ts.run_sweep_checkpointed(tp, OPT | {"tolresid": 1e-8}, xs, ys, **kw)
     ts.run_sweep_checkpointed(tp, OPT, xs, ys, **kw)  # the same sweep resumes
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        ts.run_sweep_checkpointed(tp, OPT, xs, ys, max_steps=40, mesh=object())
+    with pytest.raises(ValueError, match="no axis 'dp'"):
+        ts.run_sweep_checkpointed(tp, OPT, xs, ys, max_steps=40, mesh=_TpOnlyMesh())
 
 
 def test_jax_sweep_checkpoint_resumes_in_port(setup, tmp_path):
