@@ -14,7 +14,9 @@ single-lane and swept; the experiment layer's CLIs (simulate, checkpoint
 and resume, the sweep CLI with the fused kernels, the protocol speedrun);
 the checkpointed, traced, staged-precision and instance-batched sweeps and
 the 10-instance paper sweep; scale-out on ``torch.distributed`` (one NCCL
-rank, and processes sharing the card on gloo); and the roofline
+rank, and processes sharing the card on gloo); deployable sweep artifacts
+exported, reloaded in a fresh process and run, and the compacted staged
+solve; and the roofline
 (``python -m riptrm_torch.experiment.roofline``) at its default shapes.
 Checks the six hand-written kernels
 (``riptrm_torch/csrc/sphere_tcg.cu``: K2-K3;
@@ -174,13 +176,28 @@ Phases:
      ``experiment/scaling.py::sweep_rate`` at d = 1 by CUDA events (d >= 2
      not measured: one card);
   -- launch counters read (K3) --
+  -- launch counters reset: deployable artifacts --
+  13. ``ExportSmoke``, float32: ``experiment/export_artifact.py::export_sweep``
+     of phase 7's fused NonnegPCA n = 1000, B = 128 sweep, phase 7b's fused
+     St(128, 8), B = 16 sweep and RIPM at n = 1000, B = 16 (the exports
+     launch no kernel), each reloaded by ``load_sweep`` in a fresh process
+     (``--reload-artifacts``) and run on its direct sweep's starts: K3 and
+     the Stiefel kernel launched there, RIPM with every counter at 0, each
+     median within 5 % of its direct sweep's band; export, load and run
+     times beside the direct sweep's; then ``chip_sweep --staged-precision
+     --staged-compact --fused`` at B = 128 beside phase 11.3's
+     one-program staged sweep (segments used, medians, times);
   8. CUDA-event times of each kernel and its plain version (events around
      windows of back-to-back calls, divided by the count), each with its
      bound (``riptrm_torch/experiment/roofline.py``'s accounting) and, for
      K1, K5 and K6, K calls of ``torch.matmul`` on an iteration's product
      (TF32 off) captured in one CUDA graph and replayed, beside the same
      calls timed eagerly and their device-busy share; K1 beside K6
-     at n = 1000, K5 left at [16, 1000], [64, 1000] and [128, 1000];
+     at n = 1000, K5 left at [16, 1000], [64, 1000] and [128, 1000]; each
+     row with the dispatch cost of its ``riptrm::`` operator (host time of
+     a call through the dispatcher less a direct call of its CUDA
+     implementation), and each kernel's kept row beside its time before the
+     launches became operators;
   -- launch counters reset: the roofline path --
   9. ``roofline.main`` at its default shapes (K3, K4, K5, and K6 at
      n = 4000);
@@ -195,6 +212,7 @@ Phases:
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -209,8 +227,8 @@ import torch
 N = 1000
 SOLVE_STEPS = 400
 # the step budget of phase 7b's plain-tCG BoundedPCA sweep (host-bound; its
-# median is reported only)
-PLAIN_SWEEP_STEPS = 40
+# median is reported only; cut from 40 to keep the script's time)
+PLAIN_SWEEP_STEPS = 20
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATASET = os.path.join(ROOT, "dataset", "NonnegPCA", "1")
 BPCA_DATASET = os.path.join(ROOT, "dataset", "BoundedPCA", "1")
@@ -858,6 +876,7 @@ class StiefelSmoke:
         # St(512, 32) subproblem, for phase 8
         self.start = {"single": self.state0}
         self.final = {}
+        self.sweep_time = {}
         self.wide = None
 
     def tcg_kw(self, problem):
@@ -1072,8 +1091,10 @@ class StiefelSmoke:
                       f"batched sweep B={b}: a lane stopped above residual 1e-3")
                 if fused:
                     self.final[b] = st
+                    self.sweep_time[b] = t  # phase 13 runs its artifact beside it
                     check(med <= 1e-3, f"batched sweep B={b}: median residual {med}")
                     check(launches > 0, f"batched sweep B={b}: kernel not launched")
+        self.medians = medians  # phase 13 holds its reloaded artifact to them
         b = self.lanes[0]
         say(f"phase 7b B={b} median residual: fused {medians[(b, True)]:.3e} ({self.steps} "
             f"steps), plain {medians[(b, False)]:.3e} "
@@ -1386,7 +1407,9 @@ class BaselineSmoke:
         xs, ys = self.smoke.start[b].x, self.smoke.start[b].y
         for name, opt in SWEEP_OPTIONS.items():
             run = batched_solver_sweep(problem, name, opt, SOLVE_STEPS)
-            (_, _, steps, res), t = wall(lambda: run(xs, ys), dev)
+            (x, _, steps, res), t = wall(lambda: run(xs, ys), dev)
+            if name == "RIPM":  # phase 13 runs its artifact beside it
+                self.smoke.ripm_sweep = ((x, res), t)
             med, worst = float(torch.median(res)), float(res.max())
             top = int(steps.max())
             say(f"phase 7d batched_solver_sweep {name} n={self.smoke.n} B={b} float32: median "
@@ -1477,11 +1500,14 @@ TOL_5E = {
 # 64 x 32 of rank 8 (m = 2048)
 SID_D, ROSEN_N, ROSEN_K, LOWRANK_SHAPE = 32, 256, 8, (64, 32, 8)
 FAMILY_LANES = {"StableIdentification": 8, "Rosenbrock": 16, "LowRank": 16}
-SINGLE_STEPS = 40  # 6e: solve_compiled steps on one lane
+SINGLE_STEPS = 20  # 6e: solve_compiled steps on one lane (cut from 40)
 CALLBACK_STEPS = 4  # 6e: RIPTRM.run steps with Rosenbrock's callback
 # 7e: batched_riptrm_solve steps (StableIdentification's B = 8 lanes run
 # their tCGs in lockstep to the longest, and the tCGs lengthen as the
 # barrier tightens: 10 steps keep the phase within its time)
+# 7e: the compensated NonnegPCA sweep's budget (cut from phase 7's 400, which
+# it ran to its stop at ~70 steps of ~0.7 s)
+COMPENSATED_STEPS = 30
 FAMILY_SWEEP_STEPS = {"StableIdentification": 10, "Rosenbrock": 100, "LowRank": 100}
 # 6e/7e: RIPTRM's step parts (riptrm_torch.solvers.riptrm functions)
 RIPTRM_PARTS = ("riptrm_torch.solvers.riptrm", {
@@ -1696,8 +1722,8 @@ class FamilySmoke:
     def phase_sweep(self):
         """7e: ``batched_riptrm_solve`` at full width, float32, plain tCG,
         FAMILY_SWEEP_STEPS steps; then NonnegPCA n = 1000 B = 16 with
-        ``compensated_reductions`` from phase 7's starts (phase 7's budget;
-        the plain tCG, so no kernel)."""
+        ``compensated_reductions`` from phase 7's starts (COMPENSATED_STEPS
+        steps; the plain tCG, so no kernel)."""
         for name in FAMILY_LANES:
             problem, xs, ys, floor = self.instance(name)
             self.sweep(name, problem, bench_option(floor), xs, ys, FAMILY_SWEEP_STEPS[name],
@@ -1706,8 +1732,8 @@ class FamilySmoke:
         b = smoke.lanes[0]
         st = smoke.start[b]
         self.sweep(f"NonnegPCA n={smoke.n} compensated_reductions", smoke.problem,
-                   smoke.option | {"compensated_reductions": True}, st.x, st.y, smoke.steps,
-                   1e-3)
+                   smoke.option | {"compensated_reductions": True}, st.x, st.y,
+                   COMPENSATED_STEPS, 1e-3)
         med, ms = smoke.plain_sweep
         say(f"  phase 7's plain-tCG sweep from the same starts, without them: median "
             f"residual {med:.4e}, {ms:.2f} ms a step")
@@ -1882,7 +1908,7 @@ CKPT_SEGMENT = 25  # 11: run_sweep_checkpointed's segment_steps
 CKPT_KILL_AFTER = 2  # 11: the killed run raises after this segment
 CKPT_MEDIAN_SLACK = 1.05  # 11: its median against phase 7's fused B = 128 median
 STAGED_RIPM_LANES = 16  # 11: staged_precision_ripm_solve's lanes (phase 7's B = 16 starts)
-STAGED_RIPM_STEPS = 60  # 11: each RIPM phase's step budget
+STAGED_RIPM_STEPS = 30  # 11: each RIPM phase's step budget (cut from 60)
 INSTANCES, INSTANCE_STARTS = 8, 2  # 11: NonnegPCA n = 1000 instances x starts
 INSTANCE_X_TOL = 1e-2  # 11: ||x_b - x_seq|| of a lane against its one-lane solve
 BPCA_INSTANCES, BPCA_STARTS, BPCA_STEPS = 4, 2, 100  # 11: St(128, 8) instances x starts
@@ -2005,6 +2031,7 @@ class SweepApiSmoke:
                                str(max(smoke.lanes)), "--fused", "--staged-precision",
                                "--reps", "1"] + self.dev_args)
         t = time.perf_counter() - t0
+        smoke.staged_line = out  # phase 13 runs the compacted solve beside it
         launches = k.launch_counts()[SPHERE_KERNELS[2]] - before
         say(f"phase 11.3 chip_sweep --staged-precision --fused n={smoke.n} "
             f"B={max(smoke.lanes)}: phase 1 ('{out['precision']}') median "
@@ -2360,7 +2387,7 @@ class ScaleOutSmoke:
 
         problem = scaling.make_instance(scaling.N, device=self.device)
         rate, med, mx = scaling.sweep_rate(problem, scaling.option(), self.mesh,
-                                           scaling.PER_RANK, scaling.MAX_STEPS, tries=3)
+                                           scaling.PER_RANK, scaling.MAX_STEPS, tries=1)
         clock = "CUDA events" if self.device.type == "cuda" else "the host clock"
         b, n = scaling.PER_RANK, scaling.N
         solve = sharded_riptrm_solve(problem, scaling.option(), scaling.MAX_STEPS, self.mesh)
@@ -2383,6 +2410,186 @@ class ScaleOutSmoke:
         finally:
             if dist.is_initialized():
                 dist.destroy_process_group()
+
+
+# -- phase 13: deployable sweep artifacts, the compacted staged solve ------
+EXPORT_MEDIAN_SLACK = 1.05  # 13: a reloaded artifact's median against its direct sweep's
+EXPORT_RIPM_LANES = 16  # 13: the RIPM artifact's batch (phase 7's B = 16 starts)
+
+
+class ExportSmoke:
+    """Phase 13: ``experiment/export_artifact.py`` at full width, float32.
+    Phase 7's fused NonnegPCA n = 1000, B = 128 sweep and phase 7b's fused
+    St(128, 8), B = 16 sweep are exported and reloaded in a fresh process
+    (``reload_artifacts``), where K3 and the Stiefel kernel must launch and
+    the residuals lie within phase 7's and 7b's median band
+    (EXPORT_MEDIAN_SLACK); RIPM at B = 16 exports and runs with every
+    counter at 0.  Then ``chip_sweep --staged-precision --staged-compact
+    --fused`` at B = 128 beside phase 11.3's one-program staged sweep."""
+
+    def __init__(self, smoke, stiefel):
+        import tempfile
+
+        self.smoke, self.stiefel = smoke, stiefel
+        self.device = smoke.device
+        self.tmp = tempfile.mkdtemp(prefix="riptrm_export_")
+
+    def export(self, name, problem, solver, option, b, steps, st0):
+        from riptrm_torch.experiment.export_artifact import export_sweep
+        from riptrm_torch.ops import kernels as k
+
+        path = os.path.join(self.tmp, f"{name}.pt2")
+        k.reset_launch_counts()
+        _, t = wall(lambda: export_sweep(problem, solver, option, path, batch=b,
+                                         max_steps=steps, device=self.device), self.device)
+        check(not any(k.launch_counts().values()), f"13 {name}: the export launched a kernel")
+        inputs = os.path.join(self.tmp, f"{name}.inputs.pt")
+        torch.save((st0.x.cpu(), st0.y.cpu()), inputs)
+        return {"name": name, "path": path, "inputs": inputs,
+                "out": os.path.join(self.tmp, f"{name}.x.pt"), "export_s": t,
+                "size_mb": os.path.getsize(path) / 2**20}
+
+    def run(self):
+        import subprocess
+
+        from riptrm_torch.ops.kkt import compute_residual
+        from riptrm_torch.parallel.sweep import batched_solver_sweep
+
+        smoke, stiefel = self.smoke, self.stiefel
+        b = max(smoke.lanes)
+        fused = {"use_fused_tcg": True}
+        specs = [
+            self.export("nonneg_pca", smoke.problem, "RIPTRM", smoke.option | fused, b,
+                        smoke.steps, smoke.start[b]),
+            self.export("bounded_pca", stiefel.problem, "RIPTRM", stiefel.option | fused,
+                        stiefel.lanes[0], stiefel.steps, stiefel.start[stiefel.lanes[0]]),
+            self.export("ripm", smoke.problem, "RIPM", SWEEP_OPTIONS["RIPM"], EXPORT_RIPM_LANES,
+                        SOLVE_STEPS, smoke.start[EXPORT_RIPM_LANES]),
+        ]
+        # the direct sweeps: phase 7's B = 128 timed again here, phase 7b's
+        # and 7d's runs as they were
+        run = batched_solver_sweep(smoke.problem, "RIPTRM", smoke.option | fused, smoke.steps)
+        (x7, _, _, res7), t7 = wall(lambda: run(smoke.start[b].x, smoke.start[b].y), self.device)
+        b7 = stiefel.lanes[0]
+        st7 = stiefel.final[b7]
+        direct = {
+            "nonneg_pca": ((x7, res7), t7),
+            "bounded_pca": ((st7.x, compute_residual(stiefel.problem, st7.x, st7.y)[0]),
+                            stiefel.sweep_time[b7]),
+            "ripm": smoke.ripm_sweep,
+        }
+        spec_file = os.path.join(self.tmp, "specs.json")
+        with open(spec_file, "w") as f:
+            json.dump(specs, f)
+        # the dense RIPM step materialises a [dim, B, dim, n] copy of the
+        # basis (63.9 GB at n = 1000, B = 16): the child needs the memory
+        # this process's allocator keeps cached
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--reload-artifacts",
+                               spec_file], capture_output=True, text=True, timeout=900)
+        child_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"13: the reloading process failed:\n{proc.stdout[-2000:]}"
+              f"{proc.stderr[-4000:]}")
+        got = {}
+        for line in proc.stdout.splitlines():
+            if line.startswith("{"):
+                got |= json.loads(line)
+        bands = {"nonneg_pca": (smoke.medians[(b, True)], SPHERE_KERNELS[2]),
+                 "bounded_pca": (stiefel.medians[(stiefel.lanes[0], True)], STIEFEL_KERNEL),
+                 "ripm": (None, None)}
+        for spec in specs:
+            name = spec["name"]
+            row = got[name]
+            (x_d, res_d), t_d = direct[name]
+            x_a = torch.load(spec["out"]).to(self.device)
+            med_d = float(res_d.median())
+            band, kernel = bands[name]
+            band = med_d if band is None else band
+            counts = {key: v for key, v in row["launches"].items() if v}
+            say(f"phase 13 {name} artifact ({spec['size_mb']:.2f} MB): export "
+                f"{spec['export_s']:.2f} s; in a fresh process load {row['load_s']:.2f} s, runs "
+                f"{', '.join(f'{t:.3f}' for t in row['run_s'])} s, peak memory "
+                f"{row['peak_gb']:.2f} GB (direct sweep "
+                f"{t_d:.3f} s); median residual {row['median']:.3e} (direct {med_d:.3e}, band "
+                f"{band:.3e}), max {row['max']:.3e}, max |x - x_direct| "
+                f"{float((x_a - x_d).abs().max()):.2e}, launches {counts}")
+            check(math.isfinite(row["median"]), f"13 {name}: non-finite residuals")
+            check(row["median"] <= EXPORT_MEDIAN_SLACK * max(band, med_d),
+                  f"13 {name}: median {row['median']} outside the band {band}")
+            if kernel is None:
+                check(not counts, f"13 {name}: a kernel launched {counts}")
+            else:
+                check(row["launches"][kernel] > 0, f"13 {name}: {kernel} was not launched")
+        say(f"phase 13 the reloading process: {child_s:.1f} s in all")
+        self.phase_compacted()
+
+    def phase_compacted(self):
+        """``chip_sweep --staged-precision --staged-compact --fused`` at n =
+        1000, B = 128 (phase 11.3's instance and starts), its warm run and
+        one timed run by the host clock, beside 11.3's line."""
+        from riptrm_torch.experiment import chip_sweep
+        from riptrm_torch.ops import kernels as k
+
+        smoke = self.smoke
+        one = smoke.staged_line
+        before = k.launch_counts()[SPHERE_KERNELS[2]]
+        out = chip_sweep.main(["--problem", "NonnegPCA", "--size", str(smoke.n), "--batch",
+                               str(max(smoke.lanes)), "--fused", "--staged-precision",
+                               "--staged-compact", "--reps", "1"]
+                              + ([] if self.device.type == "cuda" else ["--device", "cpu"]))
+        launches = k.launch_counts()[SPHERE_KERNELS[2]] - before
+        segs = out["segments_used"]
+        say(f"phase 13 chip_sweep --staged-precision --staged-compact --fused n={smoke.n} "
+            f"B={max(smoke.lanes)}: phase 1 median {out['phase1_median_residual']:.3e}, phase 2 "
+            f"median {out['median_residual']:.3e} max {out['max_residual']:.3e} "
+            f"({out['floor_improvement_x']:.2f}x), segments used: max {max(segs)}, mean "
+            f"{statistics.mean(segs):.2f}, lanes by count "
+            f"{dict(sorted(collections.Counter(segs).items()))}; {out['sweep_ms']:.1f} ms a "
+            f"sweep (host clock; warm-up {out['warmup_s']:.2f} s), K3 launches {launches}; "
+            f"phase 11.3's one-program staged sweep: phase 2 median "
+            f"{one['median_residual']:.3e} max {one['max_residual']:.3e}, "
+            f"{one['sweep_ms']:.1f} ms (CUDA events)")
+        check(out["median_residual"] <= out["phase1_median_residual"],
+              "13: the compacted phase 2's median is above phase 1's")
+        check(all(s >= 1 for s in segs) and launches > 0, "13: compacted sweep did not run")
+
+
+def reload_artifacts(spec_file):
+    """The fresh process of phase 13: loads each artifact of ``spec_file``
+    (``load_sweep``, which defines the riptrm:: operators), runs it on its
+    saved starts with every launch counter at 0 (the NonnegPCA artifact
+    twice: the first run pays the process's one-time costs), and prints
+    per artifact its load and run times (host clock around synchronised
+    calls), residual median and max, launch counts and peak device memory,
+    one JSON line an artifact; the final points go to the files the specs
+    name."""
+    sys.path.insert(0, ROOT)
+    from riptrm_torch.experiment.export_artifact import load_sweep
+    from riptrm_torch.ops import kernels as k
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(spec_file) as f:
+        specs = json.load(f)
+    for spec in specs:
+        host = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        (run, manifest), load_s = wall(lambda: load_sweep(spec["path"]), host)
+        device = torch.device(manifest["device"])
+        xs, ys = (a.to(device) for a in torch.load(spec["inputs"]))
+        k.reset_launch_counts()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        times = []
+        for _ in range(2 if spec["name"] == "nonneg_pca" else 1):
+            (x, _, _, res), t = wall(lambda: run(xs, ys), device)
+            times.append(t)
+        torch.save(x.cpu(), spec["out"])
+        peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+        print(json.dumps({spec["name"]: {
+            "load_s": load_s, "run_s": times, "median": float(res.median()),
+            "max": float(res.max()), "launches": k.launch_counts(), "peak_gb": peak / 1e9}}),
+            flush=True)
+    return 0
 
 
 def phase_certificates(smoke, stiefel):
@@ -2489,6 +2696,60 @@ def phase_roofline(report):
     say(f"roofline path: {len(rows)} rows, {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 8's kernel times (ms) of the parent tree's last run, before the
+# launches became riptrm:: operators (NVIDIA H100 80GB HBM3, 700 W).
+BEFORE_OPERATORS_MS = {
+    "chained_barrier_matvec": 0.2553,
+    "fused_tcg_sphere_quadratic": 0.1165,
+    "fused_tcg_sphere_quadratic_batched": 0.4649,
+    "fused_tcg_stiefel_bound_batched": 1.3802,
+    "bare_matvec_chain": 0.2016,
+    "chained_barrier_matvec_hbm": 1.6120,
+}
+DISPATCH_CALLS = 50  # phase 8: host-timed calls each way of a dispatch measurement
+
+
+def dispatch_us(kern, device):
+    """The dispatcher's cost of one kernel launch: the host time of a call of
+    the ``riptrm::`` operator that ``kern`` (a wrapper call) reaches,
+    against the host time of the operator's CUDA implementation called
+    directly on the same arguments (medians of DISPATCH_CALLS calls, in the
+    order operator, direct, direct, operator).  Returns (cost, through the
+    operator, direct), microseconds."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from riptrm_torch.ops import kernels as k
+
+    seen = []
+
+    class Capture(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace == "riptrm":
+                seen.append((func, args))
+            return func(*args, **(kwargs or {}))
+
+    with Capture():
+        kern()
+    check(len(seen) == 1, f"a wrapper call reached {len(seen)} riptrm:: operators")
+    op, args = seen[0]
+    impl = k._OPS[op._schema.name.split("::")[1]][1]
+
+    def host(fn):
+        sync(device)
+        times = []
+        for _ in range(DISPATCH_CALLS):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        sync(device)
+        return 1e6 * statistics.median(times)
+
+    a1, d1, d2, a2 = (host(f) for f in (lambda: op(*args), lambda: impl(*args),
+                                         lambda: impl(*args), lambda: op(*args)))
+    through, direct = (a1 + a2) / 2, (d1 + d2) / 2
+    return through - direct, through, direct
+
+
 def time_row(name, shape, kern, plain, device, work, library_step=None, call=None):
     """CUDA-event times (``event_ms``) of a kernel and its plain version, in
     the order plain, kernel, kernel, plain; the two times of each are
@@ -2527,11 +2788,14 @@ def time_row(name, shape, kern, plain, device, work, library_step=None, call=Non
         iters = f", tCG iterations (max over lanes) kernel {it_k}, plain {it_p}"
     if call is not None:
         COMPARE_ROWS.append((name, shape) + tuple(call))
+    cost, through, direct = dispatch_us(kern, device)
     say(f"phase 8 {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
         f"(CUDA events over windows; runs {k1:.4f}/{k2:.4f} and {p1:.4f}/{p2:.4f}), bound "
-        f"{bound_us:.3f} us ({bound_by}), library {library}{iters}")
+        f"{bound_us:.3f} us ({bound_by}), library {library}{iters}; the operator's "
+        f"dispatch {cost:.2f} us a call (host clock: {through:.2f} us through riptrm::, "
+        f"{direct:.2f} us calling its CUDA implementation)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_us / 1e3, bound_us=bound_us,
-                bound_by=bound_by, library_ms=library_ms, shape=shape)
+                bound_by=bound_by, library_ms=library_ms, shape=shape, dispatch_us=cost)
 
 
 def compare_trees(parent):
@@ -2603,6 +2867,8 @@ def read_counts(path, names, report, keep=None):
 
 
 def main(argv):
+    if argv[:1] == ["--reload-artifacts"]:  # phase 13's fresh process
+        return reload_artifacts(argv[1])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on the GPU",
               file=sys.stderr)
@@ -2702,9 +2968,20 @@ def main(argv):
     read_counts("scale-out", SPHERE_KERNELS[2:3], report, keep=())
     say(f"scale-out (phase 12): {time.perf_counter() - t_path:.1f} s")
 
+    k.reset_launch_counts()  # the artifacts' paths start here
+    t_path = time.perf_counter()
+    ExportSmoke(smoke, stiefel).run()
+    say(f"export and reload, compacted staged solve (phase 13): "
+        f"{time.perf_counter() - t_path:.1f} s")
+
     smoke.phase_timings()
     stiefel.phase_timings()
     chains.phase_timings()
+    for name in KERNELS:
+        row = report[name]
+        say(f"phase 8 {name} {row['shape']} through riptrm::: {row['ms']:.4f} ms (before "
+            f"the operators: {BEFORE_OPERATORS_MS[name]:.4f} ms), dispatch "
+            f"{row['dispatch_us']:.2f} us a call")
     phase_roofline(report)
     if parent is not None:
         compare_trees(parent)

@@ -19,5 +19,6 @@ for the CPU):
 
 ``cfg`` (configs, overrides, sweeps), ``registry`` (solvers and problem
 builders by config name) and ``checkpoint`` (solver-state save/resume)
-serve them.
+serve them; ``export_artifact`` saves a batched sweep as a ``torch.export``
+program that a serving process loads and runs without re-tracing.
 """

@@ -43,9 +43,13 @@ NonnegPCA) runs ``staged_precision_riptrm_solve``: phase 1 at
 continuing every lane at 'highest' with 10x tighter floors, a stall window
 of 25 and ``--staged-tolresid``; both phases' residuals are reported.
 With ``--fused`` the kernels compute in float32 under either setting, so
-the phases differ in their tolerances only.  ``--staged-compact`` and
-``--staged-segment-steps`` (the compacted staged solve) are not ported
-(ROADMAP.md queue 1 item 7).
+the phases differ in their tolerances only.  ``--staged-compact`` (with
+``--staged-precision``) runs ``staged_precision_riptrm_compacted``: phase
+2 as host-driven segments of ``--staged-segment-steps`` steps (default
+100) over the lanes still running, timed by the host clock around
+synchronised runs; its line reports ``segments_used``,
+``phase1_median_residual`` and ``floor_improvement_x``.  As in the JAX
+CLI, both flags do nothing without ``--staged-precision``.
 """
 
 from __future__ import annotations
@@ -342,6 +346,80 @@ def measure_sweep(problem, xs0, ys0, option, max_steps, reps=3, solver="RIPTRM",
             launches)
 
 
+def _card(device):
+    if device.type != "cuda":
+        return "cpu"
+    from riptrm_torch.utils.devices import name_and_power_limit
+
+    return name_and_power_limit()
+
+
+def _staged_compact(args, problem, problem_hi, option, option_hi, xs0, ys0, gen_s, source):
+    """``--staged-precision --staged-compact``: one warm run (which pays the
+    one-time costs of every batch size the instance visits), then ``--reps``
+    runs, each timed by the host clock around a synchronised run (phase 2 is
+    a host-driven loop), averaged.  Prints and returns the JSON line."""
+    from riptrm_torch.ops import kernels
+    from riptrm_torch.parallel.sweep import staged_precision_riptrm_compacted
+
+    cuda = xs0.device.type == "cuda"
+    if args.fused and cuda:
+        kernels._build.load()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(xs0.device)
+
+    run = staged_precision_riptrm_compacted(problem, problem_hi, option, option_hi,
+                                            args.max_steps,
+                                            segment_steps=args.staged_segment_steps)
+    sync()
+    t0 = time.perf_counter()
+    run(xs0, ys0)
+    sync()
+    warmup_s = time.perf_counter() - t0
+    before = kernels.launch_counts()
+    times = []
+    for _ in range(args.reps):
+        sync()
+        t0 = time.perf_counter()
+        best, res1, segs = run(xs0, ys0)
+        sync()
+        times.append(time.perf_counter() - t0)
+    after = kernels.launch_counts()
+    per_sweep = sum(times) / args.reps
+    out = {
+        "problem": args.problem,
+        "size": args.size,
+        "batch": args.batch,
+        "solver": "RIPTRM",
+        "mode": "staged_precision_compacted",
+        "fused": args.fused,
+        "precision": problem.matmul_precision,
+        "point": "best",
+        "segment_steps": args.staged_segment_steps,
+        "solves_per_sec": args.batch / per_sweep,
+        "sweep_ms": per_sweep * 1e3,
+        "reps": args.reps,
+        "median_residual": float(np.median(best)),
+        "max_residual": float(np.max(best)),
+        "residuals": [float(r) for r in best],
+        "phase1_median_residual": float(np.median(res1)),
+        "phase1_max_residual": float(np.max(res1)),
+        "floor_improvement_x": float(np.median(res1) / max(np.median(best), 1e-30)),
+        "segments_used": [int(s) for s in segs],
+        "launches": {k: after[k] - before[k] for k in after if after[k] > before[k]},
+        "phase2_precision": "highest",
+        "staged_tolresid": args.staged_tolresid,
+        "gen_s": gen_s,
+        "cache": source,
+        "warmup_s": warmup_s,
+        "device": _card(xs0.device),
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -393,14 +471,14 @@ def main(argv=None):
                              "both phases' residuals reported")
     parser.add_argument("--staged-tolresid", type=float, default=3e-6,
                         help="phase-2 residual target for --staged-precision")
-    parser.add_argument("--staged-compact", action="store_true", help=argparse.SUPPRESS)
-    parser.add_argument("--staged-segment-steps", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--staged-compact", action="store_true",
+                        help="with --staged-precision: phase 2 as host-driven segments over "
+                             "the lanes still running, gathered into power-of-two batches "
+                             "(staged_precision_riptrm_compacted); timed by the host clock "
+                             "around synchronised runs")
+    parser.add_argument("--staged-segment-steps", type=int, default=100,
+                        help="phase-2 segment length for --staged-compact")
     args = parser.parse_args(argv)
-    for name in ("staged_compact", "staged_segment_steps"):
-        if getattr(args, name) not in (None, False):
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')}: the compacted staged-precision solve "
-                "(staged_precision_riptrm_compacted) is not ported (ROADMAP.md queue 1 item 7)")
     if args.staged_precision and (args.solver != "RIPTRM" or args.exact
                                   or args.problem != "NonnegPCA"):
         parser.error("--staged-precision is the RIPTRM tCG NonnegPCA floor-chasing mode (phase "
@@ -469,6 +547,10 @@ def main(argv=None):
             "sweep_stall_window": option.get("sweep_stall_window", 25),
         }
 
+        if args.staged_compact:
+            return _staged_compact(args, problem, problem_hi, option, option_hi, xs0, ys0,
+                                   gen_s, source)
+
         def make_solve(steps):
             staged = staged_precision_riptrm_solve(problem, problem_hi, option, option_hi,
                                                    steps)
@@ -483,12 +565,7 @@ def main(argv=None):
     per_sweep, res, warmup_s, steps, final, launches = measure_sweep(
         problem, xs0, ys0, option, max_steps=args.max_steps, reps=args.reps,
         solver=args.solver, make_solve=make_solve)
-    if device.type == "cuda":
-        from riptrm_torch.utils.devices import name_and_power_limit
-
-        card = name_and_power_limit()
-    else:
-        card = "cpu"
+    card = _card(device)
     out = {
         "problem": args.problem,
         "size": args.size,

@@ -3,9 +3,10 @@ lanes.
 
 Counterpart of ``riptrm_tpu/ops/conjres.py`` (Saad, Iterative Methods for
 Sparse Linear Systems, Alg. 6.20).  The JAX ``while_loop`` is a lane-masked
-Python loop here, with one host check of "any lane running" an iteration:
-a lane that has converged or used its ``maxiter`` keeps its values bit for
-bit while the others go on.  A vector is a tuple of lane-batched tensors
+``utils/lanes.py::lane_loop`` here (eagerly one host check of "any lane
+running" an iteration, under tracing a ``while_loop`` operator): a lane
+that has converged or used its ``maxiter`` keeps its values bit for bit
+while the others go on.  A vector is a tuple of lane-batched tensors
 (e.g. ``(dx [B, n], dy [B, l])``); ``inner`` returns [B].
 """
 
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from riptrm_torch.utils.lanes import bcast, where_lanes
+from riptrm_torch.utils.lanes import bcast, lane_loop, where_lanes
 
 
 def _axpy(alpha, x, y):
@@ -45,10 +46,11 @@ def conjugate_residual(inner, A, b, v0, *, tol, maxiter, stop_norm=None):
     rel_res = stop_norm(r) / b_norm
     t = torch.zeros(b_norm.shape, dtype=torch.int64, device=b_norm.device)
     done = torch.zeros(b_norm.shape, dtype=torch.bool, device=b_norm.device)
-    for _ in range(maxiter):
+    def running(v, r, p, ap, r_ar, rel_res, done, t):
+        return ((~done) & (t < maxiter)).any()
+
+    def body(_, v, r, p, ap, r_ar, rel_res, done, t):
         active = (~done) & (t < maxiter)
-        if not bool(active.any()):
-            break
         ap_ap = inner(ap, ap)
         a = r_ar / _safe(ap_ap)
         v_n = _axpy(a, p, v)
@@ -66,5 +68,8 @@ def conjugate_residual(inner, A, b, v0, *, tol, maxiter, stop_norm=None):
         r_ar = torch.where(active, r_ar_n, r_ar)
         rel_res = torch.where(active, rel_n, rel_res)
         done = torch.where(active, done_n, done)
-        t = t + active.to(t.dtype)
+        return v, r, p, ap, r_ar, rel_res, done, t + active.to(t.dtype)
+
+    v, _, _, _, _, rel_res, _, t = lane_loop(running, body,
+                                             (v, r, p, ap, r_ar, rel_res, done, t), maxiter)
     return v, t, rel_res

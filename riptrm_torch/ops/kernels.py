@@ -36,11 +36,17 @@ lane streaming Zs from L2 (``tcg_kernel``, n <= 7232), else no kernel (the
 solver's plain ``truncated_cg``).  The Stiefel kernel runs each lane on a
 thread-block cluster of row slices (``stiefel_plan``).
 
-Which version runs is decided by where the tensors lie: on the CPU the
-wrapper runs its plain PyTorch version; on a CUDA device it launches the
-kernel, or raises (a missing ``nvcc``, a failed build or a failed launch
-is an error, never a fallback).  Each wrapper's ``launches`` attribute
-counts its kernel launches, and nothing else.
+Each launch is a ``torch.library`` operator of the ``riptrm`` namespace
+(``chain_resident``, ``sphere_tcg``, ``stiefel_tcg``, ``matvec_chain_left``,
+``matvec_chain_right``, ``chain_hbm``; the table at the end), so a traced
+program (``experiment/export_artifact.py``) holds it as one node.  The
+wrappers work out the plans and call the operators, which dispatch on
+where the tensors lie: on the CPU the plain PyTorch version runs; on a
+CUDA device the kernel launches, or the call raises (a missing ``nvcc``, a
+failed build or a failed launch is an error, never a fallback).  Each
+wrapper's ``launches`` attribute counts its kernel launches, and nothing
+else; the operator's CUDA implementation counts them, so a reloaded
+program counts its own.
 
 On the sphere, with P = I - x x', corr = 2 x'Zs x + x'(w o x), w = y / c:
 
@@ -205,21 +211,25 @@ def chained_barrier_matvec(zs, x, y_over_c, v0, n_iters: int):
     132 SMs (on a CUDA tensor, the card's own SM count sets the limit); a
     larger n raises ``ValueError`` on either device, naming
     ``chained_barrier_matvec_hbm``, which takes it, as the JAX function is
-    bound by VMEM and K6 by device memory."""
-    on_card = _on_card(zs, x, y_over_c, v0)
+    bound by VMEM and K6 by device memory.  The operator
+    ``riptrm::chain_resident``."""
+    _on_card(zs, x, y_over_c, v0)
     n = x.shape[0]
     grid, rows, _ = chain_resident_plan(n, _sms(x.device))
-    if not on_card:
-        return chained_barrier_matvec_plain(zs, x, y_over_c, v0, n_iters)
     zs, x, w, v0 = _f32(zs, x, y_over_c, v0)
     if zs.shape != (n, n) or w.shape != (n,) or v0.shape != (n,):
         raise ValueError("chained_barrier_matvec: shape mismatch")
+    return torch.ops.riptrm.chain_resident(zs, x, w, v0, int(n_iters), grid, rows)
+
+
+def _chain_resident_cuda(zs, x, w, v0, n_iters, grid, rows):
+    n = x.shape[0]
     u = torch.empty(2 * n + grid, dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     lib = _build.load()
     err = lib.chain_resident_launch(
         _ptr(zs), _ptr(x), _ptr(w), _ptr(v0), _ptr(u), _ptr(out),
-        n, int(n_iters), grid, rows, x.device.index or 0, _stream(x.device),
+        n, n_iters, grid, rows, x.device.index or 0, _stream(x.device),
     )
     _build.check(lib, err, "chained_barrier_matvec")
     chained_barrier_matvec.launches += 1
@@ -335,46 +345,75 @@ def tcg_resident_max_n(b: int, sms: int = H100_SMS) -> int:
                  if tcg_plan(n, b, sms).route == "resident"), 0)
 
 
-def _launch_tcg(zs, xs, ws, grads, radii, maxinner, mininner, theta, kappa):
+def _tcg_args(zs, xs, ws, grads, radii, maxinner, mininner, theta, kappa):
+    """The arguments of ``riptrm::sphere_tcg``: the inputs in float32 and
+    the plan's integers (``tcg_plan`` on a CUDA tensor's card; none on the
+    CPU, whose plain version has no plan)."""
     zs, xs, ws, grads, radii = _f32(zs, xs, ws, grads, radii)
     _check_lanes(zs, xs, ws, grads, radii)
     b, n = xs.shape
+    plan = (0,) * 7
+    if xs.device.type == "cuda":
+        route = tcg_plan(n, max(b, 1), _sms(xs.device))
+        if route.route == "plain":
+            raise ValueError(
+                f"sphere tCG kernel: n={n}: neither the resident nor the streaming plan fits "
+                f"(a lane's 8 float32 vectors exceed the {MAX_SMEM_BYTES} bytes of shared "
+                "memory a block may use); the solver routes such an n to truncated_cg"
+            )
+        plan = (int(route.route == "resident"), route.grid, route.groups, route.rows,
+                route.owned, route.lmax, route.chunk)
+    return (zs, xs, ws, grads, radii, int(maxinner), int(mininner), float(theta),
+            float(kappa), *plan)
+
+
+def _launch_tcg(zs, xs, ws, grads, radii, maxinner, mininner, theta, kappa, resident, grid,
+                groups, rows, owned, lmax, chunk):
+    b, n = xs.shape
     dev = xs.device
-    plan = tcg_plan(n, max(b, 1), _sms(dev))
-    if plan.route == "plain":
-        raise ValueError(
-            f"sphere tCG kernel: n={n}: neither the resident nor the streaming plan fits "
-            f"(a lane's 8 float32 vectors exceed the {MAX_SMEM_BYTES} bytes of shared memory "
-            "a block may use); the solver routes such an n to truncated_cg"
-        )
     # the resident kernel forms one lane's corr itself (a grid step), which
     # saves the host the few small launches of barrier_corr
-    own_corr = plan.route == "resident" and b == 1
+    own_corr = resident and b == 1
     corr = None if own_corr else barrier_corr(zs, xs, ws).contiguous()
     etas = torch.empty_like(xs)
     hetas = torch.empty_like(xs)
     stats = torch.empty((b, 2), dtype=torch.int32, device=dev)
     if b == 0:
-        return etas, hetas, stats[:, 0], stats[:, 1]
+        return etas, hetas, stats
     lib = _build.load()
     common = (_ptr(zs), _ptr(xs), _ptr(ws), _ptr(grads), None if own_corr else _ptr(corr),
               _ptr(radii), _ptr(etas), _ptr(hetas), _ptr(stats))
     # the kernel forms truncated_cg's target from each lane's |grad|
-    if plan.route == "stream":
-        err = lib.sphere_tcg_launch(*common, b, n, int(maxinner), int(mininner), float(theta),
-                                    float(kappa), dev.index or 0, _stream(dev))
+    if not resident:
+        err = lib.sphere_tcg_launch(*common, b, n, maxinner, mininner, theta, kappa,
+                                    dev.index or 0, _stream(dev))
     else:
         ldk = _ceil(n, 4) * 4
         u = torch.empty((2 if b == 1 else b) * ldk, dtype=torch.float32, device=dev)
         delta = torch.empty(b * ldk if b > 1 else 4, dtype=torch.float32, device=dev)
         alive = torch.empty(b, dtype=torch.int32, device=dev)
         err = lib.sphere_tcg_resident_launch(
-            *common, _ptr(u), _ptr(delta), _ptr(alive), b, n, int(maxinner), int(mininner),
-            float(theta), float(kappa), plan.grid, plan.groups, plan.rows, plan.owned,
-            plan.lmax, plan.chunk, dev.index or 0, _stream(dev),
+            *common, _ptr(u), _ptr(delta), _ptr(alive), b, n, maxinner, mininner, theta,
+            kappa, grid, groups, rows, owned, lmax, chunk, dev.index or 0, _stream(dev),
         )
     _build.check(lib, err, "sphere tCG kernel")
-    return etas, hetas, stats[:, 0], stats[:, 1]
+    return etas, hetas, stats
+
+
+def _sphere_tcg_cuda(*args):
+    out = _launch_tcg(*args[:-1])
+    # K2 and K3 share the kernels; each wrapper counts its own launches
+    if args[-1]:
+        fused_tcg_sphere_quadratic.launches += 1
+    else:
+        fused_tcg_sphere_quadratic_batched.launches += 1
+    return out
+
+
+def _sphere_tcg_cpu(zs, xs, ws, grads, radii, maxinner, mininner, theta, kappa, *plan):
+    etas, hetas, iters, codes = fused_tcg_plain(zs, xs, ws, grads, radii, maxinner=maxinner,
+                                                mininner=mininner, theta=theta, kappa=kappa)
+    return etas, hetas, torch.stack([iters, codes], dim=1)
 
 
 def fused_tcg_sphere_quadratic(zs, x, y_over_c, grad, radius, *, maxinner,
@@ -382,17 +421,13 @@ def fused_tcg_sphere_quadratic(zs, x, y_over_c, grad, radius, *, maxinner,
     """Fused tCG for one lane: ``x``, ``y_over_c``, ``grad`` [n], ``radius``
     a scalar.  Returns (eta [n], Heta [n], iterations, stop_code), the
     vectors float32 and the counts int32, with the stop codes of
-    ``ops/tcg.py``."""
+    ``ops/tcg.py``.  The operator ``riptrm::sphere_tcg`` at B = 1."""
     radius = torch.as_tensor(radius, device=x.device).reshape(1)
     args = (zs, x[None], y_over_c[None], grad[None], radius)
-    kw = dict(maxinner=maxinner, mininner=mininner, theta=theta, kappa=kappa)
-    if _on_card(*args):
-        out = _launch_tcg(*args, maxinner, mininner, theta, kappa)
-        fused_tcg_sphere_quadratic.launches += 1
-    else:
-        out = fused_tcg_plain(*args, **kw)
-    eta, heta, iters, code = out
-    return eta[0], heta[0], iters[0], code[0]
+    _on_card(*args)
+    eta, heta, stats = torch.ops.riptrm.sphere_tcg(
+        *_tcg_args(*args, maxinner, mininner, theta, kappa), True)
+    return eta[0], heta[0], stats[0, 0], stats[0, 1]
 
 
 fused_tcg_sphere_quadratic.launches = 0
@@ -404,14 +439,13 @@ def fused_tcg_sphere_quadratic_batched(zs, xs, ws, grads, radii, *, maxinner,
 
     ``xs``, ``ws`` (= y/c), ``grads`` [B, n]; ``radii`` [B].  Returns
     (etas [B, n], Hetas [B, n], iterations [B], codes [B]).  A lane that
-    stops is frozen at its values of that step."""
+    stops is frozen at its values of that step.  The operator
+    ``riptrm::sphere_tcg``."""
     radii = torch.broadcast_to(torch.as_tensor(radii, device=xs.device), xs.shape[:1])
-    if not _on_card(zs, xs, ws, grads, radii):
-        return fused_tcg_plain(zs, xs, ws, grads, radii, maxinner=maxinner,
-                               mininner=mininner, theta=theta, kappa=kappa)
-    out = _launch_tcg(zs, xs, ws, grads, radii, maxinner, mininner, theta, kappa)
-    fused_tcg_sphere_quadratic_batched.launches += 1
-    return out
+    _on_card(zs, xs, ws, grads, radii)
+    etas, hetas, stats = torch.ops.riptrm.sphere_tcg(
+        *_tcg_args(zs, xs, ws, grads, radii, maxinner, mininner, theta, kappa), False)
+    return etas, hetas, stats[:, 0], stats[:, 1]
 
 
 fused_tcg_sphere_quadratic_batched.launches = 0
@@ -564,27 +598,41 @@ def stiefel_clusters(device_index: int) -> tuple:
     return out
 
 
-def _launch_stiefel(zs, d, xs, ws, ss, grads, radii, maxinner, mininner, theta, kappa):
-    zs, d, xs, ws, ss, grads, radii = _f32(zs, d, xs, ws, ss, grads, radii)
-    _check_frames(zs, d, xs, ws, ss, grads, radii)
+def _launch_stiefel(zs, d, xs, ws, ss, grads, radii, maxinner, mininner, theta, kappa,
+                    plan):
     b, n, p = xs.shape
     dev = xs.device.index or 0
-    plan = stiefel_plan(n, p, max(b, 1), _sms(xs.device), stiefel_clusters(dev))
     etas = torch.empty_like(xs)
     hetas = torch.empty_like(xs)
     stats = torch.empty((b, 2), dtype=torch.int32, device=xs.device)
     if b == 0:
-        return etas, hetas, stats[:, 0], stats[:, 1]
+        return etas, hetas, stats
     lib = _build.load()
+    slices, rows, splits, zs_shared = plan
     # the kernel forms truncated_cg's target from each lane's |grad|
     err = lib.stiefel_tcg_launch(
         _ptr(zs), _ptr(d), _ptr(xs), _ptr(ws), _ptr(ss), _ptr(grads), _ptr(radii),
-        _ptr(etas), _ptr(hetas), _ptr(stats), b, n, p, int(maxinner), int(mininner),
-        float(theta), float(kappa), plan.slices, plan.rows, plan.splits,
-        int(plan.zs_shared), dev, _stream(xs.device),
+        _ptr(etas), _ptr(hetas), _ptr(stats), b, n, p, maxinner, mininner, theta, kappa,
+        slices, rows, splits, int(zs_shared), dev, _stream(xs.device),
     )
     _build.check(lib, err, "Stiefel-bound tCG kernel")
-    return etas, hetas, stats[:, 0], stats[:, 1]
+    return etas, hetas, stats
+
+
+def _stiefel_tcg_cuda(zs, d, xs, ws, ss, grads, radii, maxinner, mininner, theta, kappa,
+                      *plan):
+    out = _launch_stiefel(zs, d, xs, ws, ss, grads, radii, maxinner, mininner, theta, kappa,
+                          plan)
+    fused_tcg_stiefel_bound_batched.launches += 1
+    return out
+
+
+def _stiefel_tcg_cpu(zs, d, xs, ws, ss, grads, radii, maxinner, mininner, theta, kappa,
+                     *plan):
+    etas, hetas, iters, codes = fused_tcg_stiefel_bound_plain(
+        zs, d, xs, ws, ss, grads, radii, maxinner=maxinner, mininner=mininner, theta=theta,
+        kappa=kappa)
+    return etas, hetas, torch.stack([iters, codes], dim=1)
 
 
 def fused_tcg_stiefel_bound_batched(zs, d, xs, ws, ss, grads, radii, *, maxinner,
@@ -594,16 +642,22 @@ def fused_tcg_stiefel_bound_batched(zs, d, xs, ws, ss, grads, radii, *, maxinner
     [p].  ``xs``, ``ws``, ``grads`` [B, n, p]; ``ss`` [B, p, p]; ``radii``
     [B] or a scalar.  Returns (etas [B, n, p], Hetas [B, n, p], iterations
     [B] int32, codes [B] int32), the outputs of both JAX wrappers; a lane
-    that stops keeps its values of that step.  A single lane is B = 1."""
+    that stops keeps its values of that step.  A single lane is B = 1.  The
+    operator ``riptrm::stiefel_tcg``."""
     radii = torch.broadcast_to(torch.as_tensor(radii, device=xs.device), xs.shape[:1])
-    if not _on_card(zs, d, xs, ws, ss, grads, radii):
-        return fused_tcg_stiefel_bound_plain(zs, d, xs, ws, ss, grads, radii,
-                                             maxinner=maxinner, mininner=mininner,
-                                             theta=theta, kappa=kappa)
-    out = _launch_stiefel(zs, d, xs, ws, ss, grads, radii, maxinner, mininner, theta,
-                          kappa)
-    fused_tcg_stiefel_bound_batched.launches += 1
-    return out
+    on_card = _on_card(zs, d, xs, ws, ss, grads, radii)
+    zs, d, xs, ws, ss, grads, radii = _f32(zs, d, xs, ws, ss, grads, radii)
+    _check_frames(zs, d, xs, ws, ss, grads, radii)
+    plan = (0, 0, 0, False)
+    if on_card:
+        b, n, p = xs.shape
+        found = stiefel_plan(n, p, max(b, 1), _sms(xs.device),
+                             stiefel_clusters(xs.device.index or 0))
+        plan = (found.slices, found.rows, found.splits, found.zs_shared)
+    etas, hetas, stats = torch.ops.riptrm.stiefel_tcg(
+        zs, d, xs, ws, ss, grads, radii, int(maxinner), int(mininner), float(theta),
+        float(kappa), *plan)
+    return etas, hetas, stats[:, 0], stats[:, 1]
 
 
 fused_tcg_stiefel_bound_batched.launches = 0
@@ -785,44 +839,74 @@ def bare_matvec_chain(zs, v0, n_iters: int, precision: str = "high", left: bool 
     their blocks of w through distributed shared memory
     (``matvec_right_plan``; n <= 7200 on an H100, a larger n raises on the
     card).  Both read Z as it is given.  On the CPU the plain version
-    takes any n."""
+    takes any n.  The operators ``riptrm::matvec_chain_left`` and
+    ``riptrm::matvec_chain_right``."""
     on_card = _on_card(zs, v0)
     _check_chain(zs, v0, precision, left)
-    if not on_card:
-        return bare_matvec_chain_plain(zs, v0, n_iters, precision, left)
     zs, v0 = _f32(zs, v0)
-    out = torch.empty_like(v0)
-    if v0.numel() == 0:
-        return out
-    lib = _build.load()
-    dev = v0.device
-    sms = _sms(dev)
+    prec = PRECISIONS[precision]
+    if not on_card:  # the plain version has no plan
+        chain = torch.ops.riptrm.matvec_chain_left if left else torch.ops.riptrm.matvec_chain_right
+        return chain(zs, v0, int(n_iters), prec, *(0,) * (5 if left else 4))
+    sms = _sms(v0.device)
     resident = False
     if left:
         resident, plan = left_chain_plan(*v0.shape, sms, precision)
-        if not resident:  # the right chain on the transposes
-            zs, v0 = zs.mT.contiguous(), v0.mT.contiguous()
-            out = torch.empty_like(v0)
     else:
         plan = matvec_right_plan(*v0.shape, sms, precision)
     if resident:
-        r, n = v0.shape
-        wbuf = torch.empty((2, r, _ceil(n, 4) * 4), dtype=torch.float32, device=dev)
-        err = lib.matvec_chain_left_launch(
-            _ptr(zs), _ptr(v0), _ptr(out), _ptr(wbuf), r, n, int(n_iters),
-            PRECISIONS[precision], plan.col_groups, plan.row_groups, plan.cols, plan.rows,
-            plan.chunk, dev.index or 0, _stream(dev),
-        )
-    else:
-        n, c = v0.shape
-        err = lib.matvec_chain_right_launch(
-            _ptr(zs), _ptr(v0), _ptr(out), n, c, int(n_iters), PRECISIONS[precision],
-            plan.cols, plan.slices, plan.rows, int(plan.zs_shared), dev.index or 0,
-            _stream(dev),
-        )
+        return torch.ops.riptrm.matvec_chain_left(
+            zs, v0, int(n_iters), prec, plan.col_groups, plan.row_groups, plan.cols,
+            plan.rows, plan.chunk)
+    if left:  # the right chain on the transposes
+        zs, v0 = zs.mT.contiguous(), v0.mT.contiguous()
+    out = torch.ops.riptrm.matvec_chain_right(zs, v0, int(n_iters), prec, plan.cols,
+                                             plan.slices, plan.rows, plan.zs_shared)
+    return out.mT.contiguous() if left else out
+
+
+def _matvec_chain_left_cuda(z, v0, n_iters, prec, col_groups, row_groups, cols, rows, chunk):
+    out = torch.empty_like(v0)
+    if v0.numel() == 0:
+        return out
+    r, n = v0.shape
+    dev = v0.device
+    wbuf = torch.empty((2, r, _ceil(n, 4) * 4), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    err = lib.matvec_chain_left_launch(
+        _ptr(z), _ptr(v0), _ptr(out), _ptr(wbuf), r, n, n_iters, prec, col_groups,
+        row_groups, cols, rows, chunk, dev.index or 0, _stream(dev),
+    )
     _build.check(lib, err, "bare_matvec_chain")
     bare_matvec_chain.launches += 1
-    return out.mT.contiguous() if left and not resident else out
+    return out
+
+
+def _matvec_chain_right_cuda(z, v0, n_iters, prec, cols, slices, rows, zs_shared):
+    out = torch.empty_like(v0)
+    if v0.numel() == 0:
+        return out
+    n, c = v0.shape
+    dev = v0.device
+    lib = _build.load()
+    err = lib.matvec_chain_right_launch(
+        _ptr(z), _ptr(v0), _ptr(out), n, c, n_iters, prec, cols, slices, rows,
+        int(zs_shared), dev.index or 0, _stream(dev),
+    )
+    _build.check(lib, err, "bare_matvec_chain")
+    bare_matvec_chain.launches += 1
+    return out
+
+
+_PRECISION_NAMES = {v: k for k, v in PRECISIONS.items()}
+
+
+def _matvec_chain_left_cpu(z, v0, n_iters, prec, *plan):
+    return bare_matvec_chain_plain(z, v0, n_iters, _PRECISION_NAMES[prec], True)
+
+
+def _matvec_chain_right_cpu(z, v0, n_iters, prec, *plan):
+    return bare_matvec_chain_plain(z, v0, n_iters, _PRECISION_NAMES[prec], False)
 
 
 bare_matvec_chain.launches = 0
@@ -898,24 +982,28 @@ def chained_barrier_matvec_hbm(zs, x, y_over_c, v0, n_iters: int):
     (``chain_hbm_plan``), each claiming rows of Zs as it goes and streaming
     them from device memory through a ring of bulk copies that runs on
     across the iteration's grid-wide step (csrc/matvec_chain.cu).  n <= 28928; a
-    larger n raises on either device."""
+    larger n raises on either device.  The operator ``riptrm::chain_hbm``."""
+    _on_card(zs, x, y_over_c, v0)
     n = x.shape[0]
     plan = chain_hbm_plan(n, _sms(x.device))
-    if not _on_card(zs, x, y_over_c, v0):
-        return chained_barrier_matvec_plain(zs, x, y_over_c, v0, n_iters)
     zs, x, w, v0 = _f32(zs, x, y_over_c, v0)
     if zs.shape != (n, n) or w.shape != (n,) or v0.shape != (n,):
         raise ValueError("chained_barrier_matvec_hbm: shape mismatch")
+    return torch.ops.riptrm.chain_hbm(zs, x, w, v0, int(n_iters), plan.grid, plan.pieces,
+                                      plan.piece, plan.stages, plan.xw_shared)
+
+
+def _chain_hbm_cuda(zs, x, w, v0, n_iters, grid, pieces, piece, stages, xw_shared):
+    n = x.shape[0]
     corr = barrier_corr(zs, x[None], w[None]).contiguous()
     u = torch.empty(2 * n, dtype=torch.float32, device=x.device)
-    counters = torch.zeros(1 + max(1, int(n_iters)), dtype=torch.int32, device=x.device)
+    counters = torch.zeros(1 + max(1, n_iters), dtype=torch.int32, device=x.device)
     out = torch.empty_like(x)
     lib = _build.load()
     err = lib.chain_hbm_launch(
         _ptr(zs), _ptr(x), _ptr(w), _ptr(v0), _ptr(corr), _ptr(u), _ptr(counters),
-        _ptr(counters[1:]), _ptr(out), n,
-        int(n_iters), plan.grid, plan.pieces, plan.piece, plan.stages, int(plan.xw_shared),
-        x.device.index or 0, _stream(x.device),
+        _ptr(counters[1:]), _ptr(out), n, n_iters, grid, pieces, piece, stages,
+        int(xw_shared), x.device.index or 0, _stream(x.device),
     )
     _build.check(lib, err, "chained_barrier_matvec_hbm")
     chained_barrier_matvec_hbm.launches += 1
@@ -941,3 +1029,87 @@ def reset_launch_counts():
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+# ---------------------------------------------------------------------------
+# The kernels as operators of the ``riptrm`` namespace
+# ---------------------------------------------------------------------------
+# Each launch is a ``torch.library`` operator, so that a traced program
+# (``experiment/export_artifact.py``) holds it as one node and a reloaded
+# program launches the kernel.  The CUDA implementation launches the kernel
+# and counts the launch; the CPU one is the plain version; the fake one gives
+# the outputs' shapes and dtypes.  Defined through ``Library.define/impl``:
+# the dispatcher calls the Python implementation directly (PERF.md gives the
+# cost of a call on the card).  Plans are worked out in the wrappers and
+# passed as integers; a kernel allocates its scratch and outputs itself.
+_LIB = torch.library.Library("riptrm", "DEF")
+
+
+def _same(t):
+    return t.new_empty(t.shape)
+
+
+def _with_stats(xs):
+    return _same(xs), _same(xs), xs.new_empty((xs.shape[0], 2), dtype=torch.int32)
+
+
+_OPS = {
+    # name: (schema, CUDA, CPU, fake)
+    "chain_resident": (
+        "(Tensor zs, Tensor x, Tensor w, Tensor v0, int n_iters, int grid, int rows) -> Tensor",
+        _chain_resident_cuda,
+        lambda zs, x, w, v0, n_iters, *plan: chained_barrier_matvec_plain(zs, x, w, v0, n_iters),
+        lambda zs, x, *rest: _same(x),
+    ),
+    "sphere_tcg": (
+        "(Tensor zs, Tensor xs, Tensor ws, Tensor grads, Tensor radii, int maxinner, "
+        "int mininner, float theta, float kappa, int resident, int grid, int groups, int rows, "
+        "int owned, int lmax, int chunk, bool single) -> (Tensor, Tensor, Tensor)",
+        _sphere_tcg_cuda,
+        lambda *args: _sphere_tcg_cpu(*args[:-1]),
+        lambda zs, xs, *rest: _with_stats(xs),
+    ),
+    "stiefel_tcg": (
+        "(Tensor zs, Tensor d, Tensor xs, Tensor ws, Tensor ss, Tensor grads, Tensor radii, "
+        "int maxinner, int mininner, float theta, float kappa, int slices, int rows, "
+        "int splits, bool zs_shared) -> (Tensor, Tensor, Tensor)",
+        _stiefel_tcg_cuda,
+        _stiefel_tcg_cpu,
+        lambda zs, d, xs, *rest: _with_stats(xs),
+    ),
+    "matvec_chain_left": (
+        "(Tensor z, Tensor v0, int n_iters, int prec, int col_groups, int row_groups, "
+        "int cols, int rows, int chunk) -> Tensor",
+        _matvec_chain_left_cuda,
+        _matvec_chain_left_cpu,
+        lambda z, v0, *rest: _same(v0),
+    ),
+    "matvec_chain_right": (
+        "(Tensor z, Tensor v0, int n_iters, int prec, int cols, int slices, int rows, "
+        "bool zs_shared) -> Tensor",
+        _matvec_chain_right_cuda,
+        _matvec_chain_right_cpu,
+        lambda z, v0, *rest: _same(v0),
+    ),
+    "chain_hbm": (
+        "(Tensor zs, Tensor x, Tensor w, Tensor v0, int n_iters, int grid, int pieces, "
+        "int piece, int stages, bool xw_shared) -> Tensor",
+        _chain_hbm_cuda,
+        lambda zs, x, w, v0, n_iters, *plan: chained_barrier_matvec_plain(zs, x, w, v0, n_iters),
+        lambda zs, x, *rest: _same(x),
+    ),
+}
+
+
+def _contiguous(launch):
+    """The kernels read their tensors through raw pointers, row-major: a
+    reloaded program hands them over in the strides its graph gives."""
+    return lambda *args: launch(*(a.contiguous() if isinstance(a, torch.Tensor) else a
+                                  for a in args))
+
+
+for _name, (_schema, _cuda, _cpu, _fake) in _OPS.items():
+    _LIB.define(_name + _schema)
+    _LIB.impl(_name, _contiguous(_cuda), "CUDA")
+    _LIB.impl(_name, _cpu, "CPU")
+    torch.library.register_fake(f"riptrm::{_name}", _fake, lib=_LIB)

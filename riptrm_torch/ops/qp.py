@@ -7,8 +7,8 @@ Counterpart of ``riptrm_tpu/ops/qp.py``; every lane solves
     subject to  G d <= h,   A d = b
 
 with Q symmetric positive definite (RSQO regularises it first).  The JAX
-``while_loop`` of the IPM is a lane-masked Python loop here, with one host
-check of "any lane running" an iteration: a lane that has converged,
+``while_loop`` of the IPM is a lane-masked ``utils/lanes.py::lane_loop``
+here (eagerly one host check of "any lane running" an iteration): a lane that has converged,
 stalled or used its ``maxiter`` keeps its values exactly, while the others
 go on.  The Newton-Schulz sweeps of ``method='schulz'`` are lane-masked
 loops inside it.  ``torch.linalg.cholesky_ex`` and ``lu_factor_ex`` report
@@ -27,6 +27,7 @@ import torch
 
 from riptrm_torch.utils.lanes import bcast as _bc
 from riptrm_torch.utils.lanes import dot as _dot
+from riptrm_torch.utils.lanes import lane_loop
 from riptrm_torch.utils.lanes import mv as _mv
 
 # Newton-Schulz inverse maintenance (method='schulz'): refresh until
@@ -143,17 +144,22 @@ def solve_qp(Q, p, G, h, A=None, b=None, *, abstol=1e-10, reltol=1e-10,
         """Newton-Schulz on the active lanes until ||M X - I||_F <= TOL (err
         measured before each update), at most max_iter updates."""
         k = torch.zeros(lanes, dtype=torch.int64, device=dev)
-        while True:
+
+        def running(X, err, k):
+            return (active & (err > _SCHULZ_TOL) & (k < max_iter)).any()
+
+        def update(_, X, err, k):
             run = active & (err > _SCHULZ_TOL) & (k < max_iter)
-            if not bool(run.any()):
-                return X, err
             P = M @ X
             e = torch.linalg.matrix_norm(P - eye_n)
             Xn = X @ (2.0 * eye_n - P)
             Xn = 0.5 * (Xn + Xn.mT)
             X = torch.where(_bc(run, X), Xn, X)
             err = torch.where(run, e, err)
-            k = k + run.to(k.dtype)
+            return X, err, k + run.to(k.dtype)
+
+        X, err, _ = lane_loop(running, update, (X, err, k))
+        return X, err
 
     def schulz_refresh(X, M, active):
         """A warm sweep of WARM_MAX updates; on divergence the scaled
@@ -262,12 +268,15 @@ def solve_qp(Q, p, G, h, A=None, b=None, *, abstol=1e-10, reltol=1e-10,
         return out
 
     def run(st, kind, limit):
-        while True:
+        def running(st):
+            return ((~st["done"]) & (st["k"] < limit)).any()
+
+        def iterate(_, st):
             active = (~st["done"]) & (st["k"] < limit)
-            if not bool(active.any()):
-                return st
             new = body(st, kind, active)
-            st = {k: torch.where(_bc(active, v), new[k], v) for k, v in st.items()}
+            return ({k: torch.where(_bc(active, v), new[k], v) for k, v in st.items()},)
+
+        return lane_loop(running, iterate, (st,))[0]
 
     if use_schulz:
         M0 = build_m(s0, z0)

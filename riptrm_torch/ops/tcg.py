@@ -4,7 +4,8 @@ lanes.  Counterpart of ``riptrm_tpu/ops/tcg.py``.
 The JAX version is one ``lax.while_loop`` per lane and gets its lanes from
 ``vmap``.  Here every lane runs in lockstep with a done mask: a lane that
 stops is frozen at the values it stopped with, and the loop ends when every
-lane is done (one host check of "any lane alive" per iteration).  At B = 1
+lane is done (``utils/lanes.py::lane_loop``: eagerly one host check of "any
+lane alive" per iteration, under tracing a ``while_loop`` operator).  At B = 1
 this is the JAX function exactly.
 
 Stop codes:
@@ -15,6 +16,8 @@ Stop codes:
 from __future__ import annotations
 
 import torch
+
+from riptrm_torch.utils.lanes import lane_loop
 
 STOP_MAX_ITER = 0
 STOP_NEG_CURV = 1
@@ -67,9 +70,10 @@ def truncated_cg(manifold, x, hess, grad, radius, *, theta=1.0, kappa=0.1,
     code = torch.full((b,), STOP_MAX_ITER, dtype=torch.int32, device=x.device)
     done = torch.zeros(b, dtype=torch.bool, device=x.device)
 
-    for j in range(maxinner):
-        if bool(done.all()):
-            break
+    def running(*carry):
+        return ~carry[-1].all()
+
+    def body(j, eta, heta, r, z_r, delta, e_pe, d_pd, e_pd, model, iters, code, done):
         alive = ~done
         hdelta = hess(delta)
         d_hd = inner(delta, hdelta)
@@ -130,5 +134,8 @@ def truncated_cg(manifold, x, hess, grad, radius, *, theta=1.0, kappa=0.1,
         iters = iters + a.to(torch.int32)
         code = torch.where(a, code_new, code)
         done = done | done_now
+        return eta, heta, r, z_r, delta, e_pe, d_pd, e_pd, model, iters, code, done
 
+    carry = (eta, heta, r, z_r, delta, e_pe, d_pd, e_pd, model, iters, code, done)
+    eta, heta, _, _, _, _, _, _, _, iters, code, _ = lane_loop(running, body, carry, maxinner)
     return eta, heta, iters, code

@@ -10,9 +10,10 @@ in metric-orthonormal coordinates, globally (the hard case included):
   number of safeguarded Newton steps on the secular equation;
 * ``solve_trs_ms``: Moré-Sorensen, Cholesky factorisations of A + sig I in
   place of the eigendecomposition.  The JAX ``while_loop`` is a lane-masked
-  loop here (a lane that stops keeps its values; one host check of "any
-  lane running" an iteration), and the hard-case completion, a ``lax.cond``
-  there, runs only when some lane needs it.  ``torch.linalg.cholesky_ex``
+  ``lane_loop`` here (a lane that stops keeps its values; eagerly one host
+  check of "any lane running" an iteration), and the hard-case completion,
+  a ``lax.cond`` there, runs eagerly only when some lane needs it (under
+  tracing on every lane, then selected per lane).  ``torch.linalg.cholesky_ex``
   reports a failed factorisation per lane (``info != 0``) without raising
   or a host sync, where JAX tests the factor for non-finite entries.
 
@@ -27,7 +28,9 @@ import torch
 
 from riptrm_torch.ops.spectrum import eigh_nan, lanczos
 from riptrm_torch.utils.lanes import dot as _dot
+from riptrm_torch.utils.lanes import lane_loop
 from riptrm_torch.utils.lanes import mv as _mv
+from riptrm_torch.utils.lanes import tracing
 
 
 def solve_trs(A, a, radius, *, newton_iters=60):
@@ -160,11 +163,13 @@ def solve_trs_ms(A, a, radius, *, lanczos_iters=32, newton_iters=48, inv_iters=6
     np_ = torch.zeros_like(norm_a)
     ok_any = torch.zeros_like(pd0)
     rtol = max(32.0 * eps, 1e-11)
-    for _ in range(newton_iters):
+
+    def lanes_on(sig, sig_p, p, np_, ok_any, lo, hi):
         done = ok_any & (torch.abs(np_ - radius) <= rtol * radius)
-        run = (~interior_ok) & (~done)
-        if not bool(run.any()):
-            break
+        return (~interior_ok) & (~done)
+
+    def newton(_, sig, sig_p, p, np_, ok_any, lo, hi):
+        run = lanes_on(sig, sig_p, p, np_, ok_any, lo, hi)
         l, info = torch.linalg.cholesky_ex(A + sig[:, None, None] * eye)
         finite = info == 0
         safe_l = torch.where(finite[:, None, None], l, eye)
@@ -194,13 +199,18 @@ def solve_trs_ms(A, a, radius, *, lanczos_iters=32, newton_iters=48, inv_iters=6
         sig = torch.where(upd, sig_next, sig)
         lo = torch.where(upd, lo_new, lo)
         hi = torch.where(upd, hi_new, hi)
+        return sig, sig_p, p, np_, ok_any, lo, hi
+
+    sig, sig_p, p, np_, ok_any, lo, hi = lane_loop(
+        lambda *c: lanes_on(*c).any(), newton, (sig, sig_p, p, np_, ok_any, lo, hi),
+        newton_iters)
     p_bnd = p
 
     # ---- hard case: converged onto the bracket's lower edge with the step
     # still inside; complete to the boundary along the lambda_1 eigenvector
     hard = (~interior_ok) & ok_any & (np_ < (1.0 - 1e-4) * radius)
     p_hard = p_bnd
-    if bool(hard.any()):
+    if tracing() or bool(hard.any()):  # per-lane select: every lane under tracing
         l_h, info_h = torch.linalg.cholesky_ex(A + (sig_p + slack)[:, None, None] * eye)
         safe_h = torch.where((info_h == 0)[:, None, None], l_h, eye)
         v_min = ones

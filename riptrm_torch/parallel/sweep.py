@@ -5,7 +5,8 @@ Counterpart of ``riptrm_tpu/parallel/sweep.py``: ``init_state_from``,
 the solver-generic sweeps of all four solvers (``batched_solver_sweep``,
 ``batched_protocol_sweep``, ``protocol_single``, through
 ``_solver_plumbing``), ``batched_ripm_continue``, the staged-precision
-solves (``staged_precision_riptrm_solve``, ``staged_precision_ripm_solve``),
+solves (``staged_precision_riptrm_solve``, ``staged_precision_riptrm_compacted``,
+``staged_precision_ripm_solve``),
 ``run_sweep`` and the checkpointed segments (``make_segment_solver``,
 ``run_sweep_checkpointed``), ``instance_batched_riptrm`` and
 ``certify_second_order``.  The JAX package ``vmap``s a per-lane
@@ -16,7 +17,8 @@ kernel against the shared Zs: K3 on NonnegPCA, the Stiefel-bound kernel on
 BoundedPCA; under instance batching, where each lane has its own Zs, one
 one-lane launch per lane (``solvers/riptrm.py::fused_tcg_route``).
 ``certify_second_order`` certifies a batch of final points.  The compacted
-staged solve (``staged_precision_riptrm_compacted``) is not ported.
+staged solve (``staged_precision_riptrm_compacted``) drives phase 2 from
+the host, a segment at a time over the lanes still running.
 
 Scale-out runs on ``torch.distributed``: ``make_mesh`` names the ranks'
 axes (``{"dp": d}`` or ``{"dp": d, "tp": t}``), ``sharded_riptrm_solve``
@@ -168,6 +170,69 @@ def staged_precision_riptrm_solve(problem_lo, problem_hi, option_lo, option_hi,
         return st2, k1 + k2, res2, res1
 
     return run
+
+
+def _bucket(active_lanes: int, batch: int) -> int:
+    """The power of two at or above ``active_lanes``, at most ``batch``."""
+    return min(1 << max(0, math.ceil(math.log2(active_lanes))), batch)
+
+
+def staged_precision_riptrm_compacted(problem_lo, problem_hi, option_lo, option_hi,
+                                      max_steps: int, segment_steps: int = 100,
+                                      stall_rtol: float = 1e-2):
+    """Staged-precision solve with converged-lane compaction: phase 1 is
+    ``batched_riptrm_solve`` under ``problem_lo``; phase 2 runs as
+    host-driven segments of ``segment_steps`` steps of
+    ``batched_riptrm_continue`` under ``problem_hi`` over the lanes still
+    active, gathered into a batch of the next power of two (padded by
+    repeating the first active lane, so at most log2(B) + 1 batch sizes
+    occur; only the first occurrence of a lane is merged back).  A lane
+    leaves the active set when its segment's residual reaches
+    ``option_hi``'s ``tolresid`` (default 1e-6) or improves on its best by
+    less than ``stall_rtol`` relative (floored); at most max_steps //
+    segment_steps segments.  The continuation keeps each lane's best point
+    unless ``option_hi`` says otherwise.
+
+    Returns a host function run(xs0, ys0) -> (best phase-2 residuals [B],
+    phase-1 residuals [B], segments each lane ran [B]), numpy arrays; the
+    states stay on the device between segments."""
+    option_hi = {"keep_best_point": True, **(option_hi or {})}
+    s1 = batched_riptrm_solve(problem_lo, option_lo, max_steps)
+    cont = batched_riptrm_continue(problem_hi, option_hi, segment_steps)
+    tol = option_hi.get("tolresid", 1e-6)
+    max_segments = max(1, max_steps // segment_steps)
+
+    def run(xs0, ys0):
+        st, _, res1 = s1(xs0, ys0)
+        res1 = res1.cpu().numpy()
+        batch = res1.shape[0]
+        best = res1.copy()
+        segments_used = np.zeros(batch, np.int64)
+        active = np.ones(batch, bool)
+        for _ in range(max_segments):
+            if not active.any():
+                break
+            idx = np.nonzero(active)[0]
+            pad = np.concatenate([idx, np.full(_bucket(len(idx), batch) - len(idx), idx[0])])
+            rows = torch.as_tensor(idx, device=ys0.device)
+            sub = _map_state(lambda a: a[torch.as_tensor(pad, device=ys0.device)], st)
+            sub, _, res2 = cont(sub)
+            st = type(st)(**{f.name: getattr(st, f.name).index_copy(
+                0, rows, getattr(sub, f.name)[:len(idx)]) for f in dataclasses.fields(st)})
+            now = res2.cpu().numpy()[:len(idx)]
+            prev = best[idx]
+            best[idx] = np.where(now < prev, now, prev)
+            segments_used[idx] += 1
+            floored = now > (1.0 - stall_rtol) * prev
+            active[idx] = ~((now <= tol) | floored)
+        return best, res1, segments_used
+
+    return run
+
+
+def _map_state(fn, st):
+    """``fn`` on every field of a solver state."""
+    return type(st)(**{f.name: fn(getattr(st, f.name)) for f in dataclasses.fields(st)})
 
 
 def sharded_riptrm_solve(problem, option, max_steps: int, mesh, axis: str = "dp"):
@@ -521,9 +586,8 @@ def _sweep_identity(problem, option, xs0, ys0) -> str:
 
 def _map_carry(fn, carry):
     """``fn`` on every per-lane tensor of a checkpointed sweep's carry."""
-    st = carry["state"]
-    state = type(st)(**{f.name: fn(getattr(st, f.name)) for f in dataclasses.fields(st)})
-    return {"state": state, "done": fn(carry["done"]), "ks": fn(carry["ks"])}
+    return {"state": _map_state(fn, carry["state"]), "done": fn(carry["done"]),
+            "ks": fn(carry["ks"])}
 
 
 def run_sweep_checkpointed(problem, option, xs0, ys0, *, max_steps=2000, segment_steps=500,

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from riptrm_torch.config import resolve
+from riptrm_torch.utils.lanes import lane_loop
 
 
 @dataclasses.dataclass
@@ -273,8 +274,9 @@ def select_lanes(mask, a, b):
 def compiled_best_while(step1, state0, target, max_steps, best0, stall_window=None,
                         stall_rtol=1e-2, track_best_state=False):
     """The lane-batched fixed-budget solve loop (the JAX package's
-    ``lax.while_loop`` of the same name, as a Python loop over device
-    tensors with one host check per step).
+    ``lax.while_loop`` of the same name): ``utils/lanes.py::lane_loop``,
+    eagerly a Python loop over device tensors with one host check per step,
+    under tracing one ``while_loop`` operator.
 
     ``step1(st) -> (new_st, res, counted, stop)``: one solver step on every
     lane, with each lane's residual, whether that residual counts toward
@@ -299,28 +301,36 @@ def compiled_best_while(step1, state0, target, max_steps, best0, stall_window=No
     target = torch.broadcast_to(
         torch.as_tensor(target, dtype=best0.dtype, device=device), (b,)
     )
-    st, best = state0, best0
-    best_st = state0
     k = torch.zeros(b, dtype=torch.int64, device=device)
     since = torch.zeros(b, dtype=torch.int64, device=device)
     done = best0 <= target
-    for _ in range(max_steps):
-        if bool(done.all()):
-            break
+    # best_st and since ride in the carry only where they are updated
+    carry = (state0, best0, k, done) + ((state0,) if track_best_state else ()) + (
+        (since,) if stall_window is not None else ())
+
+    def running(st, best, k, done, *extra):
+        return ~done.all()
+
+    def body(_, st, best, k, done, *extra):
+        extra = list(extra)
         new_st, res, counted, stop = step1(st)
         improved = (~done) & counted & (res < best)
         if track_best_state:
-            best_st = select_lanes(improved, new_st, best_st)
+            extra[0] = select_lanes(improved, new_st, extra[0])
         if stall_window is not None:
+            since = extra[-1]
             big_improve = improved & (res < (1.0 - stall_rtol) * best)
-            since = torch.where(done, since,
-                                torch.where(big_improve, torch.zeros_like(since), since + 1))
+            extra[-1] = since = torch.where(
+                done, since, torch.where(big_improve, torch.zeros_like(since), since + 1))
             stop = stop | (since >= stall_window)
         best = torch.where(improved, res, best)
         st = select_lanes(done, st, new_st)
         k = k + (~done).to(k.dtype)
         done = done | stop | (best <= target)
-    return (best_st if track_best_state else st), k, done, best
+        return (st, best, k, done, *extra)
+
+    st, best, k, done, *extra = lane_loop(running, body, carry, max_steps)
+    return (extra[0] if track_best_state else st), k, done, best
 
 
 def state_from_numpy(cls, d, *, scalar_field, int_fields=(), device=None, dtype=None,

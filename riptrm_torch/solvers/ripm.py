@@ -41,6 +41,7 @@ from riptrm_torch.solvers.base import (
 )
 from riptrm_torch.utils.lanes import bcast as _bc
 from riptrm_torch.utils.lanes import dot as _dot
+from riptrm_torch.utils.lanes import lane_loop
 from riptrm_torch.utils.lanes import where_lanes as _lanes
 
 
@@ -341,10 +342,12 @@ def _merit_line_search(problem, option, w, ntdir, phi_cur, ls_right, gamma, tau_
     w_new, phi_new = trial(stepsize)
     ok = ls_ok(stepsize, w_new[2], w_new[3], phi_new)
     r = torch.zeros(phi_cur.shape, dtype=torch.int64, device=phi_cur.device)
-    while True:
+
+    def running(stepsize, w_new, phi_new, ok, r):
+        return ((~ok) & (r <= ls_max)).any()
+
+    def backtrack(_, stepsize, w_new, phi_new, ok, r):
         active = (~ok) & (r <= ls_max)
-        if not bool(active.any()):
-            return stepsize, w_new, phi_new, r
         step_try = stepsize * ls_theta
         w2, phi2 = trial(step_try)
         ok2 = ls_ok(step_try, w2[2], w2[3], phi2)
@@ -352,7 +355,11 @@ def _merit_line_search(problem, option, w, ntdir, phi_cur, ls_right, gamma, tau_
         w_new = tuple(_lanes(active, a, b) for a, b in zip(w2, w_new))
         phi_new = torch.where(active, phi2, phi_new)
         ok = torch.where(active, ok2, ok)
-        r = r + active.to(r.dtype)
+        return stepsize, w_new, phi_new, ok, r + active.to(r.dtype)
+
+    stepsize, w_new, phi_new, _, r = lane_loop(running, backtrack,
+                                               (stepsize, w_new, phi_new, ok, r))
+    return stepsize, w_new, phi_new, r
 
 
 def _check_nt_equation(problem, x, y, z, s, basis, ntdir, f, phi_cur, sigma, rho):

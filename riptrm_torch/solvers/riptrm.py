@@ -84,6 +84,7 @@ from riptrm_torch.solvers.base import (
 )
 from riptrm_torch.utils.lanes import dot as _dot
 from riptrm_torch.utils.lanes import sym_mv as _sym_mv
+from riptrm_torch.utils.lanes import tracing
 from riptrm_torch.utils.lanes import where_lanes as _lanes
 
 # inner_status codes
@@ -425,7 +426,8 @@ def make_step(problem, option, callbacks=True):
         h_lam, h_q, c_vec = state.h_lam, state.h_q, state.c_vec
         if exact:
             stale = ~state.cache_valid
-            if bool(stale.any()):
+            # per-lane select: under tracing every lane computes it
+            if tracing() or bool(stale.any()):
                 fresh = materialize_at(problem, x, y, mu, trs_ms)
                 h_lam, h_q, c_vec = (_lanes(stale, f, old) for f, old in
                                      zip(fresh, (h_lam, h_q, c_vec)))
@@ -502,7 +504,7 @@ def make_step(problem, option, callbacks=True):
             # elsewhere); Ritz minima approach lambda_min from above.
             first_ok = xfeas & yfeas & crit_lag & crit_compl
             mineig = torch.full_like(normdx, math.inf)
-            if bool(first_ok.any()):
+            if tracing() or bool(first_ok.any()):
                 _, hw_new, cx_new = _barrier_ops(problem, x_new, y_new, mu)
                 # deterministic start: barrier gradient plus the transported step
                 v0 = cx_new + 0.5 * man.transport(x, x_new, dx)
@@ -941,9 +943,10 @@ class RIPTRM:
         """Fixed-budget solve over the lanes of a state.
 
         The JAX package compiles this loop into one ``lax.while_loop``; the
-        port's counterpart is a Python loop over device tensors with one
-        host check of "every lane done" per step (CUDA graphs are left to a
-        later change).  Returns solve(state) -> (state, steps [B]); with
+        port's counterpart is ``base.compiled_best_while``, eagerly a Python
+        loop over device tensors with one host check of "every lane done"
+        per step, under tracing (``experiment/export_artifact.py``) one
+        ``while_loop`` operator.  Returns solve(state) -> (state, steps [B]); with
         ``return_done`` also each lane's stop flag [B], which tells "met its
         stopping criterion" from "ran out of ``max_steps``" (a segmented
         sweep needs it: a lane can stop on a segment's last step)."""

@@ -41,6 +41,7 @@ from riptrm_torch.solvers.base import (
 )
 from riptrm_torch.utils.lanes import bcast
 from riptrm_torch.utils.lanes import dot as _dot
+from riptrm_torch.utils.lanes import lane_loop
 from riptrm_torch.utils.lanes import mv as _mv
 from riptrm_torch.utils.lanes import sym_mv as _sym_mv
 
@@ -127,15 +128,19 @@ def _shift_regularize(q, thld, corr):
     step = (thld + 0.01 * torch.abs(rho_max)).to(dt)
     ok = torch.zeros(lanes, dtype=torch.bool, device=dev)
     k = torch.zeros(lanes, dtype=torch.int64, device=dev)
-    while True:
+
+    def running(s, ok, k):
+        return ((~ok) & (k < 6)).any()
+
+    def escalate(_, s, ok, k):
         active = (~ok) & (k < 6)
-        if not bool(active.any()):
-            break
         _, info = torch.linalg.cholesky_ex(q + s[:, None, None] * eye)
         ok_try = info == 0
         s = torch.where(active, torch.where(ok_try, s, 4.0 * s + step), s)
         ok = torch.where(active, ok_try, ok)
-        k = k + active.to(k.dtype)
+        return s, ok, k + active.to(k.dtype)
+
+    s, _, _ = lane_loop(running, escalate, (s, ok, k))
     return q + s[:, None, None] * eye
 
 
@@ -191,17 +196,22 @@ def _ell1_line_search(problem, option, x, direction, rho, df0):
     gdf0 = option["gamma"] * df0
     x_new, f_new = trial(stepsize)
     k = torch.zeros(rho.shape, dtype=torch.int64, device=rho.device)
-    while True:
+
+    def running(stepsize, gdf0, x_new, f_new, k):
+        return need(stepsize, gdf0, f_new, k).any()
+
+    def backtrack(_, stepsize, gdf0, x_new, f_new, k):
         active = need(stepsize, gdf0, f_new, k)
-        if not bool(active.any()):
-            return stepsize, x_new, k
         step_try = stepsize * beta
         x_try, f_try = trial(step_try)
         stepsize = torch.where(active, step_try, stepsize)
         gdf0 = torch.where(active, gdf0 * beta, gdf0)
         x_new = torch.where(bcast(active, x_new), x_try, x_new)
         f_new = torch.where(active, f_try, f_new)
-        k = k + active.to(k.dtype)
+        return stepsize, gdf0, x_new, f_new, k + active.to(k.dtype)
+
+    stepsize, _, x_new, _, k = lane_loop(running, backtrack, (stepsize, gdf0, x_new, f_new, k))
+    return stepsize, x_new, k
 
 
 def _check_slice(option):

@@ -3,8 +3,8 @@ conjugate gradient with a backtracking line search.
 
 Counterpart of ``riptrm_tpu/solvers/subsolvers.py`` (pymanopt's
 ``SteepestDescent`` / ``ConjugateGradient`` as RALM consumes them).  The
-JAX ``while_loop``s are lane-masked Python loops with one host check an
-iteration; the line search nests inside the optimiser's loop as a mask of
+JAX ``while_loop``s are lane-masked ``utils/lanes.py::lane_loop``s (eagerly
+one host check an iteration); the line search nests inside the optimiser's loop as a mask of
 its own, started on the lanes the optimiser still runs.  A lane that
 stops keeps its values exactly.  ``cost`` maps points [B, ...] to [B],
 ``rgrad`` to tangents [B, ...].
@@ -17,6 +17,7 @@ import dataclasses
 import torch
 
 from riptrm_torch.utils.lanes import bcast as _bc
+from riptrm_torch.utils.lanes import lane_loop
 from riptrm_torch.utils.lanes import where_lanes as _lanes
 
 
@@ -33,16 +34,21 @@ def _backtracking_line_search(manifold, cost, x, d, f0, df0, alpha0, active, *,
     alpha = alpha0
     x_new, f_new = try_alpha(alpha)
     k = torch.ones_like(alpha, dtype=torch.int64)
-    while True:
-        run = active & (f_new > f0 + sufficient_decrease * alpha * df0) & (k <= max_steps)
-        if not bool(run.any()):
-            break
+
+    def running_lanes(alpha, x_new, f_new, k):
+        return active & (f_new > f0 + sufficient_decrease * alpha * df0) & (k <= max_steps)
+
+    def backtrack(_, alpha, x_new, f_new, k):
+        run = running_lanes(alpha, x_new, f_new, k)
         alpha_t = alpha * contraction
         x_t, f_t = try_alpha(alpha_t)
         alpha = torch.where(run, alpha_t, alpha)
         x_new = _lanes(run, x_t, x_new)
         f_new = torch.where(run, f_t, f_new)
-        k = k + run.to(k.dtype)
+        return alpha, x_new, f_new, k + run.to(k.dtype)
+
+    alpha, x_new, f_new, k = lane_loop(lambda *c: running_lanes(*c).any(), backtrack,
+                                       (alpha, x_new, f_new, k))
     no_step = f_new > f0
     return (_lanes(no_step, x, x_new), torch.where(no_step, f0, f_new),
             torch.where(no_step, torch.zeros_like(alpha), alpha), k)
@@ -77,10 +83,12 @@ def steepest_descent(manifold, cost, rgrad, x0, *, max_iterations=200, min_gradi
     have_oldf = torch.zeros_like(f, dtype=torch.bool)
     stepsize = torch.full_like(f, float("inf"))
     k = torch.zeros_like(f, dtype=torch.int64)
-    while True:
-        active = (gradnorm >= min_gradient_norm) & (stepsize >= min_step_size) & (k < max_iterations)
-        if not bool(active.any()):
-            break
+
+    def lanes_on(x, g, f, oldf, have_oldf, stepsize, gradnorm, k):
+        return (gradnorm >= min_gradient_norm) & (stepsize >= min_step_size) & (k < max_iterations)
+
+    def iterate(_, x, g, f, oldf, have_oldf, stepsize, gradnorm, k):
+        active = lanes_on(x, g, f, oldf, have_oldf, stepsize, gradnorm, k)
         df0 = -(gradnorm**2)
         alpha = _warm_alpha(have_oldf, f, oldf, df0, gradnorm, optimism, initial_step_size)
         x_n, f_n, alpha, _ = _backtracking_line_search(manifold, cost, x, -g, f, df0, alpha,
@@ -92,7 +100,11 @@ def steepest_descent(manifold, cost, rgrad, x0, *, max_iterations=200, min_gradi
         have_oldf = have_oldf | active
         stepsize = torch.where(active, alpha * gradnorm, stepsize)
         gradnorm = torch.where(active, manifold.norm(x_n, g_n), gradnorm)
-        k = k + active.to(k.dtype)
+        return x, g, f, oldf, have_oldf, stepsize, gradnorm, k + active.to(k.dtype)
+
+    x, _, f, _, _, _, gradnorm, k = lane_loop(
+        lambda *c: lanes_on(*c).any(), iterate,
+        (x, g, f, oldf, have_oldf, stepsize, gradnorm, k))
     return SubsolverResult(x, f, gradnorm, k)
 
 
@@ -108,10 +120,12 @@ def conjugate_gradient(manifold, cost, rgrad, x0, *, max_iterations=200, min_gra
     have_oldf = torch.zeros_like(f, dtype=torch.bool)
     stepsize = torch.full_like(f, float("inf"))
     k = torch.zeros_like(f, dtype=torch.int64)
-    while True:
-        active = (gradnorm >= min_gradient_norm) & (stepsize >= min_step_size) & (k < max_iterations)
-        if not bool(active.any()):
-            break
+
+    def lanes_on(x, g, d, f, oldf, have_oldf, stepsize, gradnorm, k):
+        return (gradnorm >= min_gradient_norm) & (stepsize >= min_step_size) & (k < max_iterations)
+
+    def iterate(_, x, g, d, f, oldf, have_oldf, stepsize, gradnorm, k):
+        active = lanes_on(x, g, d, f, oldf, have_oldf, stepsize, gradnorm, k)
         df0 = manifold.inner(x, g, d)
         # steepest descent where d is not a descent direction
         use_sd = df0 >= 0
@@ -135,5 +149,9 @@ def conjugate_gradient(manifold, cost, rgrad, x0, *, max_iterations=200, min_gra
         f = torch.where(active, f_n, f)
         have_oldf = have_oldf | active
         gradnorm = torch.where(active, gradnorm_n, gradnorm)
-        k = k + active.to(k.dtype)
+        return x, g, d, f, oldf, have_oldf, stepsize, gradnorm, k + active.to(k.dtype)
+
+    x, _, _, f, _, _, _, gradnorm, k = lane_loop(
+        lambda *c: lanes_on(*c).any(), iterate,
+        (x, g, d, f, oldf, have_oldf, stepsize, gradnorm, k))
     return SubsolverResult(x, f, gradnorm, k)

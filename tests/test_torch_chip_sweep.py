@@ -8,7 +8,7 @@
     feasibility checks for every family, and the cache round trip under a
     ``torch_`` name, never the JAX key;
 (c) ``measure_sweep`` at n = 32 (RIPTRM, and RSQO with the Newton-Schulz
-    QP) and the CLI's JSON line; the refused JAX-only flags.
+    QP) and the CLI's JSON line; the compacted staged solve's flags.
 """
 
 import json
@@ -145,9 +145,25 @@ def test_cli_json_line(capsys):
 @pytest.mark.parametrize("flag", [["--staged-compact"], ["--staged-segment-steps", "50"],
                                   ["--staged-precision", "--staged-compact"],
                                   ["--staged-precision", "--staged-segment-steps", "50"]])
-def test_jax_only_flags_are_refused(flag):
-    """The compacted staged solve's flags, which are not ported (queue 1
-    item 7); --precision, --staged-precision and --staged-tolresid run
-    (tests/test_torch_staged_precision.py)."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tcs.main(["--size", "32", "--batch", "2", "--device", "cpu"] + flag)
+def test_jax_only_flags_are_refused(flag, capsys):
+    """The compacted staged solve's flags, as the JAX CLI treats them: with
+    --staged-precision, --staged-compact runs the compacted solve
+    (staged_precision_riptrm_compacted) and --staged-segment-steps sets
+    its segments; without --staged-compact the flag changes nothing, and
+    neither does --staged-compact without --staged-precision."""
+    out = tcs.main(["--size", "32", "--batch", "2", "--reps", "1", "--max-steps", "120",
+                    "--device", "cpu"] + flag)
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == json.loads(
+        json.dumps(out))
+    staged = "--staged-precision" in flag
+    compact = staged and "--staged-compact" in flag
+    assert out["mode"] == ("staged_precision_compacted" if compact
+                           else "staged_precision" if staged else "tCG")
+    assert len(out["residuals"]) == 2 and np.all(np.isfinite(out["residuals"]))
+    if compact:
+        assert out["segment_steps"] == 100 and out["point"] == "best"
+        assert len(out["segments_used"]) == 2 and min(out["segments_used"]) >= 1
+        assert out["median_residual"] <= out["phase1_median_residual"] * (1 + 1e-5)
+        assert out["floor_improvement_x"] >= 1.0
+    else:
+        assert "segments_used" not in out

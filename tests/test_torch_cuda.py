@@ -799,3 +799,34 @@ def test_world_one_nccl_sharded_solve_launches_k3(dev, tmp_path):
     st, ks1, res1 = sweep.batched_riptrm_solve(p, option, 100)(xs, ys)
     assert res.shape == (b,)
     assert torch.equal(x, st.x) and torch.equal(ks, ks1) and torch.equal(res, res1)
+
+
+def test_exported_sweep_reloaded_on_card_launches_k3(dev, tmp_path):
+    """A fused NonnegPCA sweep exported on the card and loaded back runs its
+    tCG through K3 (counted by the operator's CUDA implementation at run
+    time), and its solutions agree with the direct sweep's in float32."""
+    from riptrm_torch.experiment.export_artifact import export_sweep, load_sweep
+    from riptrm_torch.parallel.sweep import batched_solver_sweep
+
+    problem = _problem(256, dev)
+    b = 8
+    rng = np.random.default_rng(5)
+    xs = np.abs(rng.standard_normal((b, 256)))
+    xs = torch.tensor(xs / np.linalg.norm(xs, axis=1, keepdims=True), dtype=torch.float32,
+                      device=dev)
+    ys = torch.ones(b, 256, dtype=torch.float32, device=dev)
+    option = {"maxiter": 60, "tolresid": 3e-4, "TRS_solver": "tCG",
+              "second_order_stationarity": False, "use_fused_tcg": True,
+              "forcing_function_Lagrangian": lambda mu: torch.clamp(mu, min=1e-4),
+              "forcing_function_complementarity": lambda mu: torch.clamp(1e-3 * mu, min=2e-4)}
+    path = str(tmp_path / "k3.pt2")
+    tk.reset_launch_counts()
+    export_sweep(problem, "RIPTRM", option, path, batch=b, max_steps=300, device=dev)
+    assert not any(tk.launch_counts().values())  # tracing launches nothing
+    run, manifest = load_sweep(path)
+    assert manifest["device"] == str(problem.x0.device)
+    x, _, _, res = run(xs, ys)
+    assert tk.launch_counts()["fused_tcg_sphere_quadratic_batched"] > 0
+    _, _, _, res_d = batched_solver_sweep(problem, "RIPTRM", option, 300)(xs, ys)
+    assert torch.isfinite(res).all()
+    assert float(res.median()) <= 10 * max(float(res_d.median()), 3e-4)

@@ -40,6 +40,7 @@ MODULES = [
     "riptrm_torch.utils",
     "riptrm_torch.experiment",
     "riptrm_torch.experiment.roofline",
+    "riptrm_torch.experiment.export_artifact",
     "riptrm_torch.experiment.cfg",
     "riptrm_torch.experiment.registry",
     "riptrm_torch.experiment.checkpoint",
