@@ -104,6 +104,13 @@ Phases:
      25; then batched_protocol_sweep with the sweep's median residual as
      every lane's target (at least half the lanes reach it, none later
      than in the sweep);
+  7f. batched_solver_sweep of RIPM (dense) at n = 1000 from phase 7's
+     B = 128 starts, and of RIPM and RSQO (7d's options) at St(128, 8)
+     from phase 7b's B = 128 starts, float32, WIDE_STEPS steps each: time,
+     median and worst residual, peak device memory above the sweep's
+     start (7d, 11.3 and 13 print their RIPM runs' peaks too, and 7d's
+     RIPM B = 16 peak must stay below RIPM_PEAK_GB); every lane finite,
+     the median below the starts';
   -- launch counters read: every one 0 (no Pallas kernel on these paths) --
   -- launch counters reset: StableIdentification, Rosenbrock, LowRank --
   5e. golden float64 solves held to the JAX package's own float64 CPU
@@ -388,6 +395,18 @@ def wall(fn, device):
     out = fn()
     sync(device)
     return out, time.perf_counter() - t0
+
+
+def wall_peak(fn, device):
+    """(``fn()``, its wall time, the peak device memory in GB it allocated
+    above what was allocated before it); NaN off the card."""
+    if device.type != "cuda":
+        return (*wall(fn, device), math.nan)
+    sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    out, t = wall(fn, device)
+    return out, t, (torch.cuda.max_memory_allocated(device) - base) / 1e9
 
 
 def call_ms(fn, device, calls=5):
@@ -1268,6 +1287,14 @@ SWEEP_OPTIONS = {
                           "quadoptim_linear_solver": "schulz"},
     "RALM": SWEEP_BASE | {"keep_best_point": True},
 }
+# phase 7d: the dense RIPM B = 16 sweep's peak device memory above its start
+# must stay below this (the basis, the column stack and the matrix are
+# 64 MB each at n = 1000)
+RIPM_PEAK_GB = 4.0
+# phase 7f: the fixed step budgets of the B = 128 dense sweeps, set to keep
+# the phase near 40 s on an H100 (PERF.md section 5 gives the step times)
+WIDE_STEPS = {("RIPM", "NonnegPCA"): 20, ("RIPM", "BoundedPCA"): 10,
+              ("RSQO", "BoundedPCA"): 4}
 
 
 def eq_problem(device):
@@ -1407,7 +1434,7 @@ class BaselineSmoke:
         xs, ys = self.smoke.start[b].x, self.smoke.start[b].y
         for name, opt in SWEEP_OPTIONS.items():
             run = batched_solver_sweep(problem, name, opt, SOLVE_STEPS)
-            (x, _, steps, res), t = wall(lambda: run(xs, ys), dev)
+            (x, _, steps, res), t, peak = wall_peak(lambda: run(xs, ys), dev)
             if name == "RIPM":  # phase 13 runs its artifact beside it
                 self.smoke.ripm_sweep = ((x, res), t)
             med, worst = float(torch.median(res)), float(res.max())
@@ -1415,8 +1442,11 @@ class BaselineSmoke:
             say(f"phase 7d batched_solver_sweep {name} n={self.smoke.n} B={b} float32: median "
                 f"residual {med:.3e}, worst {worst:.3e}, steps max {top} median "
                 f"{float(steps.float().median()):.0f}, {t:.3f} s a sweep, "
-                f"{1e3 * t / max(top, 1):.2f} ms a step")
+                f"{1e3 * t / max(top, 1):.2f} ms a step, peak memory {peak:.3f} GB above "
+                f"the sweep's start")
             check(bool(torch.all(torch.isfinite(res))), f"7d {name}: non-finite residuals")
+            if name == "RIPM" and dev.type == "cuda":
+                check(peak < RIPM_PEAK_GB, f"7d RIPM: peak memory {peak} GB")
             proto = batched_protocol_sweep(problem, name, opt, SOLVE_STEPS)
             targets = torch.full((b,), med, dtype=res.dtype, device=dev)
             (_, _, k, best), t = wall(lambda: proto(xs, ys, targets), dev)
@@ -1427,6 +1457,37 @@ class BaselineSmoke:
             check(int(reached.sum()) >= b // 2, f"7d {name}: {int(reached.sum())} lanes reached")
             check(bool(torch.all(k[reached] <= steps[reached])),
                   f"7d {name}: a lane ran past the step its sweep reached the target at")
+
+    def phase_wide(self, stiefel):
+        """7f: the dense baseline sweeps at B = 128, float32, with
+        chip_sweep's options and a fixed step budget (``WIDE_STEPS``): RIPM
+        at n = 1000 from phase 7's B = 128 starts, RIPM and RSQO at
+        St(128, 8) from phase 7b's (``BPCA_CACHE``, y = 1).  Each sweep's
+        time, median and worst residual and its peak device memory above
+        what was allocated before it; every lane finite and the median
+        below the starts' median."""
+        from riptrm_torch.ops.kkt import compute_residual
+        from riptrm_torch.parallel.sweep import batched_solver_sweep
+
+        dev, smoke = self.device, self.smoke
+        b, bs = max(smoke.lanes), max(stiefel.lanes)
+        families = {"NonnegPCA": (f"NonnegPCA n={smoke.n} B={b}", smoke.problem, smoke.start[b]),
+                    "BoundedPCA": (f"BoundedPCA St(128, 8) B={bs}", stiefel.problem,
+                                   stiefel.start[bs])}
+        for (name, family), budget in WIDE_STEPS.items():
+            label, problem, st0 = families[family]
+            run = batched_solver_sweep(problem, name, SWEEP_OPTIONS[name] | {"maxiter": budget},
+                                       budget)
+            med0 = float(torch.median(compute_residual(problem, st0.x, st0.y)[0]))
+            (_, _, steps, res), t, peak = wall_peak(lambda: run(st0.x, st0.y), dev)
+            med, worst = float(torch.median(res)), float(res.max())
+            top = int(steps.max())
+            say(f"phase 7f batched_solver_sweep {name} {label} float32, {budget} steps: median "
+                f"residual {med:.3e} (starts {med0:.3e}), worst {worst:.3e}, steps max {top}, "
+                f"{t:.3f} s a sweep, {1e3 * t / max(top, 1):.2f} ms a step, peak memory "
+                f"{peak:.3f} GB above the sweep's start")
+            check(bool(torch.all(torch.isfinite(res))), f"7f {name} {label}: non-finite residuals")
+            check(med < med0, f"7f {name} {label}: median {med} not below the starts' {med0}")
 
 
 # Phases 5e-7e: the families without a kernel.  GOLDEN_5E holds the JAX
@@ -2054,11 +2115,12 @@ class SweepApiSmoke:
         opt_lo = SWEEP_OPTIONS["RIPM"]
         opt_hi = opt_lo | {"tolresid": opt_lo["tolresid"] / 10}
         staged = staged_precision_ripm_solve(lo, hi, opt_lo, opt_hi, STAGED_RIPM_STEPS)
-        (_, ks, res2, res1), t = wall(lambda: staged(st0.x, st0.y), self.device)
+        (_, ks, res2, res1), t, peak = wall_peak(lambda: staged(st0.x, st0.y), self.device)
         med1, med2 = float(torch.median(res1)), float(torch.median(res2))
         say(f"phase 11.3 staged_precision_ripm_solve n={smoke.n} B={b}: phase 1 ('high') median "
             f"{med1:.3e}, phase 2 ('highest', tolresid {opt_hi['tolresid']:g}) median "
-            f"{med2:.3e}, steps max {int(ks.max())}, {t:.3f} s")
+            f"{med2:.3e}, steps max {int(ks.max())}, {t:.3f} s, peak memory {peak:.3f} GB "
+            f"above its start")
         check(bool(torch.isfinite(res2).all()), "11.3: non-finite staged RIPM residuals")
         check(bool((res2 <= res1 * (1.0 + 1e-4)).all()),
               "11.3: a staged RIPM lane ended above its phase 1")
@@ -2481,9 +2543,7 @@ class ExportSmoke:
         spec_file = os.path.join(self.tmp, "specs.json")
         with open(spec_file, "w") as f:
             json.dump(specs, f)
-        # the dense RIPM step materialises a [dim, B, dim, n] copy of the
-        # basis (63.9 GB at n = 1000, B = 16): the child needs the memory
-        # this process's allocator keeps cached
+        # the child needs the memory this process's allocator keeps cached
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--reload-artifacts",
@@ -2935,6 +2995,7 @@ def main(argv):
     baselines.phase_golden()
     baselines.phase_single()
     baselines.phase_sweep()
+    baselines.phase_wide(stiefel)
     counts = k.launch_counts()
     say(f"baseline solvers' paths launch counts {counts}")
     check(not any(counts.values()), "a hand-written kernel launched on a baseline solver's path")

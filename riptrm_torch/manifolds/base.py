@@ -9,11 +9,13 @@ so one step function serves the host runner (B = 1) and the batched sweep.
 Each manifold has a deterministic, closed-form tangent basis ``basis(x)``,
 metric-orthonormal at x: ``[B, dim, ...]``, slice ``[:, k]`` the k-th basis
 vector of every lane.  ``to_coords``/``from_coords`` move between tangent
-vectors and coordinates ``[B, dim]``; exact mode does its dense algebra
-(TRS, eigendecompositions) in those coordinates, where the Gram matrix is
-the identity.  ``map_basis`` applies a function to every basis vector, so
-a manifold whose basis is not one tensor (``Product``: one per component)
-is materialised without a block-diagonal basis.
+vectors and coordinates ``[B, dim]``, ``coords_of_stack`` takes the
+coordinates of K stacked tangents a lane in one contraction; exact mode
+does its dense algebra (TRS, eigendecompositions) in those coordinates,
+where the Gram matrix is the identity.  ``map_basis`` applies a function
+to every basis vector, so a manifold whose basis is not one tensor
+(``Product``: one per component) is materialised without a
+block-diagonal basis.
 
 Structured points (the JAX package's pytrees: a ``Product``'s tuple, a
 fixed-rank ``(U, S, V)``) are one packed tensor per lane here, so every
@@ -101,13 +103,27 @@ class Manifold:
         raise NotImplementedError
 
     def from_coords(self, x, basis, c):
-        """sum_k c[:, k] basis[:, k]: coordinates [B, dim] -> tangents."""
+        """sum_k c[..., k] basis[:, k]: coordinates [B, dim] -> tangents, or
+        stacked coordinates [B, K, dim] -> K tangents a lane [B, K, ...], in
+        one batched product."""
         b = basis.reshape(basis.shape[0], basis.shape[1], -1)
-        return torch.bmm(c[:, None, :], b).reshape(basis.shape[:1] + basis.shape[2:])
+        out = torch.bmm(c.reshape(c.shape[0], -1, c.shape[-1]), b)
+        return out.reshape(c.shape[:-1] + basis.shape[2:])
 
     def to_coords(self, x, basis, u):
-        """Metric inner products of u against every basis vector: [B, dim]."""
-        return self.inner(x[:, None], basis, u[:, None])
+        """Metric inner products of u [B, ...] against every basis vector:
+        [B, dim]."""
+        return self.coords_of_stack(x, basis, u[:, None])[:, 0]
+
+    def coords_of_stack(self, x, basis, us):
+        """Coordinates [B, K, dim] of K stacked tangents a lane, us [B, K,
+        ...]: one batched product of the flattened tangents with the
+        flattened basis, for the embedded (Frobenius) metric; a manifold
+        with another metric, or coordinates in closed form, overrides it.
+        Dense materialisation takes every coordinate through here, so no
+        step broadcasts the basis against each of the K tangents."""
+        b = basis.reshape(basis.shape[0], basis.shape[1], -1)
+        return torch.bmm(us.reshape(us.shape[0], us.shape[1], -1), b.mT)
 
     def map_basis(self, basis, fn, out_dims=0):
         """``fn`` applied to every basis vector (lane-batched tangents [B,

@@ -68,10 +68,6 @@ class _FlatSpace(Manifold):
                                   device=x.device))
         return v / self.norm(x, v).reshape((-1,) + (1,) * len(self.shape))
 
-    def to_coords(self, x, basis, u):
-        """Frobenius products with the basis, [B, dim]."""
-        return torch.einsum("bkn,bn->bk", self._flat(basis), self._flat(u))
-
 
 @dataclasses.dataclass(frozen=True)
 class Euclidean(_FlatSpace):
@@ -119,8 +115,8 @@ class SkewSymmetric(_FlatSpace):
         b = _skew_basis(self.d, dtype=x.dtype, device=x.device)
         return b.expand((x.shape[0],) + b.shape)
 
-    def to_coords(self, x, basis, u):
-        return skew_coords(u)
+    def coords_of_stack(self, x, basis, us):
+        return skew_coords(us)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,5 +142,5 @@ class Symmetric(_FlatSpace):
         b = _sym_basis(self.d, dtype=x.dtype, device=x.device)
         return b.expand((x.shape[0],) + b.shape)
 
-    def to_coords(self, x, basis, u):
-        return sym_coords(u)
+    def coords_of_stack(self, x, basis, us):
+        return sym_coords(us)

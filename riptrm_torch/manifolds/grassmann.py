@@ -81,6 +81,11 @@ class Grassmann(Manifold):
         eye = torch.eye(p, dtype=x.dtype, device=x.device)
         return torch.einsum("bik,jl->bkjil", xp, eye).reshape(b, (n - p) * p, n, p)
 
-    def to_coords(self, x, basis, u):
-        """Frobenius products with the basis, [B, dim]."""
-        return torch.einsum("bkij,bij->bk", basis, u)
+    def coords_of_stack(self, x, basis, us):
+        """Coordinates [B, K, dim] of us [B, K, n, p]: X_perp' U for each,
+        k-major, as one batched product over n with X_perp, the first
+        column of every p-th basis vector (no sum over the basis's zeros)."""
+        b, k, n, p = us.shape
+        xp = basis[:, ::p, :, 0]  # [B, n-p, n]
+        c = torch.bmm(xp, us.permute(0, 2, 1, 3).reshape(b, n, k * p))
+        return c.reshape(b, n - p, k, p).permute(0, 2, 1, 3).reshape(b, k, (n - p) * p)

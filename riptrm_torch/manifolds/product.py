@@ -141,9 +141,9 @@ class Product(Manifold):
             off += m.dim
         return self.pack(out)
 
-    def to_coords(self, x, basis, u):
-        return torch.cat([m.to_coords(xi, bi, ui) for m, xi, bi, ui in
-                          zip(self.manifolds, self.unpack(x), basis, self.unpack(u),
+    def coords_of_stack(self, x, basis, us):
+        return torch.cat([m.coords_of_stack(xi, bi, ui) for m, xi, bi, ui in
+                          zip(self.manifolds, self.unpack(x), basis, self.unpack(us),
                               strict=True)], dim=-1)
 
     def map_basis(self, basis, fn, out_dims=0):

@@ -5,7 +5,7 @@ Counterpart of ``riptrm_tpu/manifolds/spd.py``: the metric
 tr(P^-1 U P^-1 V), the second-order retraction P + V + V P^-1 V / 2, the
 log-eigenvalue distance, and the metric-orthonormal basis L S_k L' with
 L = chol(P) and {S_k} the Frobenius-orthonormal symmetric basis, whose
-coordinates take two triangular solves (``to_coords``).
+coordinates take two triangular solves (``coords_of_stack``).
 
 ``jnp.linalg.cholesky`` returns NaN on a matrix that is not positive
 definite, where ``torch.linalg.cholesky`` raises; ``_chol`` keeps the JAX
@@ -112,7 +112,8 @@ class SymmetricPositiveDefinite(Manifold):
         s = _sym_basis(self.d, dtype=x.dtype, device=x.device)
         return torch.einsum("bij,kjl,bml->bkim", l, s, l)
 
-    def to_coords(self, x, basis, u):
-        """c_k = tr(x^-1 (L S_k L') x^-1 u) = <S_k, L^-1 u L^-T>_F: two
-        triangular solves, not ``dim`` metric inner products."""
-        return sym_coords(_congruence_inv(_chol(x), u))
+    def coords_of_stack(self, x, basis, us):
+        """c_k = tr(x^-1 (L S_k L') x^-1 u) = <S_k, L^-1 u L^-T>_F for each
+        of the stacked u: two triangular solves, not ``dim`` metric inner
+        products."""
+        return sym_coords(_congruence_inv(_chol(x)[:, None], us))

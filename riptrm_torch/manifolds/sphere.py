@@ -63,12 +63,6 @@ class Sphere(Manifold):
         )
         return v / self.norm(x, v)[..., None]
 
-    def to_coords(self, x, basis, u):
-        """<basis_k, u> per lane, [B, dim], as one batched product: under a
-        ``vmap`` over directions it stays a matmul, where the generic
-        form would materialise a [.., dim, n] elementwise product."""
-        return torch.einsum("bkn,bn->bk", basis, u)
-
     def basis(self, x):
         """Rows 0..n-2 of the Householder reflector H = I - beta w w',
         w = x + sign(x_n) e_n, per lane: an orthonormal basis of x^perp

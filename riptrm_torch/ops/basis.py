@@ -1,13 +1,18 @@
 """Tangent-space operator materialisation, over lanes.
 
 Counterpart of ``riptrm_tpu/ops/basis.py``: a dim x dim representing
-matrix per lane, built with ONE ``torch.func.vmap`` over the dim basis
-directions of the lane-batched operator (dim batched applications; one
-per component on a ``Product``, ``Manifold.map_basis``) and one batched
-projection; ``constraint_grad_rows`` fans one frozen ``vjp`` out
-over the constraints the same way.  ``materialize_sharded`` splits the
-basis directions across the ranks of a mesh axis and all-gathers the
-columns.
+matrix per lane.  Every dense path applies the operator to the basis
+directions first, with ONE ``torch.func.vmap`` over the dim basis
+directions of the lane-batched operator (one per component on a
+``Product``, ``Manifold.map_basis``): that gives the stacked tangents
+[B, dim, ...], the size of the basis.  Then one batched contraction with
+the basis takes their coordinates (``Manifold.coords_of_stack``).
+``to_coords`` is never called under that ``vmap``: its batching rule
+broadcasts the lane-batched basis against every mapped direction, a
+[dim, B, dim, ...] tensor, dim times the basis.  ``constraint_grad_rows``
+fans one frozen ``vjp`` out over the constraints the same way.
+``materialize_sharded`` splits the basis directions across the ranks of a
+mesh axis and all-gathers the coordinates.
 """
 
 from __future__ import annotations
@@ -22,30 +27,25 @@ def materialize(manifold, x, basis, op):
     """Dense matrices A [B, dim, dim] with A[b, i, j] = <basis_i, op(basis_j)>
     at x[b]: ``op`` in metric-orthonormal coordinates.  ``op`` maps
     lane-batched tangents [B, ...] to tangents; it is applied once, mapped
-    over the dim basis directions."""
-
-    def column(b_j):  # the j-th basis vector of every lane, [B, ...]
-        return manifold.to_coords(x, basis, op(b_j))
-
-    return manifold.map_basis(basis, column, out_dims=2)
+    over the dim basis directions, and the stacked results are contracted
+    with the basis once."""
+    cols = manifold.map_basis(basis, op, out_dims=1)  # [B, dim, ...]: op(basis_j)
+    return manifold.coords_of_stack(x, basis, cols).mT
 
 
 def materialize_sharded(manifold, x, basis, op, mesh, axis: str = "tp"):
     """``materialize`` with the basis directions split across the ranks of
     ``mesh``'s axis ``axis``: each rank applies ``op`` to its dim / size
     directions only (``Manifold.basis_slice``; on a ``Product`` each
-    component's share of them), then an all-gather gives every rank the
-    whole [B, dim, dim] matrix for the dense TRS or eigendecomposition
-    downstream.  dim must be divisible by the axis size."""
+    component's share of them) and takes their coordinates, then an
+    all-gather gives every rank the whole [B, dim, dim] matrix for the
+    dense TRS or eigendecomposition downstream.  dim must be divisible by
+    the axis size."""
     group, size, index = mesh_axis(mesh, axis)
     cols = shard_range(manifold.dim, size, index, f"materialize_sharded: dim over {axis!r}")
-
-    def column(b_j):
-        return manifold.to_coords(x, basis, op(b_j))
-
-    mine = manifold.map_basis(manifold.basis_slice(basis, cols.start, cols.stop), column,
-                              out_dims=2)
-    return all_gather_cat(mine, group, dim=2)
+    mine = manifold.map_basis(manifold.basis_slice(basis, cols.start, cols.stop), op,
+                              out_dims=1)
+    return all_gather_cat(manifold.coords_of_stack(x, basis, mine), group, dim=1).mT
 
 
 def materialize_symmetrized(manifold, x, basis, op):
@@ -103,13 +103,16 @@ def constraint_grad_rows(manifold, x, basis, fn, m, dtype=None):
     G[b, i, :] = coords of rgrad fn_i at x[b] for a stacked per-lane
     constraint function ``fn: point -> [m]``: ONE ``vjp`` of the
     lane-batched constraints, pulled back along the m coordinate covectors
-    with a single ``torch.func.vmap``.  Returns [B, m, dim]."""
+    with a single ``torch.func.vmap`` into the stacked gradients [B, m,
+    ...], whose coordinates one contraction with the basis takes.  Returns
+    [B, m, dim]."""
     lanes = x.shape[0]
     _, pullback = vjp(lambda xx: vmap(fn)(xx), x)
 
-    def row(e):  # the i-th covector of every lane, [B, m]
+    def rgrad(e):  # the i-th covector of every lane, [B, m]
         (eg,) = pullback(e)
-        return manifold.to_coords(x, basis, manifold.egrad2rgrad(x, eg))
+        return manifold.egrad2rgrad(x, eg)
 
     eye = torch.eye(m, dtype=x.dtype if dtype is None else dtype, device=x.device)
-    return vmap(row, out_dims=1)(eye[:, None, :].expand(m, lanes, m))
+    grads = vmap(rgrad, out_dims=1)(eye[:, None, :].expand(m, lanes, m))
+    return manifold.coords_of_stack(x, basis, grads)

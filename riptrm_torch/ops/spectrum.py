@@ -14,7 +14,7 @@ from __future__ import annotations
 import math
 
 import torch
-from torch.func import grad, vmap
+from torch.func import grad
 
 from riptrm_torch.ops.basis import materialize_symmetrized
 
@@ -55,7 +55,7 @@ def operator_spectrum(manifold, x, op, *, descending_abs=True):
         w = torch.gather(w, -1, order)
         v = torch.gather(v, -1, order[:, None, :].expand_as(v))
     # the eigenvectors as tangents: column i of v in the basis, [B, dim, ...]
-    vecs = vmap(lambda c: manifold.from_coords(x, basis, c), in_dims=2, out_dims=1)(v)
+    vecs = manifold.from_coords(x, basis, v.mT)
     return w, vecs
 
 
