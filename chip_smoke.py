@@ -68,9 +68,9 @@ Phases:
      B = 16 with the plain tCG;
   6c. exact mode at n = 1000: RIPTRM.run on phase 6's instance in float64
      ('auto' is the Moré-Sorensen TRS there; residual <= 1e-6, a finite
-     mineigvalHw), a step's wall time split into materialisation, TRS and
-     the rest; then batched_riptrm_solve at B = 16 in float32 from phase
-     7's starts (median residual <= 1e-3);
+     mineigvalHw), a step's time split by the solver's spans into
+     materialisation, TRS and the rest; then batched_riptrm_solve at
+     B = 16 in float32 from phase 7's starts (median residual <= 1e-3);
   -- launch counters read (K1-K3), then reset: the BoundedPCA path --
   5b. golden solves: RIPTRM.run on dataset/BoundedPCA/1 points a and b,
      float64, plain tCG and fused (residual <= 1e-8, cost -5.2090815 +- 1e-6);
@@ -95,7 +95,7 @@ Phases:
      and RIPM on tests/test_eq_constraints.py's n = 12 instance;
   6d. one lane at n = 1000 on phase 6's instance: RIPM.run and RSQO.run in
      float64 to tolresid 1e-6, RALM.run in float32 with its defaults, a
-     step's wall time split into its parts (RIPM: materialisation, solve,
+     step's time split by the solvers' spans (RIPM: materialisation, solve,
      line search; RSQO: regularisation, QP with its IPM iterations, line
      search; RALM: line search; and the rest);
   7d. batched_solver_sweep of RIPM (dense), RSQO (reghess_shift with the
@@ -437,48 +437,46 @@ def finite_mineigs(log):
     return [v for v in log["mineigvalHw"] if v is not None and math.isfinite(v)]
 
 
-class StepSplit:
-    """Wall time spent in named parts of a solver step over the length of a
-    ``with``: the module functions ``parts`` maps to a part's label are
-    wrapped with timers that synchronise the card before and after each
-    call.  By default exact mode's materialisation
-    (``solvers/riptrm.py::materialize_at``: Hw and cx in the tangent basis,
-    its eigendecomposition or Lanczos extremes) and its TRS
-    (``solve_trs_ms``/``solve_trs_eig``)."""
+class SpanSplit:
+    """Time in the solver's named spans (``riptrm_torch/utils/spans.py``)
+    over the length of a ``with``, read from one torch.profiler window:
+    on the card each part is the device time of the kernels launched
+    inside its spans, on the CPU the spans' own time.  ``parts`` maps a
+    span's name to a part's label; by default exact mode's
+    materialisation (``riptrm.riptrm.materialize``: Hw and cx in the
+    tangent basis, its eigendecomposition or Lanczos extremes) and its TRS
+    (``riptrm.riptrm.trs``).  The rest is the wall time the parts leave,
+    host dispatch included; the profiler's own cost is in it too."""
 
-    PARTS = {"materialize_at": "materialisation", "solve_trs_ms": "TRS",
-             "solve_trs_eig": "TRS"}
+    PARTS = {"riptrm.riptrm.materialize": "materialisation", "riptrm.riptrm.trs": "TRS"}
 
-    def __init__(self, device, module="riptrm_torch.solvers.riptrm", parts=None):
-        import importlib
+    def __init__(self, device, parts=None):
+        from torch.profiler import ProfilerActivity
 
         self.device = device
-        self.module = importlib.import_module(module)
         self.parts = self.PARTS if parts is None else parts
         labels = dict.fromkeys(self.parts.values())
         self.seconds = {label: 0.0 for label in labels}
         self.calls = {label: 0 for label in labels}
-        self.saved = {}
+        self.activities = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device.type == "cuda" else [])
 
     def __enter__(self):
-        for name, part in self.parts.items():
-            fn = self.saved[name] = getattr(self.module, name)
+        from torch.profiler import profile
 
-            def timed(*args, fn=fn, part=part, **kwargs):
-                sync(self.device)
-                t0 = time.perf_counter()
-                out = fn(*args, **kwargs)
-                sync(self.device)
-                self.seconds[part] += time.perf_counter() - t0
-                self.calls[part] += 1
-                return out
-
-            setattr(self.module, name, timed)
+        self.prof = profile(activities=self.activities)
+        self.prof.__enter__()
         return self
 
     def __exit__(self, *exc):
-        for name, fn in self.saved.items():
-            setattr(self.module, name, fn)
+        self.prof.__exit__(*exc)
+        for ev in self.prof.key_averages():
+            if ev.key in self.parts:
+                label = self.parts[ev.key]
+                us = ev.device_time_total if self.device.type == "cuda" else ev.cpu_time_total
+                self.seconds[label] += us * 1e-6
+                self.calls[label] += ev.count
+        del self.prof
 
     def report(self, total, steps):
         rest = total - sum(self.seconds.values())
@@ -798,8 +796,8 @@ class Smoke:
     def phase_exact_full(self):
         """6c: exact mode at n = 1000.  RIPTRM.run in float64 on phase 6's
         instance ('auto' resolves to the Moré-Sorensen TRS, Hw by the
-        Householder congruence), with the wall time of a step split into
-        the materialisation, the TRS and the rest; then the float32
+        Householder congruence), with the time of a step split by its spans
+        into the materialisation, the TRS and the rest; then the float32
         batched sweep in exact mode (the batched sweeps' default 'ms')
         from phase 7's B = 16 starts."""
         from riptrm_torch.parallel.sweep import batched_riptrm_solve
@@ -811,7 +809,7 @@ class Smoke:
                          "do_exit_on_error": False})
         method = exact_trs_method(solver.option, p.manifold.dim)
         check(method == "ms", f"6c: 'auto' resolved to {method!r} at dim {p.manifold.dim}")
-        with StepSplit(self.device) as split:
+        with SpanSplit(self.device) as split:
             out, t = wall(lambda: solver.run(p), self.device)
         res, steps = out.log["residual"][-1], len(out.log["residual"]) - 1
         mineigs = finite_mineigs(out.log)
@@ -832,7 +830,7 @@ class Smoke:
         xs, ys = self.start[b].x, self.start[b].y
         option = bench_option() | {"TRS_solver": "Exact_RepMat", "second_order_stationarity": True}
         solve = batched_riptrm_solve(self.problem, option, self.steps)
-        with StepSplit(self.device) as split:
+        with SpanSplit(self.device) as split:
             (st, steps, res), t = wall(lambda: solve(xs, ys), self.device)
         med = float(torch.median(res))
         above = int((res > 1e-3).sum())
@@ -1267,16 +1265,13 @@ class ChainSmoke:
                 lambda zs=zs, v0=v0: torch.matmul(zs, v0), call=((*args, CHAIN_ITERS), {})))
 
 
-# The parts of a baseline solver's step that phase 6d times (module
-# functions, wrapped by StepSplit): (module, {function: part})
-RIPM_PARTS = ("riptrm_torch.solvers.ripm", {
-    "materialize_symmetrized": "materialisation", "_solve_nan": "solve",
-    "_merit_line_search": "line search"})
-RSQO_PARTS = ("riptrm_torch.solvers.rsqo", {
-    "sphere_householder_congruence": "regularisation",
-    "materialize_symmetrized": "regularisation", "_regularize": "regularisation",
-    "solve_qp": "QP", "_ell1_line_search": "line search"})
-RALM_PARTS = ("riptrm_torch.solvers.subsolvers", {"_backtracking_line_search": "line search"})
+# The parts of a baseline solver's step that phase 6d times (the solver's
+# spans, read by SpanSplit): {span: part}
+RIPM_PARTS = {"riptrm.ripm.materialize": "materialisation",
+              "riptrm.ripm.newton_solve": "solve", "riptrm.ripm.line_search": "line search"}
+RSQO_PARTS = {"riptrm.rsqo.regularize": "regularisation", "riptrm.rsqo.qp": "QP",
+              "riptrm.rsqo.line_search": "line search"}
+RALM_PARTS = {"riptrm.ralm.line_search": "line search"}
 # phase 7d: chip_sweep's options for the baseline solvers (maxiter 60,
 # tolresid 3e-4; RSQO with the shift regularisation and the Newton-Schulz
 # QP; RALM reporting its best point), each with a stall window
@@ -1397,7 +1392,7 @@ class BaselineSmoke:
     def phase_single(self):
         """6d: one lane at n = 1000 on phase 6's instance: RIPM and RSQO in
         float64 to tolresid 1e-6, RALM in float32 with its defaults, each
-        step's wall time split into its parts (``StepSplit``)."""
+        step's time split by the solver's spans (``SpanSplit``)."""
         from riptrm_torch.problems import nonneg_pca
         from riptrm_torch.solvers import RALM, RIPM, RSQO
 
@@ -1406,9 +1401,9 @@ class BaselineSmoke:
         runs = (("RIPM", RIPM, p64, {"maxtime": 300, "tolresid": 1e-6}, RIPM_PARTS, "float64"),
                 ("RSQO", RSQO, p64, {"maxtime": 300, "tolresid": 1e-6}, RSQO_PARTS, "float64"),
                 ("RALM", RALM, self.smoke.problem, {}, RALM_PARTS, "float32"))
-        for name, cls, p, opt, (module, parts), dt in runs:
+        for name, cls, p, opt, parts, dt in runs:
             solver = cls(opt | {"do_exit_on_error": False})
-            with StepSplit(dev, module, parts) as split:
+            with SpanSplit(dev, parts) as split:
                 out, t = wall(lambda: solver.run(p), dev)
             res, steps = out.log["residual"], len(out.log["residual"]) - 1
             extra = ""
@@ -1571,11 +1566,9 @@ CALLBACK_STEPS = 4  # 6e: RIPTRM.run steps with Rosenbrock's callback
 COMPENSATED_STEPS = 30
 FAMILY_SWEEP_STEPS = {"StableIdentification": 10, "Rosenbrock": 100, "LowRank": 100}
 # 6e/7e: RIPTRM's step parts (riptrm_torch.solvers.riptrm functions)
-RIPTRM_PARTS = ("riptrm_torch.solvers.riptrm", {
-    "truncated_cg": "tCG", "_barrier_ops": "barrier operators",
-    "evaluation": "evaluation"})
-CALLBACK_PARTS = ("riptrm_torch.problems.rosenbrock",
-                  {"second_order_residual": "second-order callback"})
+RIPTRM_PARTS = {"riptrm.riptrm.direction": "tCG", "riptrm.riptrm.barrier": "barrier operators",
+                "riptrm.riptrm.evaluation": "evaluation"}
+CALLBACK_PARTS = {"riptrm.callback": "second-order callback"}
 
 
 class FamilySmoke:
@@ -1736,7 +1729,7 @@ class FamilySmoke:
             st0 = init_state_from(problem, solver.option, xs[:1], ys[:1])
             r0 = float(compute_residual(problem, st0.x, st0.y)[0][0])
             solve = solver.solve_compiled(problem, SINGLE_STEPS)
-            with StepSplit(dev, *RIPTRM_PARTS) as split:
+            with SpanSplit(dev, RIPTRM_PARTS) as split:
                 (st, k), t = wall(lambda: solve(st0), dev)
             steps = int(k[0])
             r1 = float(compute_residual(problem, st.x, st.y)[0][0])
@@ -1747,7 +1740,7 @@ class FamilySmoke:
             if name == "Rosenbrock":
                 p_cb = dataclasses.replace(problem, x0=xs[0], y0=ys[0])
                 opt = option | {"maxiter": 1, "inner_maxiter": CALLBACK_STEPS}
-                with StepSplit(dev, *CALLBACK_PARTS) as cb:
+                with SpanSplit(dev, CALLBACK_PARTS) as cb:
                     out, t = wall(lambda: RIPTRM(opt).run(p_cb), dev)
                 n = len(out.log["residual"]) - 1
                 sor = [v for v in out.log["second_order_residual"] if v is not None]

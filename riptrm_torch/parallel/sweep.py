@@ -29,6 +29,12 @@ own lanes.  A lane's solve runs no collective: ranks stop at different
 steps, so the one collective of a solve comes after it (a segmented sweep
 adds one ``all_reduce`` a segment, the count of lanes still running).
 
+Under torch.profiler a call of ``batched_riptrm_solve``, ``batched_solver_sweep``
+or ``run_sweep_checkpointed`` runs in a ``riptrm.sweep`` span, with
+``riptrm.sweep.init`` and ``riptrm.sweep.residual`` beside its steps
+(``utils/spans.py``); the sharded solve's lanes run in the span of the
+``batched_riptrm_solve`` it calls.
+
 The JAX package's ``_warn_vmapped_lanczos`` is not ported: under ``vmap``
 the tCG mode's Lanczos certificate runs on every step of every lane, but
 the port's step runs it only on steps where some lane's first-order tests
@@ -50,6 +56,7 @@ from riptrm_torch.ops.spectrum import lanczos
 from riptrm_torch.parallel import distributed
 from riptrm_torch.solvers.base import select_lanes
 from riptrm_torch.solvers.riptrm import RIPTRM, RiptrmState, _barrier_ops, init_state
+from riptrm_torch.utils.spans import span
 
 
 def _batched_exact_defaults(option):
@@ -114,9 +121,13 @@ def batched_riptrm_solve(problem, option, max_steps: int):
     solve = solver.solve_compiled(problem, max_steps)
 
     def run(xs0, ys0):
-        state, k = solve(init_state_from(problem, solver.option, xs0, ys0))
-        res = compute_residual(problem, state.x, state.y)[0]
-        return state, k, res
+        with span("riptrm.sweep"):
+            with span("riptrm.sweep.init"):
+                st0 = init_state_from(problem, solver.option, xs0, ys0)
+            state, k = solve(st0)
+            with span("riptrm.sweep.residual"):
+                res = compute_residual(problem, state.x, state.y)[0]
+            return state, k, res
 
     return run
 
@@ -329,10 +340,14 @@ def batched_solver_sweep(problem, solver_name: str, option, max_steps: int):
     solve, start, resid_args = _solver_plumbing(problem, solver_name, option, max_steps)
 
     def run(xs0, ys0):
-        st0, extras = start(xs0, ys0)
-        st, k, _ = solve(st0, *extras, -float("inf"))
-        x, ineq, eq = resid_args(st)
-        return x, ineq, k, compute_residual(problem, x, ineq, eq)[0]
+        with span("riptrm.sweep"):
+            with span("riptrm.sweep.init"):
+                st0, extras = start(xs0, ys0)
+            st, k, _ = solve(st0, *extras, -float("inf"))
+            x, ineq, eq = resid_args(st)
+            with span("riptrm.sweep.residual"):
+                res = compute_residual(problem, x, ineq, eq)[0]
+            return x, ineq, k, res
 
     return run
 
@@ -544,7 +559,9 @@ def make_segment_solver(problem, option, segment_steps: int):
         new, k, stopped, _ = solve(states, target)
         out = select_lanes(done, states, new)
         k = torch.where(done, torch.zeros_like(k), k)
-        return out, k, compute_residual(problem, out.x, out.y)[0], done | stopped
+        with span("riptrm.sweep.residual"):
+            res = compute_residual(problem, out.x, out.y)[0]
+        return out, k, res, done | stopped
 
     return run
 
@@ -618,77 +635,80 @@ def run_sweep_checkpointed(problem, option, xs0, ys0, *, max_steps=2000, segment
     [B]), every lane's on every rank."""
     from riptrm_torch.experiment.checkpoint import load_state, save_state
 
-    xs0 = _as_stacked_points(problem, xs0)
-    ys0 = _as_lanes(problem, ys0)
-    solver = RIPTRM(_batched_exact_defaults(option))
-    batch, dev = ys0.shape[0], ys0.device
-    carry = {
-        "state": init_state_from(problem, solver.option, xs0, ys0),
-        "done": torch.zeros(batch, dtype=torch.bool, device=dev),
-        "ks": torch.zeros(batch, dtype=torch.int64, device=dev),
-    }
-    sweep_id = _sweep_identity(problem, solver.option, xs0, ys0)
-    start_meta = {}
-    if checkpoint_path is not None and os.path.exists(checkpoint_path):
-        carry, start_meta = load_state(checkpoint_path, carry, manifold=problem.manifold)
-        saved_id = start_meta.get("sweep_id")
-        if saved_id is not None and saved_id != sweep_id:
-            raise ValueError(
-                f"checkpoint {checkpoint_path} was saved by a DIFFERENT sweep (sweep_id "
-                f"{saved_id} != {sweep_id}): refusing to resume, which would discard the "
-                "caller's xs0/ys0/option; use a fresh checkpoint_path (or delete the file)")
-        if saved_id is None:
-            import warnings
+    with span("riptrm.sweep"):
+        xs0 = _as_stacked_points(problem, xs0)
+        ys0 = _as_lanes(problem, ys0)
+        solver = RIPTRM(_batched_exact_defaults(option))
+        batch, dev = ys0.shape[0], ys0.device
+        with span("riptrm.sweep.init"):
+            carry = {
+                "state": init_state_from(problem, solver.option, xs0, ys0),
+                "done": torch.zeros(batch, dtype=torch.bool, device=dev),
+                "ks": torch.zeros(batch, dtype=torch.int64, device=dev),
+            }
+        sweep_id = _sweep_identity(problem, solver.option, xs0, ys0)
+        start_meta = {}
+        if checkpoint_path is not None and os.path.exists(checkpoint_path):
+            carry, start_meta = load_state(checkpoint_path, carry, manifold=problem.manifold)
+            saved_id = start_meta.get("sweep_id")
+            if saved_id is not None and saved_id != sweep_id:
+                raise ValueError(
+                    f"checkpoint {checkpoint_path} was saved by a DIFFERENT sweep (sweep_id "
+                    f"{saved_id} != {sweep_id}): refusing to resume, which would discard the "
+                    "caller's xs0/ys0/option; use a fresh checkpoint_path (or delete the file)")
+            if saved_id is None:
+                import warnings
 
-            warnings.warn(
-                f"resuming legacy checkpoint {checkpoint_path} with no sweep identity "
-                "stamp: the caller's xs0/ys0 are ignored in favor of the checkpointed state",
-                stacklevel=2)
-    steps_done = int(start_meta.get(
-        "steps_done",
-        start_meta.get("segments_done", 0) * start_meta.get("segment_steps", segment_steps)))
-    n_seg = int(start_meta.get("segments_done", 0))
+                warnings.warn(
+                    f"resuming legacy checkpoint {checkpoint_path} with no sweep identity "
+                    "stamp: the caller's xs0/ys0 are ignored in favor of the checkpointed state",
+                    stacklevel=2)
+        steps_done = int(start_meta.get(
+            "steps_done",
+            start_meta.get("segments_done", 0) * start_meta.get("segment_steps", segment_steps)))
+        n_seg = int(start_meta.get("segments_done", 0))
 
-    if mesh is None:
-        def whole(t):
-            return t
+        if mesh is None:
+            def whole(t):
+                return t
 
-        def running(done):
-            return not bool(done.all())
-    else:
-        group, size, index = collectives.mesh_axis(mesh, axis)
-        lanes = collectives.shard_range(batch, size, index,
-                                        f"run_sweep_checkpointed: lanes over {axis!r}")
-        carry = _map_carry(lambda t: t[lanes], carry)
+            def running(done):
+                return not bool(done.all())
+        else:
+            group, size, index = collectives.mesh_axis(mesh, axis)
+            lanes = collectives.shard_range(batch, size, index,
+                                            f"run_sweep_checkpointed: lanes over {axis!r}")
+            carry = _map_carry(lambda t: t[lanes], carry)
 
-        def whole(t):
-            return collectives.all_gather_cat(t, group)
+            def whole(t):
+                return collectives.all_gather_cat(t, group)
 
-        def running(done):
-            return int(collectives.all_sum((~done).sum(), group)) > 0
+            def running(done):
+                return int(collectives.all_sum((~done).sum(), group)) > 0
 
-    segments = {}  # at most two lengths: segment_steps and the truncated last
-    res = None
-    while steps_done < max_steps and running(carry["done"]):
-        length = min(segment_steps, max_steps - steps_done)
-        if length not in segments:
-            segments[length] = make_segment_solver(problem, option, length)
-        states, ks, res, done = segments[length](carry["state"], carry["done"])
-        carry = {"state": states, "done": done, "ks": carry["ks"] + ks}
-        steps_done += length
-        n_seg += 1
-        if checkpoint_path is not None:
-            full = carry if mesh is None else _map_carry(whole, carry)
-            if mesh is None or distributed.rank() == 0:
-                save_state(checkpoint_path, full, dict(meta or {}, segments_done=n_seg,
-                                                       steps_done=steps_done,
-                                                       sweep_id=sweep_id))
-            if mesh is not None:
-                distributed.barrier()
-        if on_segment is not None:
-            on_segment(n_seg, steps_done, whole(res).cpu().numpy(),
-                       whole(done).cpu().numpy())
-    st = carry["state"]
-    if res is None:  # a resumed finished sweep, or a zero budget
-        res = compute_residual(problem, st.x, st.y)[0]
-    return whole(st.x), whole(st.y), whole(carry["ks"]), whole(res)
+        segments = {}  # at most two lengths: segment_steps and the truncated last
+        res = None
+        while steps_done < max_steps and running(carry["done"]):
+            length = min(segment_steps, max_steps - steps_done)
+            if length not in segments:
+                segments[length] = make_segment_solver(problem, option, length)
+            states, ks, res, done = segments[length](carry["state"], carry["done"])
+            carry = {"state": states, "done": done, "ks": carry["ks"] + ks}
+            steps_done += length
+            n_seg += 1
+            if checkpoint_path is not None:
+                full = carry if mesh is None else _map_carry(whole, carry)
+                if mesh is None or distributed.rank() == 0:
+                    save_state(checkpoint_path, full, dict(meta or {}, segments_done=n_seg,
+                                                           steps_done=steps_done,
+                                                           sweep_id=sweep_id))
+                if mesh is not None:
+                    distributed.barrier()
+            if on_segment is not None:
+                on_segment(n_seg, steps_done, whole(res).cpu().numpy(),
+                           whole(done).cpu().numpy())
+        st = carry["state"]
+        if res is None:  # a resumed finished sweep, or a zero budget
+            with span("riptrm.sweep.residual"):
+                res = compute_residual(problem, st.x, st.y)[0]
+        return whole(st.x), whole(st.y), whole(carry["ks"]), whole(res)

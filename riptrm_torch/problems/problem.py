@@ -52,6 +52,7 @@ from torch.func import grad, jvp, vjp, vmap
 
 from riptrm_torch.config import matmul_precision as _precision_scope
 from riptrm_torch.manifolds.base import Manifold
+from riptrm_torch.utils.spans import span
 
 
 def scoped(method):
@@ -150,7 +151,8 @@ class Problem:
     def apply_callback(self, x, y, z, ev):
         if self.callback is None:
             return ev
-        return self.callback(self, x, y, z, ev)
+        with span("riptrm.callback"):
+            return self.callback(self, x, y, z, ev)
 
     # ------------------------------------------------------------------
     # First-order operators

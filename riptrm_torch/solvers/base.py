@@ -20,6 +20,7 @@ import torch
 
 from riptrm_torch.config import resolve
 from riptrm_torch.utils.lanes import lane_loop
+from riptrm_torch.utils.spans import span
 
 
 @dataclasses.dataclass
@@ -276,7 +277,8 @@ def compiled_best_while(step1, state0, target, max_steps, best0, stall_window=No
     """The lane-batched fixed-budget solve loop (the JAX package's
     ``lax.while_loop`` of the same name): ``utils/lanes.py::lane_loop``,
     eagerly a Python loop over device tensors with one host check per step,
-    under tracing one ``while_loop`` operator.
+    under tracing one ``while_loop`` operator.  Each body runs in a
+    ``riptrm.step`` span (``utils/spans.py``); the check stays outside it.
 
     ``step1(st) -> (new_st, res, counted, stop)``: one solver step on every
     lane, with each lane's residual, whether that residual counts toward
@@ -312,22 +314,23 @@ def compiled_best_while(step1, state0, target, max_steps, best0, stall_window=No
         return ~done.all()
 
     def body(_, st, best, k, done, *extra):
-        extra = list(extra)
-        new_st, res, counted, stop = step1(st)
-        improved = (~done) & counted & (res < best)
-        if track_best_state:
-            extra[0] = select_lanes(improved, new_st, extra[0])
-        if stall_window is not None:
-            since = extra[-1]
-            big_improve = improved & (res < (1.0 - stall_rtol) * best)
-            extra[-1] = since = torch.where(
-                done, since, torch.where(big_improve, torch.zeros_like(since), since + 1))
-            stop = stop | (since >= stall_window)
-        best = torch.where(improved, res, best)
-        st = select_lanes(done, st, new_st)
-        k = k + (~done).to(k.dtype)
-        done = done | stop | (best <= target)
-        return (st, best, k, done, *extra)
+        with span("riptrm.step"):
+            extra = list(extra)
+            new_st, res, counted, stop = step1(st)
+            improved = (~done) & counted & (res < best)
+            if track_best_state:
+                extra[0] = select_lanes(improved, new_st, extra[0])
+            if stall_window is not None:
+                since = extra[-1]
+                big_improve = improved & (res < (1.0 - stall_rtol) * best)
+                extra[-1] = since = torch.where(
+                    done, since, torch.where(big_improve, torch.zeros_like(since), since + 1))
+                stop = stop | (since >= stall_window)
+            best = torch.where(improved, res, best)
+            st = select_lanes(done, st, new_st)
+            k = k + (~done).to(k.dtype)
+            done = done | stop | (best <= target)
+            return (st, best, k, done, *extra)
 
     st, best, k, done, *extra = lane_loop(running, body, carry, max_steps)
     return (extra[0] if track_best_state else st), k, done, best

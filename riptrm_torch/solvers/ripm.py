@@ -43,6 +43,7 @@ from riptrm_torch.utils.lanes import bcast as _bc
 from riptrm_torch.utils.lanes import dot as _dot
 from riptrm_torch.utils.lanes import lane_loop
 from riptrm_torch.utils.lanes import where_lanes as _lanes
+from riptrm_torch.utils.spans import span
 
 
 def default_option():
@@ -157,84 +158,91 @@ def make_step(problem, option):
         x, y, z, s = state.x, state.y, state.z, state.s
         sigma, rho, gamma = state.sigma, state.rho, state.gamma
         lanes, dt, dev = s.shape[0], s.dtype, s.device
-        fx, fy, fz, fs = _kkt_field(problem, x, y, z, s)
-        phi_cur = _phi(problem, x, fx, fy, fz, fs)
-        sr = (sigma * rho)[:, None]  # sigma * rho * ehat
+        with span("riptrm.ripm.kkt"):
+            fx, fy, fz, fs = _kkt_field(problem, x, y, z, s)
+            phi_cur = _phi(problem, x, fx, fy, fz, fs)
+            sr = (sigma * rho)[:, None]  # sigma * rho * ehat
 
-        # point-frozen operators
-        lag_hvp = problem.lag_rhess_at(x, z, y)
-        gx_neg = problem.gx_at(x)
-        gx_pos = lambda v: gx_neg(-v)  # RIPM's barGx uses +grad g
-        gxaj_pos = lambda dx: -problem.gx_adj(x, dx)
+            # point-frozen operators
+            lag_hvp = problem.lag_rhess_at(x, z, y)
+            gx_neg = problem.gx_at(x)
+            gx_pos = lambda v: gx_neg(-v)  # RIPM's barGx uses +grad g
+            gxaj_pos = lambda dx: -problem.gx_adj(x, dx)
 
-        # condensed Newton right-hand side
-        c = -fx - gx_pos((z * fz + sr - fs) / s)
-        q = -fy
+            # condensed Newton right-hand side
+            c = -fx - gx_pos((z * fz + sr - fs) / s)
+            q = -fy
 
         def op_aw(dx):
             return lag_hvp(dx) + gx_pos(gxaj_pos(dx) * (z / s))
 
-        basis = man.basis(x) if (not krylov or check_nt or precon) else None
         empty_y = torch.zeros((lanes, 0), dtype=dt, device=dev)
-        if precon:
-            # CR on the symmetrically Jacobi-scaled operator in
-            # metric-orthonormal coordinates, D = diag(Theta-hat) + the
-            # Hessian's Rayleigh scale, its spread capped
-            g_mat = _constraint_grad_matrix(problem, x, basis, m)  # [B, m, dim]
-            theta_diag = torch.einsum("bk,bki->bi", z / s, g_mat * g_mat)
-            c_hat = man.to_coords(x, basis, c)
-            hess_c = lag_hvp(c)
-            cc = man.inner(x, c, c)
-            rayleigh = torch.abs(man.inner(x, c, hess_c)) / torch.clamp(
-                cc, min=torch.finfo(dt).tiny)
-            d_raw = theta_diag + torch.clamp(rayleigh, min=1e-8)[:, None]
-            kappa_cap = option.get("KrylovPreconKappaCap", 1e8)
-            d_scale = torch.maximum(d_raw, (torch.amax(d_raw, dim=-1) / kappa_cap)[:, None])
-            d_isqrt = torch.rsqrt(d_scale)
-            d_sqrt = torch.sqrt(d_scale)
-
-            def op_hat(u):
-                v = man.from_coords(x, basis, d_isqrt * u[0])
-                return (d_isqrt * man.to_coords(x, basis, op_aw(v)),)
-
-            (sol,), krylov_iters, krylov_relres = conjugate_residual(
-                lambda u, v: _dot(u[0], v[0]),
-                op_hat,
-                (d_isqrt * c_hat,),
-                (torch.zeros((lanes, dim), dtype=dt, device=dev),),
-                tol=option["KrylovTolrelresid"],
-                maxiter=option["KrylovMaxIteration"],
-                # stop on the original system's residual norm
-                stop_norm=lambda r: torch.linalg.vector_norm(d_sqrt * r[0], dim=-1),
-            )
-            ntdir_x = man.from_coords(x, basis, d_isqrt * sol)
-            ntdir_y = empty_y
-        elif krylov:
-            # matrix-free conjugate residual on T_x M x R^l
-            hx = problem.hx_at(x) if l > 0 else None
-            inner_x = man.inner_at(x)
-
-            def op_t(dxdy):
-                dx, dy = dxdy
-                out_x = op_aw(dx)
-                if l > 0:
-                    return out_x + hx(dy), problem.hx_adj(x, dx)
-                return out_x, empty_y
-
-            (ntdir_x, ntdir_y), krylov_iters, krylov_relres = conjugate_residual(
-                lambda u, v: inner_x(u[0], v[0]) + _dot(u[1], v[1]),
-                op_t,
-                (c, q),
-                (man.zero_vector(x), torch.zeros((lanes, l), dtype=dt, device=dev)),
-                tol=option["KrylovTolrelresid"],
-                maxiter=option["KrylovMaxIteration"],
-            )
-        else:
+        basis = None
+        if not krylov:
             # dense saddle solve in coordinates
-            aw_mat = materialize_symmetrized(man, x, basis, op_aw)
-            c_vec = man.to_coords(x, basis, c)
-            if l > 0:
-                heq = _eq_grad_matrix(problem, x, basis, l)  # [B, l, dim]
+            with span("riptrm.ripm.materialize"):
+                basis = man.basis(x)
+                aw_mat = materialize_symmetrized(man, x, basis, op_aw)
+                c_vec = man.to_coords(x, basis, c)
+                if l > 0:
+                    heq = _eq_grad_matrix(problem, x, basis, l)  # [B, l, dim]
+        with span("riptrm.ripm.krylov" if krylov else "riptrm.ripm.newton_solve"):
+            if krylov and (check_nt or precon):
+                basis = man.basis(x)
+            if precon:
+                # CR on the symmetrically Jacobi-scaled operator in
+                # metric-orthonormal coordinates, D = diag(Theta-hat) + the
+                # Hessian's Rayleigh scale, its spread capped
+                g_mat = _constraint_grad_matrix(problem, x, basis, m)  # [B, m, dim]
+                theta_diag = torch.einsum("bk,bki->bi", z / s, g_mat * g_mat)
+                c_hat = man.to_coords(x, basis, c)
+                hess_c = lag_hvp(c)
+                cc = man.inner(x, c, c)
+                rayleigh = torch.abs(man.inner(x, c, hess_c)) / torch.clamp(
+                    cc, min=torch.finfo(dt).tiny)
+                d_raw = theta_diag + torch.clamp(rayleigh, min=1e-8)[:, None]
+                kappa_cap = option.get("KrylovPreconKappaCap", 1e8)
+                d_scale = torch.maximum(d_raw, (torch.amax(d_raw, dim=-1) / kappa_cap)[:, None])
+                d_isqrt = torch.rsqrt(d_scale)
+                d_sqrt = torch.sqrt(d_scale)
+
+                def op_hat(u):
+                    v = man.from_coords(x, basis, d_isqrt * u[0])
+                    return (d_isqrt * man.to_coords(x, basis, op_aw(v)),)
+
+                (sol,), krylov_iters, krylov_relres = conjugate_residual(
+                    lambda u, v: _dot(u[0], v[0]),
+                    op_hat,
+                    (d_isqrt * c_hat,),
+                    (torch.zeros((lanes, dim), dtype=dt, device=dev),),
+                    tol=option["KrylovTolrelresid"],
+                    maxiter=option["KrylovMaxIteration"],
+                    # stop on the original system's residual norm
+                    stop_norm=lambda r: torch.linalg.vector_norm(d_sqrt * r[0], dim=-1),
+                )
+                ntdir_x = man.from_coords(x, basis, d_isqrt * sol)
+                ntdir_y = empty_y
+            elif krylov:
+                # matrix-free conjugate residual on T_x M x R^l
+                hx = problem.hx_at(x) if l > 0 else None
+                inner_x = man.inner_at(x)
+
+                def op_t(dxdy):
+                    dx, dy = dxdy
+                    out_x = op_aw(dx)
+                    if l > 0:
+                        return out_x + hx(dy), problem.hx_adj(x, dx)
+                    return out_x, empty_y
+
+                (ntdir_x, ntdir_y), krylov_iters, krylov_relres = conjugate_residual(
+                    lambda u, v: inner_x(u[0], v[0]) + _dot(u[1], v[1]),
+                    op_t,
+                    (c, q),
+                    (man.zero_vector(x), torch.zeros((lanes, l), dtype=dt, device=dev)),
+                    tol=option["KrylovTolrelresid"],
+                    maxiter=option["KrylovMaxIteration"],
+                )
+            elif l > 0:
                 t_mat = torch.cat([
                     torch.cat([aw_mat, heq.mT], dim=-1),
                     torch.cat([heq, torch.zeros((lanes, l, l), dtype=dt, device=dev)], dim=-1),
@@ -247,17 +255,17 @@ def make_step(problem, option):
                 ntdir_x = man.from_coords(x, basis, sol)
                 ntdir_y = empty_y
 
-        # recover dz, ds
-        gxaj_dx = gxaj_pos(ntdir_x)
-        ntdir_z = (z * (gxaj_dx + fz) + sr - fs) / s
-        ntdir_s = (sr - fs - s * ntdir_z) / z
+            # recover dz, ds
+            gxaj_dx = gxaj_pos(ntdir_x)
+            ntdir_z = (z * (gxaj_dx + fz) + sr - fs) / s
+            ntdir_s = (sr - fs - s * ntdir_z) / z
 
-        norm_ntdir_x = man.norm(x, ntdir_x)
-        norm_ntdir_w = torch.sqrt(
-            norm_ntdir_x**2 + _dot(ntdir_y, ntdir_y) + _dot(ntdir_z, ntdir_z)
-            + _dot(ntdir_s, ntdir_s)
-        )
-        gradf_ntdir = man.inner(x, problem.rgrad(x), ntdir_x)
+            norm_ntdir_x = man.norm(x, ntdir_x)
+            norm_ntdir_w = torch.sqrt(
+                norm_ntdir_x**2 + _dot(ntdir_y, ntdir_y) + _dot(ntdir_z, ntdir_z)
+                + _dot(ntdir_s, ntdir_s)
+            )
+            gradf_ntdir = man.inner(x, problem.rgrad(x), ntdir_x)
 
         nt_info = {}
         if check_nt:
@@ -266,10 +274,11 @@ def make_step(problem, option):
                 (fx, fy, fz, fs), phi_cur, sigma, rho,
             )
 
-        ls_right = 2.0 * (sigma * rho * _dot(z, s) - phi_cur)
-        stepsize, w_new, phi_new, r = _merit_line_search(
-            problem, option, (x, y, z, s), (ntdir_x, ntdir_y, ntdir_z, ntdir_s), phi_cur,
-            ls_right, gamma, tau_1, tau_2)
+        with span("riptrm.ripm.line_search"):
+            ls_right = 2.0 * (sigma * rho * _dot(z, s) - phi_cur)
+            stepsize, w_new, phi_new, r = _merit_line_search(
+                problem, option, (x, y, z, s), (ntdir_x, ntdir_y, ntdir_z, ntdir_s), phi_cur,
+                ls_right, gamma, tau_1, tau_2)
         ls_status = r <= option["linesearch_max_steps"]
 
         x_new, y_new, z_new, s_new = w_new
@@ -325,10 +334,11 @@ def _merit_line_search(problem, option, w, ntdir, phi_cur, ls_right, gamma, tau_
     ls_max = option["linesearch_max_steps"]
 
     def trial(stepsize):
-        x_new = man.retract(x, _bc(stepsize, ntdir_x) * ntdir_x)
-        st = stepsize[:, None]
-        w_new = (x_new, y + st * ntdir_y, z + st * ntdir_z, s + st * ntdir_s)
-        return w_new, _phi(problem, x_new, *_kkt_field(problem, *w_new))
+        with span("riptrm.ripm.ls_trial"):
+            x_new = man.retract(x, _bc(stepsize, ntdir_x) * ntdir_x)
+            st = stepsize[:, None]
+            w_new = (x_new, y + st * ntdir_y, z + st * ntdir_z, s + st * ntdir_s)
+            return w_new, _phi(problem, x_new, *_kkt_field(problem, *w_new))
 
     def ls_ok(stepsize, z_new, s_new, phi_new):
         armijo = phi_new - phi_cur <= ls_beta * stepsize * ls_right
@@ -478,7 +488,8 @@ def solve_compiled_best(problem, option, max_steps: int):
     def solve(state, tau_1, tau_2, target):
         def step1(st):
             new_st, info = step(st, tau_1, tau_2)
-            res = residual(new_st)
+            with span("riptrm.residual"):
+                res = residual(new_st)
             stop = (res <= tolresid) | (new_st.iteration >= maxiter) | info["singular_newton"]
             return new_st, res, torch.ones_like(stop), stop
 

@@ -86,6 +86,7 @@ from riptrm_torch.utils.lanes import dot as _dot
 from riptrm_torch.utils.lanes import sym_mv as _sym_mv
 from riptrm_torch.utils.lanes import tracing
 from riptrm_torch.utils.lanes import where_lanes as _lanes
+from riptrm_torch.utils.spans import span
 
 # inner_status codes
 INNER_INITIAL = 0
@@ -420,34 +421,38 @@ def make_step(problem, option, callbacks=True):
     def step(state: RiptrmState):
         x, y, mu, tr_radius = state.x, state.y, state.mu, state.tr_radius
         dt = y.dtype
-        c, hw, cx = _barrier_ops(problem, x, y, mu)
+        with span("riptrm.riptrm.barrier"):
+            c, hw, cx = _barrier_ops(problem, x, y, mu)
 
         # ---- direction -------------------------------------------------
         h_lam, h_q, c_vec = state.h_lam, state.h_q, state.c_vec
         if exact:
             stale = ~state.cache_valid
-            # per-lane select: under tracing every lane computes it
-            if tracing() or bool(stale.any()):
-                fresh = materialize_at(problem, x, y, mu, trs_ms)
-                h_lam, h_q, c_vec = (_lanes(stale, f, old) for f, old in
-                                     zip(fresh, (h_lam, h_q, c_vec)))
-            if trs_ms:
-                coeff, lam1, trs_code, _ = solve_trs_ms(
-                    h_q, c_vec, tr_radius, lam_est=(h_lam[:, 0], h_lam[:, -1])
-                )
-                h_coeff = torch.einsum("bij,bj->bi", h_q, coeff)  # h_q: the raw Hw
-                hw_dx_dx = _dot(coeff, h_coeff)
-            else:
-                coeff, lam1, trs_code, p_c = solve_trs_eig(h_lam, h_q, c_vec, tr_radius)
-                hw_dx_dx = _dot(p_c, h_lam * p_c)
-            dx = man.from_coords(x, man.basis(x), coeff)
-            cx_dx = _dot(c_vec, coeff)
+            with span("riptrm.riptrm.materialize"):
+                # per-lane select: under tracing every lane computes it
+                if tracing() or bool(stale.any()):
+                    fresh = materialize_at(problem, x, y, mu, trs_ms)
+                    h_lam, h_q, c_vec = (_lanes(stale, f, old) for f, old in
+                                         zip(fresh, (h_lam, h_q, c_vec)))
+            with span("riptrm.riptrm.trs"):
+                if trs_ms:
+                    coeff, lam1, trs_code, _ = solve_trs_ms(
+                        h_q, c_vec, tr_radius, lam_est=(h_lam[:, 0], h_lam[:, -1])
+                    )
+                    h_coeff = torch.einsum("bij,bj->bi", h_q, coeff)  # h_q: the raw Hw
+                    hw_dx_dx = _dot(coeff, h_coeff)
+                else:
+                    coeff, lam1, trs_code, p_c = solve_trs_eig(h_lam, h_q, c_vec, tr_radius)
+                    hw_dx_dx = _dot(p_c, h_lam * p_c)
+                dx = man.from_coords(x, man.basis(x), coeff)
+                cx_dx = _dot(c_vec, coeff)
             dxtype = trs_code.to(torch.int64)
             tcg_iters = torch.zeros_like(dxtype)
         else:
-            dx, h_dx, tcg_iters, tcg_code = direction(x, y, c, hw, cx, tr_radius)
-            hw_dx_dx = man.inner(x, dx, h_dx)
-            cx_dx = man.inner(x, cx, dx)
+            with span("riptrm.riptrm.direction"):
+                dx, h_dx, tcg_iters, tcg_code = direction(x, y, c, hw, cx, tr_radius)
+                hw_dx_dx = man.inner(x, dx, h_dx)
+                cx_dx = man.inner(x, cx, dx)
             dxtype = 10 + tcg_code.to(torch.int64)
         normdx = man.norm(x, dx)
 
@@ -476,88 +481,91 @@ def make_step(problem, option, callbacks=True):
                 trs_check["TRS_KKTresid"] = torch.linalg.vector_norm(kkt_vec, dim=-1)
                 trs_check["TRS_compl"] = lam1 * (tr_radius - normdx)
 
-        # ---- trial point -----------------------------------------------
-        dy = -y + mu[:, None] / c - y * problem.gx_adj(x, dx) / c
-        x_new = man.retract(x, dx)
-        y_new = y + dy
-        c_new = problem.slack(x_new)
+        with span("riptrm.riptrm.trial"):
+            # ---- trial point -----------------------------------------------
+            dy = -y + mu[:, None] / c - y * problem.gx_adj(x, dx) / c
+            x_new = man.retract(x, dx)
+            y_new = y + dy
+            c_new = problem.slack(x_new)
 
-        # ---- inner stopping criteria -----------------------------------
-        xfeas = torch.all(c_new > 0, dim=-1)
-        yfeas = torch.all(y_new > 0, dim=-1)
-        norm_grad_lag = man.norm(x_new, problem.lag_rgrad(x_new, y_new))
-        if compensated:
-            compl = complementarity_norm(y_new, c_new, mu)
-        else:
-            compl = torch.linalg.vector_norm(y_new * c_new - mu[:, None], dim=-1)
-        crit_lag = norm_grad_lag <= ff_lag(mu)
-        crit_compl = compl <= ff_compl(mu)
+            # ---- inner stopping criteria -----------------------------------
+            xfeas = torch.all(c_new > 0, dim=-1)
+            yfeas = torch.all(y_new > 0, dim=-1)
+            norm_grad_lag = man.norm(x_new, problem.lag_rgrad(x_new, y_new))
+            if compensated:
+                compl = complementarity_norm(y_new, c_new, mu)
+            else:
+                compl = torch.linalg.vector_norm(y_new * c_new - mu[:, None], dim=-1)
+            crit_lag = norm_grad_lag <= ff_lag(mu)
+            crit_compl = compl <= ff_compl(mu)
 
-        h_lam_new, h_q_new, c_vec_new = h_lam, h_q, c_vec
-        if exact and second_order:
-            h_lam_new, h_q_new, c_vec_new = materialize_at(problem, x_new, y_new, mu, trs_ms)
-            mineig = h_lam_new[:, 0]
-            crit_eig = mineig >= -ff_second(mu)
-        elif second_order:
-            # Matrix-free criterion: the Lanczos Ritz minimum of Hw at the
-            # trial point, on the lanes whose first-order tests hold (inf
-            # elsewhere); Ritz minima approach lambda_min from above.
-            first_ok = xfeas & yfeas & crit_lag & crit_compl
-            mineig = torch.full_like(normdx, math.inf)
-            if tracing() or bool(first_ok.any()):
-                _, hw_new, cx_new = _barrier_ops(problem, x_new, y_new, mu)
-                # deterministic start: barrier gradient plus the transported step
-                v0 = cx_new + 0.5 * man.transport(x, x_new, dx)
-                _, _, ritz = lanczos(
-                    hw_new, v0, man.inner_at(x_new),
-                    min(option["second_order_lanczos_iters"], dim),
-                )
-                mineig = torch.where(first_ok, ritz[:, 0].to(dt), mineig)
-            crit_eig = mineig >= -ff_second(mu)
-        else:
-            mineig = torch.full_like(normdx, math.nan)
-            crit_eig = torch.ones_like(xfeas)
+            h_lam_new, h_q_new, c_vec_new = h_lam, h_q, c_vec
+            if exact and second_order:
+                with span("riptrm.riptrm.materialize"):
+                    h_lam_new, h_q_new, c_vec_new = materialize_at(problem, x_new, y_new, mu,
+                                                                   trs_ms)
+                mineig = h_lam_new[:, 0]
+                crit_eig = mineig >= -ff_second(mu)
+            elif second_order:
+                # Matrix-free criterion: the Lanczos Ritz minimum of Hw at the
+                # trial point, on the lanes whose first-order tests hold (inf
+                # elsewhere); Ritz minima approach lambda_min from above.
+                first_ok = xfeas & yfeas & crit_lag & crit_compl
+                mineig = torch.full_like(normdx, math.inf)
+                if tracing() or bool(first_ok.any()):
+                    _, hw_new, cx_new = _barrier_ops(problem, x_new, y_new, mu)
+                    # deterministic start: barrier gradient plus the transported step
+                    v0 = cx_new + 0.5 * man.transport(x, x_new, dx)
+                    _, _, ritz = lanczos(
+                        hw_new, v0, man.inner_at(x_new),
+                        min(option["second_order_lanczos_iters"], dim),
+                    )
+                    mineig = torch.where(first_ok, ritz[:, 0].to(dt), mineig)
+                crit_eig = mineig >= -ff_second(mu)
+            else:
+                mineig = torch.full_like(normdx, math.nan)
+                crit_eig = torch.ones_like(xfeas)
 
-        converged = xfeas & yfeas & crit_lag & crit_compl & crit_eig
-        infeasible = (~converged) & (~xfeas)
+            converged = xfeas & yfeas & crit_lag & crit_compl & crit_eig
+            infeasible = (~converged) & (~xfeas)
 
-        # ---- ared / pred and radius update -----------------------------
-        # ared = [f(x) - f(xNew)] + mu * sum(log(cNew_i / c_i)): the
-        # reference's phi(x) - phi(xNew) without the catastrophic
-        # cancellation of two O(n) barrier sums.
-        if compensated:
-            barrier = barrier_log_ratio_sum(c_new, c, mu)
-        else:
-            safe_c = torch.where(c > 0, c, torch.ones_like(c))
-            ratio = torch.where((c_new > 0) & (c > 0), c_new / safe_c, torch.ones_like(c))
-            barrier = mu * torch.sum(torch.log(ratio), dim=-1)
-        ared_raw = (problem.cost(x) - problem.cost(x_new)) + barrier
-        phi_cur = _log_barrier(problem, x, mu)  # scale only (regularization)
-        eps_dt = torch.finfo(dt).eps
-        red_reg = (
-            torch.clamp(torch.abs(phi_cur), min=1.0)
-            * eps_dt
-            * option["reduction_regularization"]
-        )
-        ared = ared_raw + red_reg
-        pred = -0.5 * hw_dx_dx - cx_dx + red_reg
+            # ---- ared / pred and radius update -----------------------------
+            # ared = [f(x) - f(xNew)] + mu * sum(log(cNew_i / c_i)): the
+            # reference's phi(x) - phi(xNew) without the catastrophic
+            # cancellation of two O(n) barrier sums.
+            if compensated:
+                barrier = barrier_log_ratio_sum(c_new, c, mu)
+            else:
+                safe_c = torch.where(c > 0, c, torch.ones_like(c))
+                ratio = torch.where((c_new > 0) & (c > 0), c_new / safe_c, torch.ones_like(c))
+                barrier = mu * torch.sum(torch.log(ratio), dim=-1)
+            ared_raw = (problem.cost(x) - problem.cost(x_new)) + barrier
+            phi_cur = _log_barrier(problem, x, mu)  # scale only (regularization)
+            eps_dt = torch.finfo(dt).eps
+            red_reg = (
+                torch.clamp(torch.abs(phi_cur), min=1.0)
+                * eps_dt
+                * option["reduction_regularization"]
+            )
+            ared = ared_raw + red_reg
+            pred = -0.5 * hw_dx_dx - cx_dx + red_reg
 
-        shrink = ared < 0.25 * pred
-        # |dx| == TR to 1e-15 at float64 (the reference); scaled with the
-        # dtype's eps below that, or the radius never expands in float32.
-        boundary_tol = 1e-15 if eps_dt < 1e-12 else 8.0 * eps_dt * tr_radius
-        expand = (ared >= 0.75 * pred) & (torch.abs(normdx - tr_radius) <= boundary_tol)
-        tr_updated = torch.where(
-            shrink,
-            0.25 * tr_radius,
-            torch.where(
-                expand,
-                torch.clamp(2.0 * tr_radius, max=option["maximal_TR_radius"]),
-                tr_radius,
-            ),
-        )
-        radius_update_code = torch.where(shrink, 1, torch.where(expand, 2, 0))
-        accepted = ared > option["rho"] * pred
+            shrink = ared < 0.25 * pred
+            # |dx| == TR to 1e-15 at float64 (the reference); scaled with the
+            # dtype's eps below that, or the radius never expands in float32.
+            boundary_tol = 1e-15 if eps_dt < 1e-12 else 8.0 * eps_dt * tr_radius
+            expand = (ared >= 0.75 * pred) & (torch.abs(normdx - tr_radius) <= boundary_tol)
+            tr_updated = torch.where(
+                shrink,
+                0.25 * tr_radius,
+                torch.where(
+                    expand,
+                    torch.clamp(2.0 * tr_radius, max=option["maximal_TR_radius"]),
+                    tr_radius,
+                ),
+            )
+            radius_update_code = torch.where(shrink, 1, torch.where(expand, 2, 0))
+            accepted = ared > option["rho"] * pred
 
         # Dual clipping; I_right is a scalar max broadcast to every entry
         # (the reference's np.maximum(a, b, out) semantics).
@@ -642,7 +650,8 @@ def make_step(problem, option, callbacks=True):
             c_vec=c_vec,
         )
 
-        info = evaluation(problem, x, x_next, y_next, callback=callbacks)
+        with span("riptrm.riptrm.evaluation"):
+            info = evaluation(problem, x, x_next, y_next, callback=callbacks)
         skipped = converged | infeasible | forced
         has_ineq = problem.has_ineq
         inf = torch.full_like(normdx, math.inf)

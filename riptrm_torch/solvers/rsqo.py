@@ -44,6 +44,7 @@ from riptrm_torch.utils.lanes import dot as _dot
 from riptrm_torch.utils.lanes import lane_loop
 from riptrm_torch.utils.lanes import mv as _mv
 from riptrm_torch.utils.lanes import sym_mv as _sym_mv
+from riptrm_torch.utils.spans import span
 
 QUADOPTIM_TYPES = ("reghess", "reghess_operator", "reghess_shift", "eye")
 
@@ -262,8 +263,9 @@ def make_step(problem, option):
         basis = man.basis(x)
 
         # ---- regularised Lagrangian Hessian in coordinates ------------
-        q_raw = None if qtype == "eye" else q_raw_at(x, y, z, basis)
-        q_mat, coord_rot = _regularize(q_raw, qtype, thld, corr, lanes, dim, dt, dev)
+        with span("riptrm.rsqo.regularize"):
+            q_raw = None if qtype == "eye" else q_raw_at(x, y, z, basis)
+            q_mat, coord_rot = _regularize(q_raw, qtype, thld, corr, lanes, dim, dt, dev)
 
         p_vec = man.to_coords(x, basis, problem.rgrad(x))
 
@@ -289,12 +291,13 @@ def make_step(problem, option):
             a_mat = a_mat @ coord_rot.mT
 
         # ---- tangent-space QP, warm-started from the SQP multipliers --
-        sol = solve_qp(
-            q_mat, p_vec, g_mat, h_vec, a_mat, b_vec,
-            warm_z=y if (m > 0 and option["quadoptim_warm_start"]) else None,
-            xinv0=state.qp_xinv if state.qp_xinv.numel() else None,
-            **qp_kw,
-        )
+        with span("riptrm.rsqo.qp"):
+            sol = solve_qp(
+                q_mat, p_vec, g_mat, h_vec, a_mat, b_vec,
+                warm_z=y if (m > 0 and option["quadoptim_warm_start"]) else None,
+                xinv0=state.qp_xinv if state.qp_xinv.numel() else None,
+                **qp_kw,
+            )
         coeff, y_new, z_new = sol.x, sol.z, sol.y
         df0 = _dot(coeff, _mv(q_mat, coeff))
         coeff_basis = coeff if coord_rot is None else _mv(coord_rot.mT, coeff)
@@ -310,7 +313,8 @@ def make_step(problem, option):
         rho = torch.where(rho < upsilon, upsilon + tau, rho)
 
         # ---- l1 penalty line search -----------------------------------
-        stepsize, x_new, k = _ell1_line_search(problem, option, x, direction, rho, df0)
+        with span("riptrm.rsqo.line_search"):
+            stepsize, x_new, k = _ell1_line_search(problem, option, x, direction, rho, df0)
 
         new_state = RsqoState(
             x=x_new, y=y_new, z=z_new, rho=rho,

@@ -19,6 +19,7 @@ import torch
 from riptrm_torch.utils.lanes import bcast as _bc
 from riptrm_torch.utils.lanes import lane_loop
 from riptrm_torch.utils.lanes import where_lanes as _lanes
+from riptrm_torch.utils.spans import span
 
 
 def _backtracking_line_search(manifold, cost, x, d, f0, df0, alpha0, active, *,
@@ -30,10 +31,6 @@ def _backtracking_line_search(manifold, cost, x, d, f0, df0, alpha0, active, *,
     def try_alpha(alpha):
         x_new = manifold.retract(x, _bc(alpha, d) * d)
         return x_new, cost(x_new)
-
-    alpha = alpha0
-    x_new, f_new = try_alpha(alpha)
-    k = torch.ones_like(alpha, dtype=torch.int64)
 
     def running_lanes(alpha, x_new, f_new, k):
         return active & (f_new > f0 + sufficient_decrease * alpha * df0) & (k <= max_steps)
@@ -47,11 +44,15 @@ def _backtracking_line_search(manifold, cost, x, d, f0, df0, alpha0, active, *,
         f_new = torch.where(run, f_t, f_new)
         return alpha, x_new, f_new, k + run.to(k.dtype)
 
-    alpha, x_new, f_new, k = lane_loop(lambda *c: running_lanes(*c).any(), backtrack,
-                                       (alpha, x_new, f_new, k))
-    no_step = f_new > f0
-    return (_lanes(no_step, x, x_new), torch.where(no_step, f0, f_new),
-            torch.where(no_step, torch.zeros_like(alpha), alpha), k)
+    with span("riptrm.ralm.line_search"):
+        alpha = alpha0
+        x_new, f_new = try_alpha(alpha)
+        k = torch.ones_like(alpha, dtype=torch.int64)
+        alpha, x_new, f_new, k = lane_loop(lambda *c: running_lanes(*c).any(), backtrack,
+                                           (alpha, x_new, f_new, k))
+        no_step = f_new > f0
+        return (_lanes(no_step, x, x_new), torch.where(no_step, f0, f_new),
+                torch.where(no_step, torch.zeros_like(alpha), alpha), k)
 
 
 @dataclasses.dataclass

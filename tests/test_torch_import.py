@@ -38,6 +38,7 @@ MODULES = [
     "riptrm_torch.parallel.sweep",
     "riptrm_torch.parallel",
     "riptrm_torch.utils",
+    "riptrm_torch.utils.spans",
     "riptrm_torch.experiment",
     "riptrm_torch.experiment.roofline",
     "riptrm_torch.experiment.export_artifact",
