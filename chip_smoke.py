@@ -18,12 +18,13 @@ rank, and processes sharing the card on gloo); deployable sweep artifacts
 exported, reloaded in a fresh process and run, and the compacted staged
 solve; and the roofline
 (``python -m riptrm_torch.experiment.roofline``) at its default shapes.
-Checks the six hand-written kernels
+Checks the seven hand-written kernels
 (``riptrm_torch/csrc/sphere_tcg.cu``: K2-K3;
 ``riptrm_torch/csrc/stiefel_tcg.cu``: the Stiefel-bound tCG;
-``riptrm_torch/csrc/matvec_chain.cu``: K1, K5 and K6) against their plain
-PyTorch versions.  One line per phase; a failed check raises and the
-script exits non-zero.  It refuses to run without CUDA.  The line before
+``riptrm_torch/csrc/matvec_chain.cu``: K1, K5 and K6;
+``riptrm_torch/csrc/dense_solve.cu``: RIPM's dense Newton solve, K7)
+against their plain PyTorch versions.  One line per phase; a failed check
+raises and the script exits non-zero.  It refuses to run without CUDA.  The line before
 the last is a JSON object with one entry per kernel (launches on its path,
 error against the plain version, CUDA-event medians of kernel and plain
 version, the card's bound for the same work, the time of the PyTorch
@@ -53,6 +54,27 @@ Phases:
   4b. the Stiefel-bound kernel at St(128, 8), B = 1, 16 and 128 (clusters
      of 8, 8 and 1 CTAs), and at St(512, 32), B = 16 (clusters of 8, Zs
      through L2), against its plain version;
+  4c. the dense-solve kernel (RIPM's Newton solve) at N = 49 (the
+     benchmark cell's S^49), B = 1, 128 and 131072, on symmetric
+     indefinite systems with one singular lane: one launch, its backward
+     error and its distance to the plain version and to
+     ``torch.linalg.solve_ex``, NaN exactly on the singular lane, a lane
+     bit for bit the same alone, in the batch, at another place in it and
+     in a column-major batch (RIPM's layout, read in place);
+     each regular lane's distance to the plain version within
+     8 n eps cond_inf of it; on +-1 matrices at n = 4 (ties in every
+     column) the plain version's answers bit for bit, NaN where it meets a
+     zero pivot; CUDA-event times of the kernel, the plain version and the
+     library's route (``solve_ex`` and the NaN select) beside the card's
+     bound;
+  -- launch counters reset: RIPM's dense path at the benchmark cell's shape --
+  4d. batched_solver_sweep of RIPM on the benchmark cell's NonnegPCA
+     instance (n = 50, so N = 49), B = 131072, float32 with the cell's
+     options: the dense-solve kernel launched once a lockstep step (the
+     count goes into the report), then the same sweep with the Newton
+     solve on the library's route (no launch): steps lane by lane, every
+     residual under tolresid in both, each lane's residual and answer
+     against the library route's;
   -- launch counters reset: the NonnegPCA path starts here --
   5. golden solve: RIPTRM.run on dataset/NonnegPCA/1 point a, float64,
      plain tCG (residual <= 1e-8, cost -1.537809 +- 1e-4), then fused;
@@ -255,6 +277,31 @@ KERNELS = {
     "bare_matvec_chain": (CHAIN_SRC, f"{PALLAS}:600"),
     "chained_barrier_matvec_hbm": (CHAIN_SRC, f"{PALLAS}:706"),
 }
+DENSE_KERNEL = "dense_solve_nan"
+DENSE_SRC = "riptrm_torch/csrc/dense_solve.cu"
+DENSE_REPLACES = ("no Pallas kernel: XLA's LU under jnp.linalg.solve "
+                  "(riptrm_tpu/solvers/ripm.py:276)")
+# 4c: the size of the benchmark cell's systems (S^49: N = 49) and batches
+DENSE_N = 49
+DENSE_BATCHES = (1, 128, 131072)
+# 4c: a kernel answer's normwise backward error |a x - b| / (|a| |x| + |b|)
+# (infinity norms, a lane) may be at most DENSE_BACKWARD n eps; the plain
+# version's and the library's are held to the same bound
+DENSE_BACKWARD = 4.0
+# 4c: a regular lane's |x - x_plain|_inf / |x_plain|_inf may be at most
+# DENSE_GAP n eps cond_inf(a): both answers lie within the backward bound of
+# the same system, so within twice its forward bound of each other
+DENSE_GAP = 2 * DENSE_BACKWARD
+# 4d: the benchmark cell's configuration and traffic, whose instance, lanes,
+# options and step budget the phase takes (the instance drawn as the
+# benchmark draws it, perfbench/gen/nonneg_pca.py), and the seed of its starts
+RIPM_CELL = ("perfbench/configs/nonnegpca-n50.json", "perfbench/traffic/ripm-sweep-b131072.json")
+RIPM_CELL_SEED = 4
+# 4d: at most this share of lanes may stop at another step on the library's
+# route, and a lane that stops at the same step reads a residual within
+# RIPM_RESID_GAP of the library route's (relative to max(its, tolresid):
+# the benchmark cell's resid_gap limit) and an answer within RIPM_X_GAP
+RIPM_STEP_SHARE, RIPM_RESID_GAP, RIPM_X_GAP = 1e-3, 1e-2, 1e-4
 SPHERE_KERNELS = tuple(KERNELS)[:3]
 STIEFEL_KERNEL = "fused_tcg_stiefel_bound_batched"
 K1_CHAIN, BARE_CHAIN, HBM_CHAIN = ("chained_barrier_matvec", "bare_matvec_chain",
@@ -2725,6 +2772,198 @@ def phase_certificates(smoke, stiefel):
           "7c: the card's float32 eigh is outside n eps32")
 
 
+def dense_systems(b, n, device, seed=0):
+    """b symmetric indefinite systems of size n (a random symmetric part of
+    norm ~2 plus +-2 on the diagonal, alternating), the last lane singular
+    (two equal rows) where b > 1, and right-hand sides."""
+    gen = torch.Generator(device).manual_seed(seed)
+    g = torch.randn(b, n, n, generator=gen, device=device) / math.sqrt(2 * n)
+    sign = torch.where(torch.arange(n, device=device) % 2 == 0, 2.0, -2.0)
+    a = g + g.mT + torch.diag(sign)
+    if b > 1:
+        a[-1, n // 2] = a[-1, 0]
+    return a.contiguous(), torch.randn(b, n, generator=gen, device=device)
+
+
+def same_bits(u, v):
+    """Equal bit for bit, NaN where NaN."""
+    return torch.equal(torch.isnan(u), torch.isnan(v)) and torch.equal(u.nan_to_num(),
+                                                                        v.nan_to_num())
+
+
+def backward_error(a, x, rhs):
+    """|a x - b| / (|a| |x| + |b|) a lane (infinity norms; the normwise
+    backward error), in float64."""
+    a, x, rhs = a.double(), x.double(), rhs.double()
+    norm = lambda v: torch.linalg.vector_norm(v, ord=math.inf, dim=-1)  # noqa: E731
+    res = norm(torch.einsum("bij,bj->bi", a, x) - rhs)
+    return res / (torch.linalg.matrix_norm(a, ord=math.inf) * norm(x) + norm(rhs))
+
+
+def phase_dense_solve(device):
+    """Phase 4c: the dense-solve kernel against its plain version and the
+    library's solve at N = DENSE_N; returns its report entry (the largest
+    batch's times)."""
+    from riptrm_torch.experiment.roofline import roofline_bound
+    from riptrm_torch.ops import kernels as k
+
+    n, eps = DENSE_N, torch.finfo(torch.float32).eps
+    limit = DENSE_BACKWARD * n * eps
+
+    def library(a, rhs):  # the route every system took before the kernel
+        sol, info = torch.linalg.solve_ex(a, rhs)
+        return torch.where((info != 0)[:, None], torch.full_like(sol, float("nan")), sol)
+
+    row = {}
+    for b in DENSE_BATCHES:
+        a, rhs = dense_systems(b, n, device, seed=b)
+        plan = k.dense_solve_plan(n, b)
+        k.reset_launch_counts()
+        x = k.dense_solve_nan(a, rhs)
+        sync(device)
+        check(k.launch_counts()[DENSE_KERNEL] == 1, "4c: not one launch of the dense solve")
+        plain, lib = k.dense_solve_plain(a, rhs), library(a, rhs)
+        good = slice(0, b - 1) if b > 1 else slice(0, 1)
+        if b > 1:
+            check(bool(torch.isnan(x[-1]).all() and torch.isnan(plain[-1]).all()),
+                  "4c: the singular lane is not NaN")
+        check(bool(torch.isfinite(x[good]).all()), "4c: a regular lane is not finite")
+        errs = {name: float(backward_error(a[good], v[good], rhs[good]).max())
+                for name, v in (("kernel", x), ("plain", plain), ("library", lib))}
+        for name, err in errs.items():
+            check(err <= limit, f"4c: the {name}'s backward error {err:.3e} above {limit:.3e}")
+        gap = {name: float(((x[good] - v[good]).norm(dim=-1) / v[good].norm(dim=-1)).max())
+               for name, v in (("plain", plain), ("library", lib))}
+        worst = float(dense_gap_over_bound(a[good], x[good], plain[good]).max())
+        check(worst <= 1.0, f"4c: a lane's distance to the plain version is {worst:.3f} of "
+              f"{DENSE_GAP:.0f} n eps cond_inf")
+        perm = torch.randperm(b, generator=torch.Generator(device).manual_seed(1),
+                              device=device)
+        check(same_bits(k.dense_solve_nan(a[perm], rhs[perm]), x[perm]),
+              "4c: a permuted batch reads other answers")
+        for i in {0, b // 2, b - 1}:
+            check(same_bits(k.dense_solve_nan(a[i:i + 1], rhs[i:i + 1])[0], x[i]),
+                  f"4c: lane {i} alone reads another answer")
+        del perm
+        cm = a.mT.contiguous().mT  # column-major, as RIPM's materialisation leaves it
+        check(same_bits(k.dense_solve_nan(cm, rhs), x), "4c: a column-major batch reads "
+              "another answer")
+        k1, l1, l2, k2 = (event_ms(f, device) for f in (
+            lambda: k.dense_solve_nan(a, rhs), lambda: library(a, rhs),
+            lambda: library(a, rhs), lambda: k.dense_solve_nan(a, rhs)))
+        cm_ms = event_ms(lambda: k.dense_solve_nan(cm, rhs), device)
+        del cm
+        ms, lib_ms = (k1 + k2) / 2, (l1 + l2) / 2
+        plain_ms = event_ms(lambda: k.dense_solve_plain(a, rhs), device, windows=1)
+        lib_own = kernel_ms(lambda: library(a, rhs), device, calls=3)
+        bound_us, bound_by = roofline_bound(b * (2 * n**3 / 3 + 2 * n * n),
+                                            4 * b * (n * n + 2 * n))
+        say(f"phase 4c dense_solve N={n} B={b} ({plan}): backward error kernel "
+            f"{errs['kernel']:.3e}, plain {errs['plain']:.3e}, library {errs['library']:.3e} "
+            f"(limit {limit:.3e}); kernel against plain {gap['plain']:.3e}, against library "
+            f"{gap['library']:.3e} (relative 2-norm, worst lane; against plain, "
+            f"{worst:.2e} of {DENSE_GAP:.0f} n eps cond_inf at worst); lanes bit for bit alone, "
+            f"permuted and column-major; kernel {ms:.4f} ms (runs {k1:.4f}/{k2:.4f}; "
+            f"column-major {cm_ms:.4f} ms), library {lib_ms:.4f} ms "
+            f"(runs {l1:.4f}/{l2:.4f}; its kernels "
+            f"{'not measured' if lib_own is None else '%.4f ms' % lib_own}), plain "
+            f"{plain_ms:.4f} ms, bound {bound_us:.3f} us ({bound_by}), "
+            f"{100 * bound_us / 1e3 / ms:.2f} % of it")
+        row = dict(ms=ms, column_major_ms=cm_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bound_us / 1e3,
+                   bound_us=bound_us, bound_by=bound_by, shape=f"N={n}, B={b}",
+                   backward_error=errs["kernel"], gap_library=gap["library"])
+        del a, rhs, x, plain, lib
+        torch.cuda.empty_cache()
+    # ties in every column and exact arithmetic: the plain version's pivots,
+    # so its answers bit for bit
+    gen = torch.Generator().manual_seed(9)
+    a = (torch.randint(0, 2, (4096, 4, 4), generator=gen) * 2 - 1).float().to(device)
+    rhs = (torch.randint(0, 2, (4096, 4), generator=gen) * 2 - 1).float().to(device)
+    x, plain = k.dense_solve_nan(a, rhs), k.dense_solve_plain(a, rhs)
+    singular = int(torch.isnan(plain[:, 0]).sum())
+    check(same_bits(x, plain) and 0 < singular < 4096,
+          "4c: +-1 matrices: the kernel's answers are not the plain version's bit for bit")
+    say(f"phase 4c dense_solve N=4 B=4096 +-1 matrices: the plain version's answers bit for bit, "
+        f"NaN on the same {singular} singular lanes")
+    return row
+
+
+def dense_gap_over_bound(a, x, ref):
+    """|x - ref|_inf / |ref|_inf over DENSE_GAP n eps cond_inf(a), a lane
+    (cond_inf from a float64 inverse)."""
+    n, eps = a.shape[-1], torch.finfo(torch.float32).eps
+    a = a.double()
+    cond = (torch.linalg.matrix_norm(a, ord=math.inf)
+            * torch.linalg.matrix_norm(torch.linalg.inv_ex(a)[0], ord=math.inf))
+    gap = ((x - ref).double().abs().amax(dim=-1) / ref.double().abs().amax(dim=-1))
+    return gap / (DENSE_GAP * n * eps * cond)
+
+
+def phase_ripm_dense(device, report):
+    """Phase 4d: RIPM's sweep at the benchmark cell's shape, its Newton
+    solves through the dense-solve kernel (one launch a lockstep step,
+    counted into the report) and then through the library's route."""
+    from perfbench.gen import nonneg_pca as gen
+    from riptrm_torch.ops import kernels as k
+    from riptrm_torch.parallel.sweep import batched_solver_sweep
+    from riptrm_torch.problems import nonneg_pca
+    from riptrm_torch.solvers import ripm
+
+    cfg, traffic = (json.load(open(f)) for f in RIPM_CELL)
+    z = gen.instance(np.random.default_rng(cfg["instance_seed"]), cfg)["Z"]
+    xs = gen.starts(np.random.default_rng(RIPM_CELL_SEED), cfg, traffic["lanes"])
+    lanes, tol = traffic["lanes"], cfg["solver"]["tolresid"]
+    problem = nonneg_pca.make_problem(z, xs[0], dtype=torch.float32, device=device,
+                                      matmul_precision=cfg["matmul_precision"])
+    option = dict(cfg["solver"]) | traffic["options"]
+    xs = torch.tensor(xs, dtype=torch.float32, device=device)
+    ys = torch.ones_like(xs)
+
+    def library(a, rhs):  # the route every system took before the kernel
+        sol, info = torch.linalg.solve_ex(a, rhs)
+        return torch.where((info != 0)[:, None], torch.full_like(sol, float("nan")), sol)
+
+    runs = {}
+    for route in ("kernel", "library"):
+        if route == "library":
+            ripm.dense_solve_nan = library
+        try:
+            k.reset_launch_counts()
+            t0 = time.perf_counter()
+            x, _, steps, res = batched_solver_sweep(problem, "RIPM", option,
+                                                    traffic["max_steps"])(xs, ys)
+            sync(device)
+            runs[route] = (x, steps, res, time.perf_counter() - t0, k.launch_counts())
+        finally:
+            ripm.dense_solve_nan = k.dense_solve_nan
+    (x, steps, res, secs, counts), (x_l, steps_l, res_l, secs_l, counts_l) = (
+        runs["kernel"], runs["library"])
+    say(f"phase 4d RIPM dense sweep launch counts {counts}; library route {counts_l}")
+    check(counts[DENSE_KERNEL] == int(steps.max()),
+          f"4d: {counts[DENSE_KERNEL]} launches of the dense solve in {int(steps.max())} steps")
+    check(not any(counts_l.values()), "4d: a kernel launched on the library's route")
+    report[DENSE_KERNEL]["launches"] = counts[DENSE_KERNEL]
+    same = steps == steps_l
+    moved = 1.0 - float(same.float().mean())
+    gap = ((res - res_l).abs() / torch.clamp(res_l, min=tol))[same]
+    x_gap = (x - x_l).abs().amax(dim=-1)[same]
+    say(f"phase 4d batched_solver_sweep RIPM NonnegPCA n={cfg['dim']} B={lanes} float32 (the "
+        f"benchmark cell's instance and options): {int(steps.max())} steps, "
+        f"{counts[DENSE_KERNEL]} launches of the dense solve, worst residual "
+        f"{float(res.max()):.4e} (library route {float(res_l.max()):.4e}, tolresid {tol}); "
+        f"lanes at another step than the library route's {moved:.2e}; at the same step, "
+        f"residual gap {float(gap.max()):.3e}, answer gap {float(x_gap.max()):.3e}; one cold "
+        f"call {secs:.3f} s (library route {secs_l:.3f} s)")
+    check(bool(torch.isfinite(res).all() and (res <= tol).all() and (res_l <= tol).all()),
+          "4d: a lane's residual is above tolresid")
+    check(moved <= RIPM_STEP_SHARE, f"4d: {moved:.2e} of the lanes stop at another step")
+    check(float(gap.max()) <= RIPM_RESID_GAP and float(x_gap.max()) <= RIPM_X_GAP,
+          f"4d: residual gap {float(gap.max())}, answer gap {float(x_gap.max())}")
+    del runs, x, x_l, xs, ys
+    torch.cuda.empty_cache()
+
+
 def phase_roofline(report):
     """Phase 9: the roofline entry point at its default shapes."""
     from riptrm_torch.experiment import roofline
@@ -2765,8 +3004,9 @@ DISPATCH_CALLS = 50  # phase 8: host-timed calls each way of a dispatch measurem
 def dispatch_us(kern, device):
     """The dispatcher's cost of one kernel launch: the host time of a call of
     the ``riptrm::`` operator that ``kern`` (a wrapper call) reaches,
-    against the host time of the operator's CUDA implementation called
-    directly on the same arguments (medians of DISPATCH_CALLS calls, in the
+    against the host time of the operator's CUDA implementation (its
+    contiguity wrapper included, so the cost is the dispatcher's alone)
+    called directly on the same arguments (medians of DISPATCH_CALLS calls, in the
     order operator, direct, direct, operator).  Returns (cost, through the
     operator, direct), microseconds."""
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -2960,6 +3200,12 @@ def main(argv):
     smoke.phase_k2()
     smoke.phase_k3()
     stiefel.phase_kernel()
+    report[DENSE_KERNEL] = phase_dense_solve(device)
+
+    k.reset_launch_counts()  # RIPM's dense path at the benchmark cell's shape starts here
+    t_path = time.perf_counter()
+    phase_ripm_dense(device, report)
+    say(f"RIPM dense path (phase 4d): {time.perf_counter() - t_path:.1f} s")
 
     k.reset_launch_counts()  # the NonnegPCA path starts here
     t_path = time.perf_counter()
@@ -3042,7 +3288,8 @@ def main(argv):
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces, **report[name]}
         for name, (src, replaces) in KERNELS.items()
-    ]
+    ] + [{"name": DENSE_KERNEL, "route": "cuda", "source": DENSE_SRC, "replaces": DENSE_REPLACES,
+          **report[DENSE_KERNEL]}]
     say(smi)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -57,6 +57,8 @@ _SIGNATURES = {
     # zs, x, w, v0, corr, u scratch, bar and claims scratch, out, n,
     # n_iters, grid, pieces, piece, stages, xw_shared, device, stream
     "chain_hbm_launch": [_P] * 9 + [_I] * 8 + [_P],
+    # a, b, x, batch, n, rows, grid, transposed, device, stream
+    "dense_solve_launch": [_P] * 3 + [_I] * 6 + [_P],
 }
 
 

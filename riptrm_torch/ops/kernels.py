@@ -28,6 +28,12 @@ by ``ops/_build.py``.
   streams Zs from device memory through bulk copies, for an n whose Zs
   lies beyond the L2.
 
+* ``dense_solve_nan`` replaces no Pallas kernel: B dense systems a x = b by
+  LU with partial pivoting, one warp a system (``csrc/dense_solve.cu``),
+  for RIPM's Newton solve, where the JAX package calls
+  ``jnp.linalg.solve`` (XLA's LU).  float32 at n <= ``DENSE_SOLVE_MAX_N``;
+  every other system keeps ``torch.linalg.solve_ex`` (``dense_solve_plan``).
+
 K2 and K3 share their CUDA kernels, K2 being their launch at B = 1; each
 keeps its own wrapper and counter.  ``tcg_plan`` picks the route before
 any launch: Zs resident across a cooperative grid (``tcg_resident_kernel``:
@@ -38,8 +44,9 @@ thread-block cluster of row slices (``stiefel_plan``).
 
 Each launch is a ``torch.library`` operator of the ``riptrm`` namespace
 (``chain_resident``, ``sphere_tcg``, ``stiefel_tcg``, ``matvec_chain_left``,
-``matvec_chain_right``, ``chain_hbm``; the table at the end), so a traced
-program (``experiment/export_artifact.py``) holds it as one node.  The
+``matvec_chain_right``, ``chain_hbm``, ``dense_solve``; the table at the
+end), so a traced program (``experiment/export_artifact.py``) holds it as
+one node.  The
 wrappers work out the plans and call the operators, which dispatch on
 where the tensors lie: on the CPU the plain PyTorch version runs; on a
 CUDA device the kernel launches, or the call raises (a missing ``nvcc``, a
@@ -57,9 +64,10 @@ On St(n, p), with P(U) = U - X sym(X'U) and the pieces W, S of
 
     Hw(V) = P(-2 (Zs V) diag(d) - V S + W o V).
 
-The kernels take float32 only: the wrappers cast their inputs to float32
-and return float32 (the solver casts back to its own dtype, as the JAX
-step does).
+The tCG and chain kernels take float32 only: the wrappers cast their
+inputs to float32 and return float32 (the solver casts back to its own
+dtype, as the JAX step does).  The dense solve never casts: a float64
+system takes the library's solve.
 """
 
 from __future__ import annotations
@@ -1012,6 +1020,116 @@ def _chain_hbm_cuda(zs, x, w, v0, n_iters, grid, pieces, piece, stages, xw_share
 
 chained_barrier_matvec_hbm.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# The dense Newton solve: B systems a x = b by LU with partial pivoting
+# ---------------------------------------------------------------------------
+# Systems a block, one warp each (csrc/dense_solve.cu's kSolveWarps).
+DENSE_SOLVE_WARPS = 4
+# The largest n the kernel takes: a thread holds up to two rows of the
+# system in registers (2 x 64 of its 255), which sets the limit.  Shared
+# memory holds a warp's staged matrix, then U and the eliminated right-hand
+# side (csrc/dense_solve.cu::warp_floats; 67.6 KB a block at n = 64).
+DENSE_SOLVE_MAX_N = 64
+
+
+class DenseSolvePlan(NamedTuple):
+    rows: int  # rows of the system a thread holds (1: n <= 32, 2: n <= 64)
+    grid: int  # blocks of DENSE_SOLVE_WARPS systems
+    smem: int  # dynamic shared memory a block, bytes
+
+
+def dense_solve_plan(n: int, b: int):
+    """The kernel's plan for b systems of size n, or None where it takes no
+    such system (n above DENSE_SOLVE_MAX_N, or n < 1)."""
+    if not 1 <= n <= DENSE_SOLVE_MAX_N:
+        return None
+    return DenseSolvePlan(1 if n <= 32 else 2, _ceil(b, DENSE_SOLVE_WARPS),
+                          4 * DENSE_SOLVE_WARPS * (n * (n | 1) + n))
+
+
+def dense_lu_plain(a, b):
+    """The elimination of ``dense_solve_plain``: (U and the eliminated
+    right-hand side, in the swapped row order; the pivot row of each step,
+    LAPACK's ``ipiv`` less one; singular lanes).  ``a`` [B, n, n], ``b``
+    [B, n], any float dtype."""
+    u, y = a.clone(), b.clone()
+    lanes, n = y.shape
+    idx = torch.arange(lanes, device=a.device)
+    pivots = torch.empty((lanes, n), dtype=torch.long, device=a.device)
+    singular = torch.zeros(lanes, dtype=torch.bool, device=a.device)
+    for k in range(n):
+        # torch.argmax takes the first of equal maxima: the lowest position
+        p = k + torch.argmax(u[:, k:, k].abs(), dim=1)
+        pivots[:, k] = p
+        row_k, row_p, y_k, y_p = u[idx, k].clone(), u[idx, p].clone(), y[idx, k], y[idx, p]
+        u[idx, k], u[idx, p] = row_p, row_k
+        y[idx, k], y[idx, p] = y_p, y_k
+        piv = u[:, k, k]
+        singular |= piv == 0
+        # by division: two equal rows give l = 1 exactly, so an exact zero
+        # pivot where the matrix has one
+        l = u[:, k + 1:, k] / torch.where(singular, torch.ones_like(piv), piv)[:, None]
+        u[:, k + 1:, k + 1:] -= l[:, :, None] * u[:, k, None, k + 1:]
+        y[:, k + 1:] -= l * y[:, k, None]
+    return u, y, pivots, singular
+
+
+def dense_solve_plain(a, b):
+    """Plain version of the dense solve: the kernel's algorithm over lanes
+    in PyTorch.  Unblocked LU with partial pivoting (the largest |a_ik|,
+    ties to the lowest position in the swapped order, as LAPACK's isamax;
+    NaN counts as the largest), multipliers by division, then back
+    substitution column by column from the last.  A lane whose LU meets an
+    exact zero pivot, or whose answer is not finite, reads NaN whole.
+    [B, n] in the inputs' dtype."""
+    u, x, _, singular = dense_lu_plain(a, b)
+    for k in reversed(range(x.shape[1])):
+        x[:, k] = x[:, k] / u[:, k, k]
+        x[:, :k] -= u[:, :k, k] * x[:, k, None]
+    ok = ~singular & torch.isfinite(x).all(dim=-1)
+    return torch.where(ok[:, None], x, torch.full_like(x, float("nan")))
+
+
+def dense_solve_nan(a, b):
+    """``a x = b`` for B systems, ``a`` [B, n, n] (any strides) and ``b``
+    [B, n]; [B, n], NaN on the lanes whose matrix is singular (XLA's solve
+    returns non-finite values there, torch's raises).
+
+    float32 with n <= DENSE_SOLVE_MAX_N (``dense_solve_plan``) takes the
+    operator ``riptrm::dense_solve``: on a CUDA device the kernel
+    (csrc/dense_solve.cu), one launch; on the CPU its plain version.  Every
+    other system (float64, which is never cast down; n above the limit)
+    takes ``torch.linalg.solve_ex`` and NaN where ``info != 0``."""
+    n = a.shape[-1]
+    if a.dim() != 3 or a.shape[1] != n or b.shape != a.shape[:2] or b.dtype != a.dtype:
+        raise ValueError(f"dense_solve_nan: a {tuple(a.shape)} {a.dtype} and b "
+                         f"{tuple(b.shape)} {b.dtype} are not [B, n, n] and [B, n] of one dtype")
+    plan = dense_solve_plan(n, a.shape[0]) if a.dtype == torch.float32 else None
+    if plan is None:
+        sol, info = torch.linalg.solve_ex(a, b)
+        return torch.where((info != 0)[:, None], torch.full_like(sol, float("nan")), sol)
+    _on_card(a, b)
+    return torch.ops.riptrm.dense_solve(a, b, plan.rows, plan.grid)
+
+
+def _dense_solve_cuda(a, b, rows, grid):
+    # the kernel reads A row-major or column-major (RIPM's symmetrised
+    # materialisation is the latter): no copy of the matrices for either
+    transposed = not a.is_contiguous() and a.mT.is_contiguous()
+    a = a.mT if transposed else a.contiguous()
+    b = b.contiguous()
+    x = torch.empty_like(b)
+    lib = _build.load()
+    err = lib.dense_solve_launch(_ptr(a), _ptr(b), _ptr(x), b.shape[0], b.shape[1], rows, grid,
+                                 int(transposed), a.device.index or 0, _stream(a.device))
+    _build.check(lib, err, "dense_solve_nan")
+    dense_solve_nan.launches += 1
+    return x
+
+
+dense_solve_nan.launches = 0
+
 KERNEL_WRAPPERS = (
     chained_barrier_matvec,
     fused_tcg_sphere_quadratic,
@@ -1019,6 +1137,7 @@ KERNEL_WRAPPERS = (
     fused_tcg_stiefel_bound_batched,
     bare_matvec_chain,
     chained_barrier_matvec_hbm,
+    dense_solve_nan,
 )
 
 
@@ -1053,54 +1172,6 @@ def _with_stats(xs):
     return _same(xs), _same(xs), xs.new_empty((xs.shape[0], 2), dtype=torch.int32)
 
 
-_OPS = {
-    # name: (schema, CUDA, CPU, fake)
-    "chain_resident": (
-        "(Tensor zs, Tensor x, Tensor w, Tensor v0, int n_iters, int grid, int rows) -> Tensor",
-        _chain_resident_cuda,
-        lambda zs, x, w, v0, n_iters, *plan: chained_barrier_matvec_plain(zs, x, w, v0, n_iters),
-        lambda zs, x, *rest: _same(x),
-    ),
-    "sphere_tcg": (
-        "(Tensor zs, Tensor xs, Tensor ws, Tensor grads, Tensor radii, int maxinner, "
-        "int mininner, float theta, float kappa, int resident, int grid, int groups, int rows, "
-        "int owned, int lmax, int chunk, bool single) -> (Tensor, Tensor, Tensor)",
-        _sphere_tcg_cuda,
-        lambda *args: _sphere_tcg_cpu(*args[:-1]),
-        lambda zs, xs, *rest: _with_stats(xs),
-    ),
-    "stiefel_tcg": (
-        "(Tensor zs, Tensor d, Tensor xs, Tensor ws, Tensor ss, Tensor grads, Tensor radii, "
-        "int maxinner, int mininner, float theta, float kappa, int slices, int rows, "
-        "int splits, bool zs_shared) -> (Tensor, Tensor, Tensor)",
-        _stiefel_tcg_cuda,
-        _stiefel_tcg_cpu,
-        lambda zs, d, xs, *rest: _with_stats(xs),
-    ),
-    "matvec_chain_left": (
-        "(Tensor z, Tensor v0, int n_iters, int prec, int col_groups, int row_groups, "
-        "int cols, int rows, int chunk) -> Tensor",
-        _matvec_chain_left_cuda,
-        _matvec_chain_left_cpu,
-        lambda z, v0, *rest: _same(v0),
-    ),
-    "matvec_chain_right": (
-        "(Tensor z, Tensor v0, int n_iters, int prec, int cols, int slices, int rows, "
-        "bool zs_shared) -> Tensor",
-        _matvec_chain_right_cuda,
-        _matvec_chain_right_cpu,
-        lambda z, v0, *rest: _same(v0),
-    ),
-    "chain_hbm": (
-        "(Tensor zs, Tensor x, Tensor w, Tensor v0, int n_iters, int grid, int pieces, "
-        "int piece, int stages, bool xw_shared) -> Tensor",
-        _chain_hbm_cuda,
-        lambda zs, x, w, v0, n_iters, *plan: chained_barrier_matvec_plain(zs, x, w, v0, n_iters),
-        lambda zs, x, *rest: _same(x),
-    ),
-}
-
-
 def _contiguous(launch):
     """The kernels read their tensors through raw pointers, row-major: a
     reloaded program hands them over in the strides its graph gives."""
@@ -1108,8 +1179,62 @@ def _contiguous(launch):
                                   for a in args))
 
 
+_OPS = {
+    # name: (schema, CUDA (its strides settled), CPU, fake)
+    "chain_resident": (
+        "(Tensor zs, Tensor x, Tensor w, Tensor v0, int n_iters, int grid, int rows) -> Tensor",
+        _contiguous(_chain_resident_cuda),
+        lambda zs, x, w, v0, n_iters, *plan: chained_barrier_matvec_plain(zs, x, w, v0, n_iters),
+        lambda zs, x, *rest: _same(x),
+    ),
+    "sphere_tcg": (
+        "(Tensor zs, Tensor xs, Tensor ws, Tensor grads, Tensor radii, int maxinner, "
+        "int mininner, float theta, float kappa, int resident, int grid, int groups, int rows, "
+        "int owned, int lmax, int chunk, bool single) -> (Tensor, Tensor, Tensor)",
+        _contiguous(_sphere_tcg_cuda),
+        lambda *args: _sphere_tcg_cpu(*args[:-1]),
+        lambda zs, xs, *rest: _with_stats(xs),
+    ),
+    "stiefel_tcg": (
+        "(Tensor zs, Tensor d, Tensor xs, Tensor ws, Tensor ss, Tensor grads, Tensor radii, "
+        "int maxinner, int mininner, float theta, float kappa, int slices, int rows, "
+        "int splits, bool zs_shared) -> (Tensor, Tensor, Tensor)",
+        _contiguous(_stiefel_tcg_cuda),
+        _stiefel_tcg_cpu,
+        lambda zs, d, xs, *rest: _with_stats(xs),
+    ),
+    "matvec_chain_left": (
+        "(Tensor z, Tensor v0, int n_iters, int prec, int col_groups, int row_groups, "
+        "int cols, int rows, int chunk) -> Tensor",
+        _contiguous(_matvec_chain_left_cuda),
+        _matvec_chain_left_cpu,
+        lambda z, v0, *rest: _same(v0),
+    ),
+    "matvec_chain_right": (
+        "(Tensor z, Tensor v0, int n_iters, int prec, int cols, int slices, int rows, "
+        "bool zs_shared) -> Tensor",
+        _contiguous(_matvec_chain_right_cuda),
+        _matvec_chain_right_cpu,
+        lambda z, v0, *rest: _same(v0),
+    ),
+    "chain_hbm": (
+        "(Tensor zs, Tensor x, Tensor w, Tensor v0, int n_iters, int grid, int pieces, "
+        "int piece, int stages, bool xw_shared) -> Tensor",
+        _contiguous(_chain_hbm_cuda),
+        lambda zs, x, w, v0, n_iters, *plan: chained_barrier_matvec_plain(zs, x, w, v0, n_iters),
+        lambda zs, x, *rest: _same(x),
+    ),
+    "dense_solve": (
+        "(Tensor a, Tensor b, int rows, int grid) -> Tensor",
+        _dense_solve_cuda,
+        lambda a, b, *plan: dense_solve_plain(a, b),
+        lambda a, b, *plan: _same(b),
+    ),
+}
+
+
 for _name, (_schema, _cuda, _cpu, _fake) in _OPS.items():
     _LIB.define(_name + _schema)
-    _LIB.impl(_name, _contiguous(_cuda), "CUDA")
+    _LIB.impl(_name, _cuda, "CUDA")
     _LIB.impl(_name, _cpu, "CPU")
     torch.library.register_fake(f"riptrm::{_name}", _fake, lib=_LIB)

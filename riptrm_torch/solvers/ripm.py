@@ -8,8 +8,10 @@ fixed-budget loop (``solve_compiled``, any B; ``parallel/sweep.py``).
 
 The Newton direction comes from one of three solves, as in the JAX step:
 the condensed saddle system materialised in the tangent basis and solved
-densely (``torch.linalg.solve_ex``; a singular lane reads NaN, as XLA's
-solve gives it, and the singular-Newton guard freezes it), the matrix-free
+densely (``ops/kernels.py::dense_solve_nan``: the hand-written batched LU
+for float32 systems up to n = 64, ``torch.linalg.solve_ex`` for the rest;
+a singular lane reads NaN, as XLA's solve gives it, and the
+singular-Newton guard freezes it), the matrix-free
 conjugate residual on T_x M x R^l (``ops/conjres.py``), or that CR in
 basis coordinates with the Jacobi preconditioner ``jacobi_theta``.  The
 merit line search is a lane-masked loop, a lane that has found its step
@@ -28,6 +30,7 @@ import torch
 
 from riptrm_torch.ops.basis import constraint_grad_rows, materialize_symmetrized
 from riptrm_torch.ops.conjres import conjugate_residual
+from riptrm_torch.ops.kernels import dense_solve_nan
 from riptrm_torch.ops.kkt import compute_residual, evaluation
 from riptrm_torch.solvers import base
 from riptrm_torch.solvers.base import (
@@ -121,14 +124,6 @@ def _constraint_grad_matrix(problem, x, basis, m):
 
 def _eq_grad_matrix(problem, x, basis, l):
     return constraint_grad_rows(problem.manifold, x, basis, problem.eq_fn, l)
-
-
-def _solve_nan(a, b):
-    """Batched ``solve`` with NaN on the lanes whose matrix is singular
-    (``info != 0``): torch raises there, where XLA's solve returns
-    non-finite values."""
-    sol, info = torch.linalg.solve_ex(a, b)
-    return torch.where((info != 0)[:, None], torch.full_like(sol, float("nan")), sol)
 
 
 def _check_slice(option):
@@ -247,11 +242,11 @@ def make_step(problem, option):
                     torch.cat([aw_mat, heq.mT], dim=-1),
                     torch.cat([heq, torch.zeros((lanes, l, l), dtype=dt, device=dev)], dim=-1),
                 ], dim=-2)
-                sol = _solve_nan(t_mat, torch.cat([c_vec, q], dim=-1))
+                sol = dense_solve_nan(t_mat, torch.cat([c_vec, q], dim=-1))
                 ntdir_x = man.from_coords(x, basis, sol[:, :dim])
                 ntdir_y = sol[:, dim:]
             else:
-                sol = _solve_nan(aw_mat, c_vec)
+                sol = dense_solve_nan(aw_mat, c_vec)
                 ntdir_x = man.from_coords(x, basis, sol)
                 ntdir_y = empty_y
 

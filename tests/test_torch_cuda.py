@@ -830,3 +830,139 @@ def test_exported_sweep_reloaded_on_card_launches_k3(dev, tmp_path):
     _, _, _, res_d = batched_solver_sweep(problem, "RIPTRM", option, 300)(xs, ys)
     assert torch.isfinite(res).all()
     assert float(res.median()) <= 10 * max(float(res_d.median()), 3e-4)
+
+
+def _dense_systems(n, b, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((b, n, n)) / np.sqrt(n) + np.eye(n)
+    rhs = rng.standard_normal((b, n))
+    return (torch.tensor(a, dtype=torch.float32, device=dev),
+            torch.tensor(rhs, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("n", [1, 2, 12, 31, 32, 33, 49, 64])
+@pytest.mark.parametrize("b", [1, 5, 1000])
+def test_dense_solve_kernel_matches_plain(dev, n, b):
+    """The dense-solve kernel against its plain version on the card: one
+    launch, the same pivots, so the same answer up to FMA rounding (the
+    kernel fuses the rank-1 update, the plain version rounds the product):
+    relative error within 8 n eps cond of each other."""
+    a, rhs = _dense_systems(n, b, dev, seed=n + b)
+    tk.reset_launch_counts()
+    x = tk.dense_solve_nan(a, rhs)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["dense_solve_nan"] == 1
+    ref = tk.dense_solve_plain(a, rhs)
+    rel = torch.linalg.vector_norm(x - ref, dim=-1) / torch.linalg.vector_norm(ref, dim=-1)
+    cond = torch.linalg.cond(a.double().cpu()).float().to(dev)
+    assert torch.all(rel <= 8 * n * torch.finfo(torch.float32).eps * cond), rel.max()
+
+
+def test_dense_solve_kernel_ties_and_lanes(dev):
+    """Ties: the two systems of ``test_torch_dense_solve.tie_systems``,
+    whose answers tell the lower position's pivot from the other by one
+    rounding, read LAPACK's answers bit for bit.  +-1 matrices (ties in
+    every column, exact arithmetic at n = 4): the kernel equals the plain
+    version bit for bit, NaN where the plain version meets a zero pivot; a
+    lane reads the same alone, in the batch and at another place in it."""
+    from test_torch_dense_solve import tie_systems
+
+    for a, rhs, want, _ in tie_systems():
+        assert torch.equal(tk.dense_solve_nan(a.to(dev), rhs.to(dev)).cpu(), want)
+    g = torch.Generator().manual_seed(9)
+    a = (torch.randint(0, 2, (4096, 4, 4), generator=g) * 2 - 1).float().to(dev)
+    rhs = (torch.randint(0, 2, (4096, 4), generator=g) * 2 - 1).float().to(dev)
+    x = tk.dense_solve_nan(a, rhs)
+    ref = tk.dense_solve_plain(a, rhs)
+    assert torch.equal(torch.isnan(x), torch.isnan(ref)) and torch.isnan(x).any()
+    assert torch.equal(torch.nan_to_num(x), torch.nan_to_num(ref))
+    a, rhs = _dense_systems(49, 333, dev, seed=3)
+    x = tk.dense_solve_nan(a, rhs)
+    perm = torch.randperm(333, generator=g).to(dev)
+    assert torch.equal(tk.dense_solve_nan(a[perm], rhs[perm]), x[perm])
+    for i in (0, 101, 332):
+        assert torch.equal(tk.dense_solve_nan(a[i:i + 1], rhs[i:i + 1])[0], x[i])
+
+
+def test_dense_solve_kernel_nan_lanes(dev):
+    """An exact zero pivot (two equal rows) or a NaN in the input: that lane
+    reads NaN whole, its neighbours what they read alone."""
+    a, rhs = _dense_systems(49, 4, dev, seed=4)
+    a[1, 30] = a[1, 3]
+    a[2, 7, 7] = float("nan")
+    x = tk.dense_solve_nan(a, rhs)
+    assert torch.isnan(x[1]).all() and torch.isnan(x[2]).all()
+    for i in (0, 3):
+        assert torch.equal(x[i], tk.dense_solve_nan(a[i:i + 1], rhs[i:i + 1])[0])
+
+
+def test_dense_solve_kernel_reads_column_major(dev):
+    """A column-major batch (RIPM's symmetrised materialisation) is read in
+    place, with no copy, and gives the row-major batch's answer bit for
+    bit."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    a, rhs = _dense_systems(49, 300, dev, seed=6)
+    cm = a.mT.contiguous().mT
+    assert not cm.is_contiguous() and torch.equal(cm, a)
+    seen = []
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Ops():
+        x = tk.dense_solve_nan(cm, rhs)
+    assert not [f for f in seen if "copy" in f or "clone" in f], seen
+    assert torch.equal(x, tk.dense_solve_nan(a, rhs))
+
+
+def test_dense_solve_library_routes_launch_nothing(dev):
+    """float64 and n above the limit take torch.linalg.solve_ex on the card:
+    no launch."""
+    a, rhs = _dense_systems(tk.DENSE_SOLVE_MAX_N + 1, 3, dev)
+    tk.reset_launch_counts()
+    x = tk.dense_solve_nan(a, rhs)
+    x64 = tk.dense_solve_nan(a[:, :12, :12].double(), rhs[:, :12].double())
+    assert tk.launch_counts()["dense_solve_nan"] == 0
+    assert x.dtype == torch.float32 and x64.dtype == torch.float64
+    assert torch.equal(x, torch.linalg.solve(a, rhs))
+
+
+@pytest.mark.parametrize("n", [12, 50])
+def test_ripm_float32_sweep_on_card_matches_cpu(dev, n):
+    """float32 dense RIPM from 64 starts with the benchmark cell's options
+    (``tests/test_torch_ripm.py::test_float32_dense_sweep_matches_jax``'s
+    recipe): on the card the dense-solve kernel launches once a lockstep
+    step; steps lane by lane equal the CPU sweep's (the kernel's plain
+    version), every residual under tolresid, each within the benchmark
+    cell's resid_gap limit (1e-2 of max(its, tolresid)) of the CPU's and
+    each answer within 1e-5."""
+    from riptrm_torch.parallel.sweep import batched_solver_sweep
+
+    rng = np.random.default_rng(0)
+    size = int(0.7 * n)
+    v = (rng.permutation(n) < size) / np.sqrt(size)
+    noise = rng.standard_normal((n, n)) / np.sqrt(n)
+    np.fill_diagonal(noise, rng.standard_normal(n) * 2.0 / np.sqrt(n))
+    z = np.sqrt(0.5) * np.outer(v, v) + noise
+    xs = rng.random((64, n))
+    xs /= np.linalg.norm(xs, axis=1, keepdims=True)
+    option = {"maxiter": 60, "tolresid": 3e-4, "sweep_stall_window": 25}
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        problem = nonneg_pca.make_problem(z, xs[0], dtype=torch.float32, device=device,
+                                          matmul_precision="highest")
+        tk.reset_launch_counts()
+        x, _, ks, res = batched_solver_sweep(problem, "RIPM", option, 60)(
+            torch.tensor(xs, dtype=torch.float32, device=device),
+            torch.ones(64, n, device=device))
+        runs.append((x.cpu(), ks.cpu(), res.cpu(), tk.launch_counts()["dense_solve_nan"]))
+    (x, ks, res, launches), (x_c, ks_c, res_c, launches_c) = runs
+    assert launches == int(ks.max()) > 0 and launches_c == 0
+    assert ks.tolist() == ks_c.tolist()
+    assert torch.all(res <= option["tolresid"]) and torch.all(res_c <= option["tolresid"])
+    gap = (res - res_c).abs() / torch.clamp(res_c, min=option["tolresid"])
+    assert float(gap.max()) <= 1e-2, gap.max()
+    assert float((x - x_c).abs().max()) <= 1e-5

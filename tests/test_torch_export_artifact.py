@@ -162,6 +162,27 @@ def test_exported_graph_holds_tcg_operator(tmp_path):
         np.testing.assert_array_equal(a, d)
 
 
+def test_exported_ripm_holds_dense_solve_operator(tmp_path):
+    """A float32 RIPM program calls riptrm::dense_solve for its Newton solve
+    (the fake implementation gives its shape under torch.export), where a
+    float64 one calls the library's solve, and (on the CPU, its plain
+    version) gives the direct sweep's results bit for bit."""
+    z, xs, ys = _inputs(2)
+    tp = tnp.make_problem(torch.tensor(z), torch.tensor(xs[0]), dtype=torch.float32,
+                          device="cpu")
+    option = {"maxiter": 20, "tolresid": 1e-4}
+    run, _ = _port_artifact(tmp_path, tp, "RIPM", option, B, 20)
+    ops = _ops_in(torch.export.load(str(tmp_path / "sweep.pt2")))
+    assert ops["riptrm.dense_solve.default"] == 1
+    assert not any("linalg" in op and "solve" in op for op in ops)
+    txs, tys = torch.tensor(xs, dtype=torch.float32), torch.tensor(ys, dtype=torch.float32)
+    out = _np(run(txs, tys))
+    direct = _np(batched_solver_sweep(tp, "RIPM", option, 20)(txs, tys))
+    for a, d in zip(out, direct):
+        np.testing.assert_array_equal(a, d)
+    assert np.all(np.isfinite(out[3]))
+
+
 @pytest.mark.parametrize("solver,option", [
     ("RSQO", {"maxiter": 30, "tolresid": 1e-8}),
     ("RALM", {"maxiter": 10, "tolresid": 1e-4}),

@@ -53,7 +53,13 @@ def _cases():
         "matvec_chain_right": (zs, torch.randn(N, B, generator=_gen(4)), 4, 2) + (0,) * 3
         + (False,),
         "chain_hbm": chain + (1, 1, 4, 8, True),
+        "dense_solve": _dense_case() + (1, 1),
     }
+
+
+def _dense_case():
+    g = _gen(5)
+    return torch.randn(B, N, N, generator=g), torch.randn(B, N, generator=g)
 
 
 @pytest.mark.parametrize("name", sorted(tk._OPS))
@@ -76,9 +82,10 @@ def test_operator_has_every_implementation(name):
     ("fused_tcg_stiefel_bound_batched", "frames"),
     ("bare_matvec_chain", "left"),
     ("chained_barrier_matvec_hbm", "chain"),
+    ("dense_solve_nan", "dense"),
 ])
 def test_wrapper_calls_one_operator(wrapper, args):
-    """Each of the six launch counters' wrappers reaches exactly one
+    """Each of the seven launch counters' wrappers reaches exactly one
     riptrm:: operator a call, and counts nothing on the CPU."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -91,6 +98,7 @@ def test_wrapper_calls_one_operator(wrapper, args):
         "lanes": ((zs, xs, ws, grads, radii), kw),
         "frames": (_stiefel_case(), {"maxinner": N * P}),
         "left": ((zs, torch.randn(B, N, generator=_gen(3)), 4, "highest"), {}),
+        "dense": (_dense_case(), {}),
     }
     seen = []
 

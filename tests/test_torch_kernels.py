@@ -122,6 +122,7 @@ def test_cpu_tensors_take_the_plain_path(setup):
         zs, torch.stack([x, x]), torch.stack([w, w]), torch.stack([g, g]),
         torch.tensor([0.1, 0.2]), maxinner=s["dim"],
     )
+    tk.dense_solve_nan(torch.eye(3)[None] + 0.1, torch.ones(1, 3))
     assert tk.launch_counts() == {
         "chained_barrier_matvec": 0,
         "fused_tcg_sphere_quadratic": 0,
@@ -129,6 +130,7 @@ def test_cpu_tensors_take_the_plain_path(setup):
         "fused_tcg_stiefel_bound_batched": 0,
         "bare_matvec_chain": 0,
         "chained_barrier_matvec_hbm": 0,
+        "dense_solve_nan": 0,
     }
 
 

@@ -14,7 +14,11 @@
     RIPM criteria on its n = 12 instance;
 (c) the singular-Newton instance of ``tests/test_solvers.py``: the lane
     freezes, the run stops with the flagged row logged;
-(d) ``batched_ripm_continue`` at B = 3 against the JAX function.
+(d) ``batched_ripm_continue`` at B = 3 against the JAX function;
+(e) a float32 dense sweep (``batched_solver_sweep``) on NonnegPCA at n = 12
+    and at the benchmark cell's n = 50, whose Newton solves take
+    ``riptrm::dense_solve`` (the kernel's plain version on the CPU), against
+    the JAX sweep in float32 (``jnp.linalg.solve``).
 """
 
 import jax
@@ -230,3 +234,54 @@ def test_batched_ripm_continue(eq):
     assert t_k.tolist() == np.asarray(j_k).tolist()
     np.testing.assert_allclose(t_res.numpy(), np.asarray(j_res), rtol=1e-7)
     np.testing.assert_allclose(t_st.x.numpy(), np.asarray(j_st.x), rtol=1e-7, atol=1e-12)
+
+
+def _cell_like_instance(n, lanes, seed=0):
+    """The benchmark's NonnegPCA recipe (a spiked covariance with snr 0.5 on
+    a support of 0.7 n coordinates) and uniform positive unit starts."""
+    rng = np.random.default_rng(seed)
+    size = int(0.7 * n)
+    v = (rng.permutation(n) < size) / np.sqrt(size)
+    noise = rng.standard_normal((n, n)) / np.sqrt(n)
+    np.fill_diagonal(noise, rng.standard_normal(n) * 2.0 / np.sqrt(n))
+    xs = rng.random((lanes, n))
+    return np.sqrt(0.5) * np.outer(v, v) + noise, xs / np.linalg.norm(xs, axis=1, keepdims=True)
+
+
+@pytest.mark.parametrize("n", [12, 50])
+def test_float32_dense_sweep_matches_jax(n):
+    """float32 dense RIPM from four starts, the benchmark cell's options:
+    every Newton solve reaches ``riptrm::dense_solve`` (one call a lockstep
+    step); steps lane by lane equal the JAX sweep's, residuals and answers
+    within 1e-6 of its (16 eps32 on O(1) quantities: the two LUs round in
+    another order), every residual under tolresid."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen += str(func) == "riptrm.dense_solve.default"
+            return func(*args, **(kwargs or {}))
+
+    z, xs = _cell_like_instance(n, 4)
+    option = {"maxiter": 60, "tolresid": 3e-4, "sweep_stall_window": 25}
+    tp = tn.make_problem(torch.tensor(z), torch.tensor(xs[0]), dtype=torch.float32,
+                         device="cpu", matmul_precision="highest")
+    with Ops() as ops:
+        x, _, ks, res = tsw.batched_solver_sweep(tp, "RIPM", option, 60)(
+            torch.tensor(xs, dtype=torch.float32), torch.ones(4, n))
+    # the JAX package runs float32 with 32-bit defaults, as on its chip
+    with jax.enable_x64(False):
+        jp = jn.make_problem(jnp.asarray(z, dtype=jnp.float32), xs[0], dtype=jnp.float32,
+                             matmul_precision="highest")
+        jx, _, jks, jres = jsw.batched_solver_sweep(jp, "RIPM", option, 60)(
+            jnp.asarray(xs, dtype=jnp.float32), jnp.ones((4, n), dtype=jnp.float32))
+    assert res.dtype == torch.float32 and np.asarray(jres).dtype == np.float32
+    assert ops.seen == int(ks.max()) > 0
+    assert ks.tolist() == np.asarray(jks).tolist()
+    assert np.all(res.numpy() <= option["tolresid"])
+    np.testing.assert_allclose(res.numpy(), np.asarray(jres), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(x.numpy(), np.asarray(jx), rtol=0, atol=1e-6)

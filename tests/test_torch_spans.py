@@ -43,15 +43,15 @@ CASES = {
 }
 
 
-def _instance():
+def _instance(dtype=torch.float64):
     rng = np.random.default_rng(0)
     a = rng.standard_normal((N, N))
     xs = np.abs(rng.standard_normal((B, N)))
     xs /= np.linalg.norm(xs, axis=1, keepdims=True)
-    xs = torch.tensor(xs)
-    problem = nonneg_pca.make_problem(torch.tensor(a @ a.T / N), xs[0], dtype=torch.float64,
+    xs = torch.tensor(xs, dtype=dtype)
+    problem = nonneg_pca.make_problem(torch.tensor(a @ a.T / N), xs[0], dtype=dtype,
                                       device="cpu")
-    return problem, xs, torch.ones(B, N, dtype=torch.float64)
+    return problem, xs, torch.ones(B, N, dtype=dtype)
 
 
 def _traced(run, *args):
@@ -192,6 +192,7 @@ def _read(name, run):
     ("ripm.linesearch_pct_of_window", True),
     ("ripm.ls_trials_per_step", False),
     ("host.syncs_per_step", False),
+    ("ripm.newton_solve_pct_of_window", True),
 ])
 def test_metric_readers_on_a_cpu_trace(name, device_only):
     """On a CPU trace of a RIPM sweep, each reader gives a finite number, or
@@ -238,5 +239,21 @@ def test_metric_readers_without_spans_read_nothing(monkeypatch):
     run = harness.Run(None, 0, torch.device("cpu"),
                       [harness.Call(0, 0.0, 1.0, x, y, k.numpy(), res)], 1.0, 0.0, trace)
     for name in ("ripm.materialize_pct_of_window", "ripm.linesearch_pct_of_window",
-                 "ripm.ls_trials_per_step", "host.syncs_per_step"):
+                 "ripm.ls_trials_per_step", "host.syncs_per_step",
+                 "ripm.newton_solve_pct_of_window", "ripm.dense_solve_kernel_share"):
         assert _read(name, run) is None, name
+
+
+@pytest.mark.parametrize("dtype,share", [(torch.float32, 1.0), (torch.float64, None)],
+                         ids=["f32", "f64"])
+def test_dense_solve_kernel_share(dtype, share):
+    """``ripm.dense_solve_kernel_share`` reads one riptrm::dense_solve inside
+    every ``riptrm.ripm.newton_solve`` span of a float32 RIPM sweep, and
+    None where the library solves (float64)."""
+    problem, xs, ys = _instance(dtype)
+    (x, y, k, res), trace = _traced(batched_solver_sweep(problem, "RIPM", CASES["RIPM"][1],
+                                                         200), xs, ys)
+    run = harness.Run(None, 0, torch.device("cpu"),
+                      [harness.Call(0, 0.0, 1.0, x, y, k.numpy(), res)], 1.0, 0.0, trace)
+    assert len(_named(trace, "riptrm.ripm.newton_solve")) == int(k.max())
+    assert _read("ripm.dense_solve_kernel_share", run) == share
