@@ -124,10 +124,26 @@ def make_inputs(cell: Cell, seed: int):
     upstream's dataset config fixes one): a deployment sweeps one instance
     from many starts, and the instance sets how many steps every start
     takes, so each run does the same kind of work.  The starts come from
-    the run's seed."""
-    arrays = cell.gen.instance(rng_for(cell.config["instance_seed"]), cell.config)
-    pool, lanes = cell.traffic["pool_sweeps"], cell.traffic["lanes"]
-    starts = cell.gen.starts(rng_for(seed), cell.config, pool * lanes)
+    the run's seed, or, where the mix sets ``"starts_pool": "fixed"``,
+    from the configuration: the pool is then drawn from the stream
+    ``SeedSequence(instance_seed, spawn_key=(0,))`` (the first child of
+    the instance seed, independent of the instance's own draw from
+    ``instance_seed``), and the run's seed only draws one permutation of
+    the lanes for each sweep of the pool.  A lockstep sweep runs as long
+    as its slowest lane, so with a fixed pool every run's sweeps do the
+    same work whatever the seed."""
+    cfg, mix = cell.config, cell.traffic
+    arrays = cell.gen.instance(rng_for(cfg["instance_seed"]), cfg)
+    pool, lanes = mix["pool_sweeps"], mix["lanes"]
+    if mix.get("starts_pool") not in (None, "fixed"):
+        raise ValueError(f"starts_pool {mix['starts_pool']!r}: only \"fixed\" is known")
+    if mix.get("starts_pool") == "fixed":
+        stream = np.random.SeedSequence(cfg["instance_seed"] % 2**64, spawn_key=(0,))
+        starts = cell.gen.starts(np.random.default_rng(stream), cfg, pool * lanes)
+        starts = starts.reshape(pool, lanes, *starts.shape[1:])
+        order = rng_for(seed)
+        return arrays, np.stack([sweep[order.permutation(lanes)] for sweep in starts])
+    starts = cell.gen.starts(rng_for(seed), cfg, pool * lanes)
     return arrays, starts.reshape(pool, lanes, *starts.shape[1:])
 
 
@@ -175,18 +191,18 @@ def closed_loop(run, pool, ys, seconds: float, sync, max_calls=None):
 class TcgProbe:
     """Records every call of the family's fused tCG entry (``TCG_ENTRY``
     of its ``program`` module, a function of ``riptrm_torch.ops.kernels``)
-    made during call ``call_index`` of the window, or during the window's
-    last call if it ends before: the entry's arguments and the step it
-    returned, each lane-indexed tensor cut to the ``sample`` lanes (sorted
-    indices, drawn from the run's seed; those a call has), the shared Zs
-    whole.  The solver
-    looks the entry up on the module at each step, so the recorder sits
-    there during those calls, around whatever the module holds (the
-    control's stand-in too)."""
+    made during the window's first call: the entry's arguments and the
+    step it returned, each lane-indexed tensor cut to the ``sample`` lanes
+    (sorted indices, drawn from the run's seed; those a call has), the
+    shared Zs whole.  Every window has a first call, so every run records
+    the same work whatever its seed; the sample goes to the device once,
+    so a record waits for nothing on the device.  The solver looks the
+    entry up on the module at each step, so the recorder sits there during
+    that call, around whatever the module holds (the control's stand-in
+    too)."""
 
-    def __init__(self, name: str, call_index: int, sample):
-        self.name, self.call_index, self.records = name, call_index, []
-        self.sample = sample
+    def __init__(self, name: str, sample):
+        self.name, self.sample, self.records = name, sample, []
 
     def wrap(self, run):
         from riptrm_torch.ops import kernels
@@ -194,16 +210,16 @@ class TcgProbe:
         calls = itertools.count()
 
         def probed(xs, ys):
-            if next(calls) > self.call_index:
+            if next(calls) > 0:
                 return run(xs, ys)
             entry = getattr(kernels, self.name)
-            records = self.records = []
+            sample = self.sample.to(xs.device)
 
             def record(*args, **kwargs):
                 out = entry(*args, **kwargs)
-                lanes = self.sample[self.sample < out[0].shape[0]].to(out[0].device)
-                records.append(((args[0], *(a[lanes] for a in args[1:])), kwargs,
-                                tuple(o[lanes] for o in out)))
+                lanes = sample[:int((self.sample < out[0].shape[0]).sum())]
+                self.records.append(((args[0], *(a[lanes] for a in args[1:])), kwargs,
+                                     tuple(o[lanes] for o in out)))
                 return out
 
             setattr(kernels, self.name, in_place_of(entry, record))
@@ -273,7 +289,9 @@ def judge(cell: Cell, arrays, calls, pool, records):
     gap over the recorded tCG calls and their sampled lanes between the
     Hessian image the program returned with its step and the reference's
     Hessian applied to that step (inf where no call was recorded).
-    ``failed`` counts lanes whose r is not finite or above tol.  Returns
+    ``failed`` counts lanes by the same rule: a lane fails where its p is
+    over tol or not finite, where r is not finite, or where its own
+    |p - r| / max(r, tol) is over the ``resid_gap`` limit.  Returns
     (attempted, failed, checks)."""
     import torch
 
@@ -305,7 +323,7 @@ def judge(cell: Cell, arrays, calls, pool, records):
         gaps = [cell.reference.tcg_gap(arrays, cfg, *record) for record in records]
         numbers["tcg_heta_gap"] = max((float(g.max()) for g in gaps), default=np.inf)
     checks = {name: {"value": numbers[name], "limit": spec[name]["limit"]} for name in spec}
-    failed = int(np.sum(~fin_ref | (r_ref > tol)))
+    failed = int(np.sum(~(r_prog <= tol) | ~fin_ref | (gap > spec["resid_gap"]["limit"])))
     return len(r_ref), failed, checks
 
 
@@ -390,8 +408,7 @@ def _run_cell(cell, seed, seconds, trace, device, t_process0, control, rehearse,
         run = wrap(run, pool)
     probe = None
     if "tcg_heta_gap" in cell.checks["numbers"]:
-        probe = TcgProbe(cell.program.TCG_ENTRY, seed % traffic["trace_calls"],
-                         tcg_sample(seed, traffic))
+        probe = TcgProbe(cell.program.TCG_ENTRY, tcg_sample(seed, traffic))
         run = probe.wrap(run)
     warm(pool[0], ys)
     stage("warmup")
@@ -413,6 +430,9 @@ def _run_cell(cell, seed, seconds, trace, device, t_process0, control, rehearse,
         call.steps = call.steps.cpu().numpy()
 
     out_run = Run(cell, seed, device, calls, window_s, setup_s)
+    print(f"window {window_s:.3f} s, {len(calls)} calls, lockstep steps a call "
+          f"{out_run.steps}, seconds a call {[round(c.seconds, 3) for c in calls]}",
+          file=sys.stderr)
     if prof is not None:
         from perfbench.trace import Trace
 

@@ -60,18 +60,21 @@ def test_step_returning_its_state(tiny_root, name, monkeypatch):
     step_unchanged(monkeypatch)
     out = rehearse(tiny_root, name, seconds=0.5)
     assert not out["correct"], out["checks"]
+    assert out["failed"] == out["attempted"]  # every lane left unmoved
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_half_the_lanes_left_out(tiny_root, name):
     out = rehearse(tiny_root, name, wrap=half_left_out)
     assert not out["correct"], out["checks"]
+    assert out["failed"] >= out["attempted"] // 2  # the half left out
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_answer_altered(tiny_root, name):
     out = rehearse(tiny_root, name, wrap=answer_altered)
     assert not out["correct"], out["checks"]
+    assert out["failed"] >= 1
 
 
 def tcg_image_altered(monkeypatch, cell):

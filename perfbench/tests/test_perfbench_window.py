@@ -82,12 +82,58 @@ def test_in_place_of_shares_the_entrys_attributes():
     assert stand_in(5) == 10 and entry.launches == 4
 
 
+def test_tcg_probe_records_the_first_call_only(monkeypatch):
+    """Whatever the seed, the probe keeps the tCG entry's calls of the
+    window's first call, on the sample's lanes that each call has."""
+    import torch
+    from riptrm_torch.ops import kernels
+
+    def entry(zs, xs, radii):
+        return xs * 2.0, radii + 1.0
+
+    monkeypatch.setattr(kernels, "probe_test_entry", entry, raising=False)
+
+    def run(xs, ys):  # two entry calls a window call, the second on 3 lanes
+        kernels.probe_test_entry(None, xs, xs[:, 0])
+        return kernels.probe_test_entry(None, xs[:3], xs[:3, 0])
+
+    probe = harness.TcgProbe("probe_test_entry", torch.tensor([1, 4]))
+    probed = probe.wrap(run)
+    for i in range(3):
+        probed(torch.full((5, 2), float(i)) + torch.arange(5.0)[:, None], None)
+    assert kernels.probe_test_entry is entry and len(probe.records) == 2
+    (args, _, out), (args3, _, out3) = probe.records
+    assert args[1][:, 0].tolist() == [1.0, 4.0] and out[0][:, 0].tolist() == [2.0, 8.0]
+    assert args3[1][:, 0].tolist() == [1.0] and out3[1].tolist() == [2.0]
+
+
 @pytest.mark.parametrize("own, ref, ok", [
     ([0.9999, 0.5], [1.00005, 0.5], True),  # stops under tol, a hair over it in float64
     ([1.0001, 0.5], [1.0001, 0.5], False),  # stops over tol by its own test
     ([0.5, 0.5], [0.9, 0.5], False),  # own report 44 % under the reference's
 ])
 def test_lanes_held_to_tol_by_their_own_test(own, ref, ok):
+    attempted, failed, checks = judge_two_lanes(own, ref)
+    assert attempted == 2 and failed == int(not ok)
+    assert all(c["value"] <= c["limit"] for c in checks.values()) is ok
+
+
+@pytest.mark.parametrize("own, ref, failed_lanes", [
+    ([0.9999, 0.5], [1.0005, 0.5], 0),  # over tol in float64 by less than resid_gap
+    ([1.01, 0.5], [1.01, 0.5], 1),  # over tol by its own test
+    ([float("nan"), 0.5], [0.5, 0.5], 1),  # its own report not finite
+    ([0.5, 0.5], [float("inf"), 0.5], 1),  # the reference's not finite
+    ([0.9, 0.9], [0.9, 1.0], 1),  # the second lane's reports 10 % apart
+])
+def test_failed_counts_lanes_by_the_rule_of_correct(own, ref, failed_lanes):
+    attempted, failed, checks = judge_two_lanes(own, ref)
+    assert attempted == 2 and failed == failed_lanes
+    assert all(c["value"] <= c["limit"] for c in checks.values()) is (failed_lanes == 0)
+
+
+def judge_two_lanes(own, ref):
+    """``harness.judge`` of one call of two lanes at tolresid 1 whose own
+    residuals are ``own`` and the reference's ``ref``."""
     import torch
 
     x = torch.zeros(2, 3)
@@ -99,6 +145,4 @@ def test_lanes_held_to_tol_by_their_own_test(own, ref, ok):
         reference=types.SimpleNamespace(
             residual=lambda arrays, cfg, x, y: torch.tensor(ref, dtype=torch.float64)))
     call = harness.Call(0, 0.0, 1.0, x, x, np.ones(2), torch.tensor(own))
-    attempted, failed, checks = harness.judge(cell, {}, [call], pool, [])
-    assert attempted == 2 and failed == int(ref[0] > 1.0)
-    assert all(c["value"] <= c["limit"] for c in checks.values()) is ok
+    return harness.judge(cell, {}, [call], pool, [])
