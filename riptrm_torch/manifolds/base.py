@@ -179,12 +179,48 @@ def randn_on(generator, shape, dtype=None, device=None):
 
 def sym(a):
     """Symmetric part over the last two axes, e.g. of lane-batched [B, p, p]."""
-    return 0.5 * (a + a.mT)
+    return 0.5 * (a + a.transpose(-2, -1))
 
 
 def skew(a):
     """Skew-symmetric part over the last two axes."""
-    return 0.5 * (a - a.mT)
+    return 0.5 * (a - a.transpose(-2, -1))
+
+
+class Recent:
+    """The last few values made from tensors, found by the tensor object
+    itself (``is``): a point-frozen operator that meets one tangent in
+    several calls (a tCG's gradient in every iteration, its candidate step
+    in two inner products) makes its value once.  The entries hold their
+    tensors, so no id is reused while one is listed; no caller changes a
+    tangent in place."""
+
+    def __init__(self, size: int = 8):
+        self.size, self.items = size, []
+
+    def get(self, key, make):
+        for k, value in self.items:
+            if k is key:
+                return value
+        value = make()
+        self.items.append((key, value))
+        if len(self.items) > self.size:
+            del self.items[0]
+        return value
+
+
+def bmm(a, b):
+    """a @ b for two stacks of matrices of one batch shape: the ``bmm``
+    that ``matmul`` runs for them, on the same operands, without
+    ``matmul``'s broadcasting wrappers (a tCG iteration takes dozens of
+    5 x 5 products, and each wrapper is host work).  Other shapes go to
+    ``matmul``."""
+    if a.ndim < 3 or a.shape[:-2] != b.shape[:-2]:
+        return a @ b
+    if a.ndim == 3:
+        return torch.bmm(a, b)
+    out = torch.bmm(a.reshape((-1,) + a.shape[-2:]), b.reshape((-1,) + b.shape[-2:]))
+    return out.view(a.shape[:-2] + out.shape[-2:])
 
 
 @functools.lru_cache(maxsize=32)

@@ -17,6 +17,13 @@ the components' coordinates and the basis is the tuple of the components'
 bases: no block-diagonal basis is materialised (``map_basis`` maps a
 function over each component's basis in turn).  A component's points and
 tangents must share one shape (the fixed-rank manifold's do not).
+
+In the stacked layout, equal neighbouring components whose operators take
+any leading axes (``stacks``: SPD) run as one call on their [B, k, *shape]
+slice in the operators a tCG iteration applies (``inner_at``,
+``proj_tangent``, ``egrad2rgrad``, ``ehess2rhess``): StableIdentification's
+two SPD blocks share each Cholesky solve and product.  Each lane's values
+are those of the per-component calls, summed in the same order.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import math
 import torch
 from torch.func import vmap
 
-from riptrm_torch.manifolds.base import Manifold
+from riptrm_torch.manifolds.base import Manifold, Recent
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,11 +93,46 @@ class Product(Manifold):
     def _zip(self, *packed):
         return zip(self.manifolds, *(self.unpack(a) for a in packed), strict=True)
 
+    @property
+    def _runs(self):
+        """(manifold, first, stop) for each run of equal neighbouring
+        components that share a call (a run of one elsewhere), or None
+        where no run is longer than one."""
+        runs, ms, i = [], self.manifolds, 0
+        while i < len(ms):
+            j = i + 1
+            if self._stacked and getattr(ms[i], "stacks", False):
+                while j < len(ms) and ms[j] == ms[i]:
+                    j += 1
+            runs.append((ms[i], i, j))
+            i = j
+        return runs if len(runs) < len(ms) else None
+
+    def _axis(self, a):
+        return a.ndim - 1 - len(self.manifolds[0].point_shape)
+
+    def _part(self, a, i, j):
+        """Components i to j of ``a``: the view of one, a stacked slice of
+        several."""
+        axis = self._axis(a)
+        return a.select(axis, i) if j - i == 1 else a.narrow(axis, i, j - i)
+
+    def _by_runs(self, fn, *packed):
+        """``fn(manifold, *parts)`` on each run, packed."""
+        axis = self._axis(packed[0])
+        outs = []
+        for m, i, j in self._runs:
+            out = fn(m, *(self._part(a, i, j) for a in packed))
+            outs.append(out.unsqueeze(axis) if j - i == 1 else out)
+        return torch.cat(outs, dim=axis)
+
     # ---- geometry, per component ----------------------------------------
     def inner(self, x, u, v):
         return sum(m.inner(xi, ui, vi) for m, xi, ui, vi in self._zip(x, u, v))
 
     def inner_at(self, x):
+        if self._runs is not None:
+            return self._inner_at_runs(x)
         parts = [m.inner_at(xi) for m, xi in self._zip(x)]
 
         def inner(u, v):
@@ -99,10 +141,35 @@ class Product(Manifold):
 
         return inner
 
+    def _inner_at_runs(self, x):
+        runs = [(m.inner_at(self._part(x, i, j)), i, j) for m, i, j in self._runs]
+        # one set of views a tangent, so a component's ``inner_at`` finds
+        # the tangents it has met (``Recent``)
+        parts = Recent()
+
+        def split(u):
+            return parts.get(u, lambda: [self._part(u, i, j) for _, i, j in runs])
+
+        def inner(u, v):
+            total = 0
+            us, vs = split(u), split(v)
+            for (f, i, j), ui, vi in zip(runs, us, vs):
+                val = f(ui, vi)
+                if j - i == 1:
+                    total = total + val
+                else:
+                    for k in range(j - i):
+                        total = total + val[..., k]
+            return total
+
+        return inner
+
     def proj(self, x, v):
         return self.pack(m.proj(xi, vi) for m, xi, vi in self._zip(x, v))
 
     def proj_tangent(self, x, t):
+        if self._runs is not None:
+            return self._by_runs(lambda m, xi, ti: m.proj_tangent(xi, ti), x, t)
         return self.pack(m.proj_tangent(xi, ti) for m, xi, ti in self._zip(x, t))
 
     def transport(self, x, y, v):
@@ -115,9 +182,13 @@ class Product(Manifold):
         return torch.sqrt(sum(m.dist(xi, yi) ** 2 for m, xi, yi in self._zip(x, y)))
 
     def egrad2rgrad(self, x, egrad):
+        if self._runs is not None:
+            return self._by_runs(lambda m, xi, gi: m.egrad2rgrad(xi, gi), x, egrad)
         return self.pack(m.egrad2rgrad(xi, gi) for m, xi, gi in self._zip(x, egrad))
 
     def ehess2rhess(self, x, egrad, ehess, v):
+        if self._runs is not None:
+            return self._by_runs(lambda m, *a: m.ehess2rhess(*a), x, egrad, ehess, v)
         return self.pack(m.ehess2rhess(xi, gi, hi, vi)
                          for m, xi, gi, hi, vi in self._zip(x, egrad, ehess, v))
 

@@ -21,7 +21,15 @@ import math
 
 import torch
 
-from riptrm_torch.manifolds.base import Manifold, _sym_basis, randn_on, sym, sym_coords
+from riptrm_torch.manifolds.base import (
+    Manifold,
+    Recent,
+    _sym_basis,
+    bmm,
+    randn_on,
+    sym,
+    sym_coords,
+)
 
 
 def _chol(x):
@@ -29,6 +37,16 @@ def _chol(x):
     definite."""
     l, info = torch.linalg.cholesky_ex(x)
     return torch.where((info != 0)[..., None, None], math.nan, l)
+
+
+def _cho_solve(l, u):
+    """x^-1 u from x's Cholesky factor ``l``: the two triangular solves of
+    LAPACK's potrs, as ``jax.scipy.linalg.cho_solve``.  Not
+    ``torch.cholesky_solve``: on CUDA that runs MAGMA's batched solve,
+    which waits on the host (``cudaStreamSynchronize``) and takes ~2 ms a
+    call at 131072 lanes of 5 x 5."""
+    a = torch.linalg.solve_triangular(l, u, upper=False)
+    return torch.linalg.solve_triangular(l.transpose(-2, -1), a, upper=True)
 
 
 def _congruence_inv(l, u):
@@ -40,6 +58,8 @@ def _congruence_inv(l, u):
 @dataclasses.dataclass(frozen=True)
 class SymmetricPositiveDefinite(Manifold):
     d: int
+    # every operator takes any leading axes ([B, k, d, d]: ``Product``)
+    stacks = True
 
     @property
     def dim(self) -> int:
@@ -58,13 +78,16 @@ class SymmetricPositiveDefinite(Manifold):
 
     def inner_at(self, x):
         """tr(x^-1 u x^-1 v) with x's Cholesky factor computed once (the tCG
-        takes four inner products an iteration at one point)."""
+        takes four inner products an iteration at one point), and the
+        solves of the last few tangents kept (its gradient's in every
+        iteration, its candidate step's in two products)."""
         l = _chol(x)
+        solved = Recent()
 
         def inner(u, v):
-            iu = torch.cholesky_solve(u, l)
-            iv = torch.cholesky_solve(v, l)
-            return torch.sum(iu * iv.mT, dim=(-2, -1))
+            iu = solved.get(u, lambda: _cho_solve(l, u))
+            iv = iu if v is u else solved.get(v, lambda: _cho_solve(l, v))
+            return torch.sum(iu * iv.transpose(-2, -1), dim=(-2, -1))
 
         return inner
 
@@ -76,7 +99,7 @@ class SymmetricPositiveDefinite(Manifold):
 
     def retract(self, x, v):
         # the second-order retraction (pymanopt's)
-        return sym(x + v + 0.5 * v @ torch.cholesky_solve(v, _chol(x)))
+        return sym(x + v + 0.5 * v @ _cho_solve(_chol(x), v))
 
     def dist(self, x, y):
         # imported here: ops imports the manifolds (ops/kernels.py)
@@ -87,11 +110,11 @@ class SymmetricPositiveDefinite(Manifold):
             torch.log(torch.clamp(w, min=torch.finfo(w.dtype).tiny)), dim=-1)
 
     def egrad2rgrad(self, x, egrad):
-        return x @ sym(egrad) @ x
+        return bmm(bmm(x, sym(egrad)), x)
 
     def ehess2rhess(self, x, egrad, ehess, v):
         # pymanopt: P sym(ehess) P + sym(V sym(egrad) P)
-        return x @ sym(ehess) @ x + sym(v @ sym(egrad) @ x)
+        return bmm(bmm(x, sym(ehess)), x) + sym(bmm(bmm(v, sym(egrad)), x))
 
     def random_point(self, generator, lanes=1, *, dtype=None, device=None):
         """A random orthogonal conjugation of eigenvalues in [1, 2]."""

@@ -26,11 +26,33 @@ def _finite_lanes(a):
     return torch.where(bad[..., None, None], eye, a), bad
 
 
+# the most matrices one batched symmetric eigendecomposition takes: on
+# CUDA, cuSOLVER's batched syev refuses a batch of 32768 5 x 5 matrices
+# (CUSOLVER_STATUS_INVALID_VALUE), so larger batches run in slices
+EIGH_BATCH = 16384
+
+
+def _batched(fn, a):
+    """``fn`` of the stacked matrices ``a`` [..., n, n], in slices of at
+    most ``EIGH_BATCH`` matrices.  (Under ``vmap`` the mapped axis is not
+    sliced.)"""
+    lead = a.shape[:-2]
+    count = math.prod(lead)
+    if count <= EIGH_BATCH:
+        return fn(a)
+    parts = [fn(c) for c in a.reshape(count, *a.shape[-2:]).split(EIGH_BATCH)]
+
+    def join(ts):
+        return torch.cat(ts).reshape(lead + ts[0].shape[1:])
+
+    return tuple(map(join, zip(*parts))) if isinstance(parts[0], tuple) else join(parts)
+
+
 def eigh_nan(a):
     """Batched ``torch.linalg.eigh``, NaN on the lanes whose matrix is not
     finite: torch raises there, where the JAX function returns NaN."""
     safe, bad = _finite_lanes(a)
-    lam, q = torch.linalg.eigh(safe)
+    lam, q = _batched(torch.linalg.eigh, safe)
     return (torch.where(bad[..., None], math.nan, lam),
             torch.where(bad[..., None, None], math.nan, q))
 
@@ -38,7 +60,7 @@ def eigh_nan(a):
 def eigvalsh_nan(a):
     """Batched ``torch.linalg.eigvalsh``, NaN on non-finite lanes."""
     safe, bad = _finite_lanes(a)
-    return torch.where(bad[..., None], math.nan, torch.linalg.eigvalsh(safe))
+    return torch.where(bad[..., None], math.nan, _batched(torch.linalg.eigvalsh, safe))
 
 
 def operator_spectrum(manifold, x, op, *, descending_abs=True):

@@ -8,6 +8,10 @@ lane is done (``utils/lanes.py::lane_loop``: eagerly one host check of "any
 lane alive" per iteration, under tracing a ``while_loop`` operator).  At B = 1
 this is the JAX function exactly.
 
+Profiler spans (``utils/spans.py``): ``riptrm.tcg.iteration`` around each
+lockstep body (the loop's host check stays outside it), ``riptrm.tcg.hvp``
+around each Hessian-vector product.
+
 Stop codes:
   0 MAX_INNER_ITER, 1 NEGATIVE_CURVATURE, 2 EXCEEDED_TR, 3 MODEL_INCREASED,
   4 REACHED_TARGET_LINEAR, 5 REACHED_TARGET_SUPERLINEAR
@@ -18,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from riptrm_torch.utils.lanes import lane_loop
+from riptrm_torch.utils.spans import span
 
 STOP_MAX_ITER = 0
 STOP_NEG_CURV = 1
@@ -73,9 +78,14 @@ def truncated_cg(manifold, x, hess, grad, radius, *, theta=1.0, kappa=0.1,
     def running(*carry):
         return ~carry[-1].all()
 
-    def body(j, eta, heta, r, z_r, delta, e_pe, d_pd, e_pd, model, iters, code, done):
+    def body(*carry):
+        with span("riptrm.tcg.iteration"):
+            return step(*carry)
+
+    def step(j, eta, heta, r, z_r, delta, e_pe, d_pd, e_pd, model, iters, code, done):
         alive = ~done
-        hdelta = hess(delta)
+        with span("riptrm.tcg.hvp"):
+            hdelta = hess(delta)
         d_hd = inner(delta, hdelta)
         alpha = _safe_div(z_r, d_hd)
         e_pe_new = e_pe + 2.0 * alpha * e_pd + alpha**2 * d_pd

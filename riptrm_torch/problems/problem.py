@@ -39,6 +39,13 @@ and costs seconds per call, so the Hessian-vector product is instead the
 pullback of a frozen ``vjp`` of the Lagrangian gradient: the Hessian is
 symmetric, so that pullback is exactly H v, at a fraction of the cost of a
 per-application ``jvp(grad(...))``.
+
+A family may give its derivatives in closed form (``derivatives``):
+lane-batched functions that replace torch.func in ``lag_rhess_at``,
+``gx_at`` and ``gx_adj``, the operators the tCG applies at every
+iteration.  Through torch.func (a pullback replayed under ``vmap``) one
+application is about a thousand host operators; a closed form is a few
+dozen.
 """
 
 from __future__ import annotations
@@ -103,6 +110,11 @@ class Problem:
     # float32 matmul precision of the problem's operators ('high',
     # 'highest' or None), set and restored around each of them.
     matmul_precision: Optional[str] = None
+    # Closed-form lane-batched derivatives (None: torch.func), for a problem
+    # with inequality constraints only and no per-lane data: an object with
+    #   lag_at(x, y) -> (egrad of L, v -> ehess of L [v]) and
+    #   ineq_at(x) -> (dx -> d ineq(x) [dx], w -> egrad of w . ineq(x)).
+    derivatives: Optional[Any] = None
 
     @property
     def has_ineq(self) -> bool:
@@ -185,6 +197,10 @@ class Problem:
     def _z(self, x, z):
         return x.new_zeros((x.shape[0], 0)) if z is None else z
 
+    @property
+    def _closed_form(self) -> bool:
+        return self.derivatives is not None and not self.has_eq and self.data is None
+
     @scoped
     def lag_egrad(self, x, y, z=None):
         return self._map(grad(self._lag))(x, y, self._z(x, z))
@@ -207,6 +223,9 @@ class Problem:
 
         The frozen pullback of the lane-batched Lagrangian gradient is
         H v (the Hessian is symmetric, the lanes independent)."""
+        if self._closed_form:
+            eg, ehvp = self.derivatives.lag_at(x, y)
+            return lambda v: self.manifold.ehess2rhess(x, eg, ehvp(v), v)
         z = self._z(x, z)
         eg, pullback = vjp(lambda xx: self._map(grad(self._lag))(xx, y, z), x)
 
@@ -222,6 +241,8 @@ class Problem:
     @scoped
     def gx_adj(self, x, dx):
         """Gxaj(dx)_i = d/dt c_i(x + t dx): one jvp."""
+        if self._closed_form:
+            return -self.derivatives.ineq_at(x)[0](dx)
         _, dg = jvp(self._map(self.ineq_fn), (x,), (dx,))
         return -dg
 
@@ -229,6 +250,9 @@ class Problem:
     def gx_at(self, x):
         """Returns v -> Gx(v), the Riemannian gradient of x -> v . c(x),
         with the constraint pullback frozen."""
+        if self._closed_form:
+            ineq_vjp = self.derivatives.ineq_at(x)[1]
+            return lambda v: self.manifold.egrad2rgrad(x, ineq_vjp(-v))
         _, pullback = vjp(self._map(self.ineq_fn), x)
 
         def gx(v):
@@ -237,8 +261,12 @@ class Problem:
 
         return gx
 
+    @scoped
     def gx_adj_at(self, x):
         """Returns dx -> Gxaj(dx) at the point x."""
+        if self._closed_form:
+            ineq_jvp = self.derivatives.ineq_at(x)[0]
+            return lambda dx: -ineq_jvp(dx)
         return lambda dx: self.gx_adj(x, dx)
 
     def gx(self, x, v):

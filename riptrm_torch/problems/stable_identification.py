@@ -34,7 +34,7 @@ from torch.func import grad, vmap
 
 from riptrm_torch.config import as_tensor, check_matmul_precision, resolve
 from riptrm_torch.manifolds import Product, SkewSymmetric, SymmetricPositiveDefinite
-from riptrm_torch.ops.spectrum import eigvalsh_nan
+from riptrm_torch.manifolds.base import bmm
 from riptrm_torch.ops.collectives import enter, exit_sum, mesh_axis
 from riptrm_torch.problems.problem import Problem
 from riptrm_torch.utils.io import loadtxt
@@ -93,6 +93,78 @@ def parse_constset(constset, interior_scaling: float = 1.0):
 
 def _split_xxp(x_full):
     return x_full[:, :-1], x_full[:, 1:]
+
+
+class Derivatives:
+    """The Lagrangian's derivatives in closed form, over lanes: the
+    derivatives the upstream takes by autograd (and ``Problem`` by
+    torch.func), as a few dozen batched operators.
+
+    With A = (J - R) Q, the cost f = ||XP - (I + hA) X||^2 / N and the
+    constraints g_i(a_i), a_i = A[r_i, c_i], the Euclidean gradient of
+    L = f + y . g in A is G = -(2h/N) (XP - (I + hA) X) X' plus y_i g_i'
+    at each (r_i, c_i); in (J, R, Q) it is (G Q', -G Q', (J - R)' G).
+    Along v = (vJ, vR, vQ), dA = (vJ - vR) Q + (J - R) vQ, and
+    dG = (2h^2/N) dA X X' plus y_i g_i'' dA[r_i, c_i], so the Hessian
+    image is (dG Q' + G vQ', -(dG Q' + G vQ'), (vJ - vR)' G + (J - R)' dG).
+    g' is -1 (``KIND_LS``), +1 (``KIND_RS``) or -2 (a - p1) (``KIND_TWO``,
+    whose g'' is -2).  Constraint values reach their entries of A through
+    a one-hot [m, d*d] product (a repeated entry sums in a fixed order)."""
+
+    def __init__(self, X, XP, n_cols, h, kinds, rows, cols, p1, gram):
+        d = X.shape[0]
+        self.X, self.XP, self.n_cols, self.h, self.d = X, XP, n_cols, h, d
+        self.eye = torch.eye(d, dtype=X.dtype, device=X.device)
+        self.idx = rows * d + cols
+        self.onehot = torch.nn.functional.one_hot(self.idx, d * d).to(X.dtype)
+        self.lin = torch.where(kinds == KIND_LS, -1.0, torch.where(kinds == KIND_RS, 1.0, 0.0)
+                               ).to(X.dtype)
+        self.two = (kinds == KIND_TWO).to(X.dtype)
+        self.p1, self.gram = p1, gram
+
+    def _scatter(self, w):
+        """[B, m] constraint weights onto their entries, [B, d, d]."""
+        return (w @ self.onehot).unflatten(-1, (self.d, self.d))
+
+    def _entries(self, a):
+        return a.flatten(-2)[..., self.idx]
+
+    def _frozen(self, x):
+        jmr, q = x[:, 0] - x[:, 1], x[:, 2]
+        a = bmm(jmr, q)
+        slope = self.lin - 2.0 * self.two * (self._entries(a) - self.p1)
+        return jmr, q, a, slope
+
+    def _d_a(self, jmr, q, v):
+        return bmm(v[:, 0] - v[:, 1], q) + bmm(jmr, v[:, 2])
+
+    @staticmethod
+    def _in_jrq(jmr, q, g):
+        gq = bmm(g, q.transpose(-2, -1))
+        return torch.stack((gq, -gq, bmm(jmr.transpose(-2, -1), g)), dim=1)
+
+    def lag_at(self, x, y):
+        jmr, q, a, slope = self._frozen(x)
+        resid = self.XP - (self.eye + self.h * a) @ self.X
+        g = (-2.0 * self.h / self.n_cols) * (resid @ self.X.mT) + self._scatter(y * slope)
+        eg = self._in_jrq(jmr, q, g)
+        curv = (-2.0 * self.two) * y
+        scale = 2.0 * self.h**2 / self.n_cols
+
+        def ehvp(v):
+            da = self._d_a(jmr, q, v)
+            dg = scale * (da @ self.gram) + self._scatter(curv * self._entries(da))
+            dgq = bmm(dg, q.transpose(-2, -1)) + bmm(g, v[:, 2].transpose(-2, -1))
+            dq = (bmm((v[:, 0] - v[:, 1]).transpose(-2, -1), g)
+                  + bmm(jmr.transpose(-2, -1), dg))
+            return torch.stack((dgq, -dgq, dq), dim=1)
+
+        return eg, ehvp
+
+    def ineq_at(self, x):
+        jmr, q, _, slope = self._frozen(x)
+        return (lambda dx: slope * self._entries(self._d_a(jmr, q, dx)),
+                lambda w: self._in_jrq(jmr, q, self._scatter(w * slope)))
 
 
 def make_problem(
@@ -154,6 +226,11 @@ def make_problem(
     p2_t = torch.tensor(p2s, dtype=dtype, device=device)
     m = len(kinds)
     eye = torch.eye(d, dtype=dtype, device=device)
+    derivatives = None
+    if group is None and not cost_zero:
+        # X X' from the float64 data, rounded once
+        gram = torch.tensor(np.hstack(xs) @ np.hstack(xs).T, dtype=dtype, device=device)
+        derivatives = Derivatives(X, XP, n_cols, h, kinds_t, rows_t, cols_t, p1_t, gram)
 
     def cost_fn(x):
         J, R, Q = x[0], x[1], x[2]
@@ -177,13 +254,19 @@ def make_problem(
         return torch.where(kinds_t == KIND_LS, ls_val,
                            torch.where(kinds_t == KIND_RS, rs_val, two_val))
 
+    def positive_definite(p):
+        # the symmetric part's Cholesky succeeds and every entry is finite:
+        # the reference's test of the eigenvalues, without an eigensolver
+        # under ``vmap`` (cuSOLVER's batched syev refuses 32768 lanes or more)
+        info = torch.linalg.cholesky_ex(0.5 * (p + p.T)).info
+        return (info == 0) & torch.isfinite(p).all()
+
     def manvio_fn(x):
         # simulator.py:11-33
         J, R, Q = x[0], x[1], x[2]
         v = (torch.linalg.matrix_norm(J + J.T) + torch.linalg.matrix_norm(R - R.T)
              + torch.linalg.matrix_norm(Q - Q.T))
-        pd_ok = ((torch.amin(eigvalsh_nan(0.5 * (R + R.T))) > 0)
-                 & (torch.amin(eigvalsh_nan(0.5 * (Q + Q.T))) > 0))
+        pd_ok = positive_definite(R) & positive_definite(Q)
         return torch.where(pd_ok, v, torch.full_like(v, math.inf))
 
     x0 = man.pack(tuple(as_tensor(a, dtype, device) for a in x0))
@@ -200,6 +283,7 @@ def make_problem(
         num_eq=0,
         manvio_fn=manvio_fn,
         matmul_precision=matmul_precision,
+        derivatives=derivatives,
     )
 
 

@@ -390,7 +390,8 @@ def make_step(problem, option, callbacks=True):
         per_lane = zs is not None and zs.ndim == 3
         fused = fused_tcg_route(kind, man, x.shape[0], x.device, per_lane)
         if fused is None:
-            return truncated_cg(man, x, hw, cx, tr_radius, **tcg_kw)
+            with span("riptrm.tcg"):
+                return truncated_cg(man, x, hw, cx, tr_radius, **tcg_kw)
         if per_lane:
             # one one-lane launch per lane, each against its own Zs
             outs = [launch(fused, zs[i], x[i:i + 1], y[i:i + 1], c[i:i + 1], cx[i:i + 1],
@@ -484,7 +485,8 @@ def make_step(problem, option, callbacks=True):
         with span("riptrm.riptrm.trial"):
             # ---- trial point -----------------------------------------------
             dy = -y + mu[:, None] / c - y * problem.gx_adj(x, dx) / c
-            x_new = man.retract(x, dx)
+            with span("riptrm.riptrm.retract"):
+                x_new = man.retract(x, dx)
             y_new = y + dy
             c_new = problem.slack(x_new)
 

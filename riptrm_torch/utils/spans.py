@@ -27,7 +27,13 @@ Each sweep call's spans nest under its ``riptrm.sweep``:
   ``riptrm.ripm.line_search`` with one ``riptrm.ripm.ls_trial`` a trial;
 * RIPTRM: ``riptrm.riptrm.barrier``, ``riptrm.riptrm.direction`` (tCG) or, in
   exact mode, ``riptrm.riptrm.materialize`` and ``riptrm.riptrm.trs``, then
-  ``riptrm.riptrm.trial`` and ``riptrm.riptrm.evaluation``;
+  ``riptrm.riptrm.trial`` (with ``riptrm.riptrm.retract`` around the trial
+  point's retraction) and ``riptrm.riptrm.evaluation``;
+* the generic tCG (``ops/tcg.py::truncated_cg``): ``riptrm.tcg`` around
+  RIPTRM's call of it, where no fused kernel takes the step, one
+  ``riptrm.tcg.iteration`` a lockstep body of its loop (the host check of
+  "any lane alive" stays outside it), and ``riptrm.tcg.hvp`` around each
+  Hessian-vector product;
 * RSQO: ``riptrm.rsqo.regularize``, ``riptrm.rsqo.qp``,
   ``riptrm.rsqo.line_search``; RALM: ``riptrm.ralm.line_search``;
 * ``riptrm.callback``: a problem's callback metrics.

@@ -338,3 +338,45 @@ def test_product_flat_layout():
     close([a for a in tp.unpack(t)], jt, "flat proj")
     close([tp.inner(tx, t, t)], [jax.vmap(jp.inner)((jnp.asarray(s), jnp.asarray(f)), jt, jt)],
           "flat inner")
+
+
+@pytest.mark.parametrize("op", ["inner_at", "inner_at_same", "proj_tangent", "egrad2rgrad",
+                                "ehess2rhess"])
+def test_product_runs_equal_per_component(op):
+    """Product(Skew(3), SPD(3), SPD(3)) runs its two SPD blocks as one call
+    in the operators a tCG iteration applies: bitwise the per-component
+    values, summed in the same order."""
+    man = tm.Product([tm.SkewSymmetric(3), tm.SymmetricPositiveDefinite(3),
+                      tm.SymmetricPositiveDefinite(3)])
+    assert man._runs == [(man.manifolds[0], 0, 1), (man.manifolds[1], 1, 3)]
+    g = torch.Generator().manual_seed(11)
+    x = man.random_point(g, 4, dtype=torch.float64, device="cpu")
+    u, v, e = (torch.randn(x.shape, generator=g, dtype=torch.float64) for _ in range(3))
+    u, v = man.proj(x, u), man.proj(x, v)
+    if op.startswith("inner_at"):
+        w = u if op == "inner_at_same" else v
+        got = man.inner_at(x)(u, w)
+        want = sum(m.inner_at(xi)(ui, wi) for m, xi, ui, wi in man._zip(x, u, w))
+    elif op == "ehess2rhess":
+        got = man.ehess2rhess(x, e, u, v)
+        want = man.pack(m.ehess2rhess(*a) for m, *a in man._zip(x, e, u, v))
+    else:
+        got = getattr(man, op)(x, e)
+        want = man.pack(getattr(m, op)(xi, ei) for m, xi, ei in man._zip(x, e))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["3d", "4d_slice", "transposed", "broadcast", "2d"])
+def test_bmm_is_matmul(case):
+    """``manifolds.base.bmm`` gives ``matmul``'s values bitwise: the same
+    ``bmm`` on the same operands where both share a batch shape, and
+    ``matmul`` itself elsewhere."""
+    from riptrm_torch.manifolds.base import bmm
+
+    g = torch.Generator().manual_seed(3)
+    a = torch.randn(6, 3, 5, 5, generator=g, dtype=torch.float64)
+    b = torch.randn(6, 3, 5, 5, generator=g, dtype=torch.float64)
+    a, b = {"3d": (a[:, 0], b[:, 0]), "4d_slice": (a[:, 1:], b[:, 1:]),
+            "transposed": (a[:, 1:].mT, b[:, :2]), "broadcast": (a[:, 0], b[0, 0]),
+            "2d": (a[0, 0], b[0, 0])}[case]
+    assert torch.equal(bmm(a, b), a @ b)

@@ -2,12 +2,16 @@
 benchmark's readers of them (``perfbench/metrics/``), on the CPU under
 torch.profiler, read through ``perfbench.trace.Trace``: the spans' nesting
 under ``riptrm.sweep`` and ``riptrm.step``, one ``riptrm.step`` a lockstep
-step, one line-search trial a host check of the line search, nothing
-opened with the profiler off or in an exported program, and each metric
-reader on a run built from a CPU trace."""
+step, one line-search trial a host check of the line search, one
+``riptrm.tcg.iteration`` a lockstep iteration of the generic tCG on
+StableIdentification, nothing opened with the profiler off or in an
+exported program, and each metric reader on a run built from a CPU
+trace."""
 
 import collections
+import functools
 import pathlib
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -17,7 +21,8 @@ from torch.profiler import ProfilerActivity, profile
 from perfbench import harness
 from perfbench.trace import Trace
 from riptrm_torch.parallel.sweep import batched_riptrm_solve, batched_solver_sweep
-from riptrm_torch.problems import nonneg_pca
+from riptrm_torch.problems import nonneg_pca, stable_identification
+from riptrm_torch.solvers import riptrm
 from riptrm_torch.utils import spans
 
 torch.set_num_threads(1)
@@ -176,9 +181,50 @@ def test_exported_sweep_holds_no_profiler_node(tmp_path):
     assert torch.all(torch.isfinite(run(xs, ys)[3]))
 
 
+SID_STARTS, SID_STEPS = "abcd", 8
+TCG_READERS = ("tcg.pct_of_window", "tcg.iters_per_step", "tcg.hvp_pct_of_window",
+               "tcg.syncs_per_step", "riptrm.retract_pct_of_window")
+
+
+def _sid_instance():
+    """StableIdentification's shipped instance 1 (Product(Skew(5), SPD(5),
+    SPD(5)), 16 constraints) with its starts a-d as lanes, float64."""
+    path = str(pathlib.Path(__file__).resolve().parents[1] / "dataset/StableIdentification/1")
+    problems = [stable_identification.load_problem(path, s, dtype=torch.float64, device="cpu")
+                for s in SID_STARTS]
+    xs = torch.stack([p.x0 for p in problems])
+    return problems[0], xs, torch.ones(len(SID_STARTS), problems[0].num_ineq,
+                                       dtype=torch.float64)
+
+
+@functools.lru_cache(maxsize=None)
+def _sid_sweep():
+    """A traced RIPTRM tCG sweep of StableIdentification through the
+    generic tCG: ((x, y, steps, residuals), its Trace, and each step's
+    lockstep tCG iterations, the most any lane's info reports)."""
+    problem, xs, ys = _sid_instance()
+    iters = []
+    make_step = riptrm.make_step
+
+    def recording(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def run(state):
+            new_state, info = step(state)
+            iters.append(int(info["tcg_iters"].max()))
+            return new_state, info
+
+        return run
+
+    with mock.patch.object(riptrm, "make_step", recording):
+        run = batched_riptrm_solve(problem, {"maxiter": 30, "tolresid": 1e-8} | TCG, SID_STEPS)
+    (state, k, res), trace = _traced(run, xs, ys)
+    return (state.x, state.y, k, res), trace, iters
+
+
 def _run_from(case):
     """A ``harness.Run`` of one call built from a CPU trace of a sweep."""
-    (x, y, k, res), trace = _sweep(case)
+    (x, y, k, res), trace = _sid_sweep()[:2] if case == "SID" else _sweep(case)
     call = harness.Call(0, 0.0, 1.0, x, y, k.numpy(), res)
     return harness.Run(None, 0, torch.device("cpu"), [call], 1.0, 0.0, trace)
 
@@ -193,12 +239,18 @@ def _read(name, run):
     ("ripm.ls_trials_per_step", False),
     ("host.syncs_per_step", False),
     ("ripm.newton_solve_pct_of_window", True),
+    ("tcg.pct_of_window", True),
+    ("tcg.iters_per_step", False),
+    ("tcg.hvp_pct_of_window", True),
+    ("tcg.syncs_per_step", False),
+    ("riptrm.retract_pct_of_window", True),
 ])
 def test_metric_readers_on_a_cpu_trace(name, device_only):
-    """On a CPU trace of a RIPM sweep, each reader gives a finite number, or
-    None where it reads device time (a CPU trace has no device events); on
-    an untraced run, None."""
-    run = _run_from("RIPM")
+    """On a CPU trace of a RIPM sweep (of a StableIdentification RIPTRM
+    sweep for the generic tCG's and the retraction's readers), each reader
+    gives a finite number, or None where it reads device time (a CPU trace
+    has no device events); on an untraced run, None."""
+    run = _run_from("SID" if name in TCG_READERS else "RIPM")
     value = _read(name, run)
     if device_only:
         assert value is None
@@ -257,3 +309,94 @@ def test_dense_solve_kernel_share(dtype, share):
                       [harness.Call(0, 0.0, 1.0, x, y, k.numpy(), res)], 1.0, 0.0, trace)
     assert len(_named(trace, "riptrm.ripm.newton_solve")) == int(k.max())
     assert _read("ripm.dense_solve_kernel_share", run) == share
+
+
+def test_tcg_iteration_spans_equal_lockstep_iterations():
+    """On StableIdentification (no fused kernel takes its tCG), each step
+    holds one ``riptrm.tcg`` in its direction, with one
+    ``riptrm.tcg.iteration`` a lockstep iteration: as many as the most
+    iterations any lane's info reports, summed over the steps; one
+    ``riptrm.tcg.hvp`` in each iteration; one ``riptrm.riptrm.retract`` in
+    each trial."""
+    (_, _, k, _), trace, iters = _sid_sweep()
+    steps = int(k.max())
+    assert steps == len(iters) == SID_STEPS and all(i > 0 for i in iters)
+    tcgs = _named(trace, "riptrm.tcg")
+    assert len(tcgs) == steps
+    assert {_parent(trace, i) for i in tcgs} == {"riptrm.riptrm.direction"}
+    its = _named(trace, "riptrm.tcg.iteration")
+    assert len(its) == sum(iters)
+    assert {_parent(trace, i) for i in its} == {"riptrm.tcg"}
+    hvps = _named(trace, "riptrm.tcg.hvp")
+    assert len(hvps) == len(its)
+    assert {_parent(trace, i) for i in hvps} == {"riptrm.tcg.iteration"}
+    assert all(_inside(trace, i, "riptrm.tcg") for i in hvps)
+    retracts = _named(trace, "riptrm.riptrm.retract")
+    assert len(retracts) == steps
+    assert {_parent(trace, i) for i in retracts} == {"riptrm.riptrm.trial"}
+
+
+def test_tcg_syncs_are_the_loop_checks():
+    """``tcg.syncs_per_step`` reads the generic tCG's host checks: one a
+    lockstep iteration and one that finds every lane done (none after the
+    loop's cap, none inside an iteration: the SPD metric's solves read no
+    device value), over the lockstep steps; ``tcg.iters_per_step`` the
+    iterations over the steps."""
+    (_, _, k, _), trace, iters = _sid_sweep()
+    run = _run_from("SID")
+    reads = [i for i in _named(trace, "aten::_local_scalar_dense")
+             if _inside(trace, i, "riptrm.tcg")]
+    maxinner = _sid_instance()[0].manifold.dim
+    assert len(reads) == sum(min(i + 1, maxinner) for i in iters)
+    assert not any(_inside(trace, i, "riptrm.tcg.iteration") for i in reads)
+    steps = int(k.max())
+    assert _read("tcg.syncs_per_step", run) == pytest.approx(len(reads) / steps)
+    assert _read("tcg.iters_per_step", run) == pytest.approx(sum(iters) / steps)
+
+
+@pytest.mark.parametrize("where", ["profiler_off", "exported"])
+def test_tcg_spans_stand_aside(where, monkeypatch, tmp_path):
+    """The generic tCG's and the retraction's spans open nothing with the
+    profiler off (the range function, patched to raise, is never called by
+    a StableIdentification sweep), and an exported RIPTRM tCG sweep
+    (NonnegPCA's, through the same generic tCG: a quicker export) holds no
+    profiler node."""
+    option = {"maxiter": 30, "tolresid": 1e-8} | TCG
+    if where == "profiler_off":
+        def refuse(name):
+            raise AssertionError(f"a range was opened: {name}")
+
+        problem, xs, ys = _sid_instance()
+        monkeypatch.setattr(spans, "_range", refuse)
+        _, k, res = batched_riptrm_solve(problem, option, 3)(xs, ys)
+        assert int(k.max()) == 3 and torch.all(torch.isfinite(res))
+        return
+    from riptrm_torch.experiment.export_artifact import export_sweep, load_sweep
+
+    problem, xs, ys = _instance()
+    path = str(tmp_path / "riptrm.pt2")
+    with profile(activities=[ProfilerActivity.CPU]):
+        export_sweep(problem, "RIPTRM", option, path, batch=B, max_steps=3, device="cpu")
+    targets = collections.Counter()
+    for module in torch.export.load(path).graph_module.modules():
+        if isinstance(module, torch.fx.GraphModule):
+            targets.update(str(n.target) for n in module.graph.nodes if n.op == "call_function")
+    assert targets["while_loop"] >= 2  # the sweep's loop and the tCG's
+    assert not [t for t in targets if "profiler" in t or "record_function" in t]
+    run, _ = load_sweep(path)
+    assert torch.all(torch.isfinite(run(xs, ys)[3]))
+
+
+def test_tcg_readers_without_spans_read_nothing(monkeypatch):
+    """A StableIdentification trace with no span of the program (the
+    parent commit's) gives None from every generic-tCG reader."""
+    problem, xs, ys = _sid_instance()
+    run_fn = batched_riptrm_solve(problem, {"maxiter": 30, "tolresid": 1e-8} | TCG, 2)
+    monkeypatch.setattr(spans, "_range", lambda name: spans._OFF)
+    (state, k, res), trace = _traced(run_fn, xs, ys)
+    assert not [op for op in trace.ops.values() if op.name.startswith("riptrm.")]
+    run = harness.Run(None, 0, torch.device("cpu"),
+                      [harness.Call(0, 0.0, 1.0, state.x, state.y, k.numpy(), res)], 1.0, 0.0,
+                      trace)
+    for name in TCG_READERS:
+        assert _read(name, run) is None, name

@@ -157,3 +157,22 @@ def test_certify_ratio_cap_flags_infeasible_lanes(sweep_setup):
                                                ratio_cap=1e8))
     assert torch.isnan(got[0]) and torch.all(torch.isfinite(got[1:]))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, equal_nan=True)
+
+
+@pytest.mark.parametrize("fn", ["eigh_nan", "eigvalsh_nan"])
+def test_eigh_in_slices_equals_one_batch(fn, monkeypatch):
+    """Above ``EIGH_BATCH`` matrices the eigendecomposition runs in slices
+    (cuSOLVER's batched syev refuses 131072 at once): the slices give the
+    one batch's result bit for bit, NaN lanes included, over any leading
+    shape."""
+    rng = np.random.default_rng(7)
+    a = rng.standard_normal((3, 7, 5, 5))
+    a = torch.tensor(a + a.swapaxes(-1, -2))
+    a[1, 2, 0, 0] = float("nan")
+    whole = getattr(tspec, fn)(a)
+    monkeypatch.setattr(tspec, "EIGH_BATCH", 4)
+    sliced = getattr(tspec, fn)(a)
+    for w, s in zip(*((t,) if fn == "eigvalsh_nan" else t for t in (whole, sliced))):
+        assert s.shape == w.shape and torch.equal(torch.isnan(s), torch.isnan(w))
+        assert torch.equal(torch.nan_to_num(s), torch.nan_to_num(w))
+    assert torch.isnan(sliced[0] if fn == "eigh_nan" else sliced)[1, 2].all()
