@@ -302,6 +302,25 @@ RIPM_CELL_SEED = 4
 # RIPM_RESID_GAP of the library route's (relative to max(its, tolresid):
 # the benchmark cell's resid_gap limit) and an answer within RIPM_X_GAP
 RIPM_STEP_SHARE, RIPM_RESID_GAP, RIPM_X_GAP = 1e-3, 1e-2, 1e-4
+# 4e-4f: StableIdentification's barrier operator (K8) on the benchmark
+# cell's instance and pool (perfbench's generator, the pool's first sweep
+# in the order of SID_CELL_SEED)
+HVP_KERNEL = "stableid_barrier_hvp"
+HVP_SRC = "riptrm_torch/csrc/stableid_hvp.cu"
+HVP_REPLACES = ("no Pallas kernel: the JAX package's autograd Hessian of the family "
+                "(riptrm_tpu/problems/stable_identification.py)")
+SID_CELL = "stableid-d5.riptrm-generic-sweep-b131072"
+SID_CELL_SEED = 3210021001
+# 4e: each lane's distance from the float64 image of the same float32
+# inputs, over its largest |entry|: the median and the 99th percentile over
+# the lanes at most HVP_SPREAD times the plain version's, the worst lane at
+# most HVP_WORST times its worst (the same FP32 products, their sums of d
+# terms in another order; tests/test_torch_cuda.py holds the same)
+HVP_SPREAD, HVP_WORST = 2.0, 8.0
+# 4f: the lockstep steps of the short sweep, and how far its median
+# residual may lie from the composition's sweep's (float32 walks part at
+# the accept and reject tests, so lanes are compared as a population)
+HVP_SWEEP_STEPS, HVP_SWEEP_MEDIAN = 5, 1e-2
 SPHERE_KERNELS = tuple(KERNELS)[:3]
 STIEFEL_KERNEL = "fused_tcg_stiefel_bound_batched"
 K1_CHAIN, BARE_CHAIN, HBM_CHAIN = ("chained_barrier_matvec", "bare_matvec_chain",
@@ -2964,6 +2983,177 @@ def phase_ripm_dense(device, report):
     torch.cuda.empty_cache()
 
 
+def _sid_cell(device):
+    """The StableIdentification cell's problem, its pool's first sweep (in
+    SID_CELL_SEED's order) and the cell itself."""
+    from perfbench import harness
+
+    cell = harness.find_cell(SID_CELL)
+    arrays, pool = harness.make_inputs(cell, SID_CELL_SEED)
+    cfg = cell.config
+    xs = torch.as_tensor(pool[0], dtype=getattr(torch, cfg["dtype"])).to(device)
+    problem = cell.program.make_problem(arrays, xs[0], cfg, device, cfg["matmul_precision"])
+    return cell, problem, xs
+
+
+def hvp_work(b, d, m):
+    """(FP32 operations, bytes) of one K8 call on b lanes: 18 d^3 + d^2 FMA
+    a lane (csrc/stableid_hvp.cu's products); the point, the tangent, G, y,
+    c read and the image written once."""
+    return 2.0 * b * (18 * d**3 + d * d), 4.0 * b * (9 * d * d + d * d + 2 * m)
+
+
+def phase_stableid_hvp(device):
+    """Phase 4e: K8 against its plain version and the float64 image on the
+    benchmark cell's instance and pool (B = 131072, d = 5, m = 16), lanes
+    bit for bit the same alone, permuted, in a batch that is no multiple of
+    a block's lanes, NaN lanes; CUDA-event times of the kernel, the plain
+    version and the composition it replaced.  Returns its report entry."""
+    from riptrm_torch.experiment.roofline import roofline_bound
+    from riptrm_torch.ops import kernels as k
+    from riptrm_torch.problems.stable_identification import barrier_hvp_plain
+
+    _, problem, xs = _sid_cell(device)
+    gen = torch.Generator(device).manual_seed(SID_CELL_SEED)
+    b, m = xs.shape[0], problem.num_ineq
+    d = xs.shape[-1]
+    ys = 0.5 + torch.rand(b, m, generator=gen, device=device)
+    c = problem.slack(xs)
+    dx = problem.manifold.random_tangent(xs, gen)
+    der = problem.derivatives
+    g = der.egrad(xs, ys)[3]
+    consts = (der.gram, der.idx, der.lin, der.two, der.p1)
+    k.reset_launch_counts()
+    hw = problem.barrier_hvp_at(xs, ys, c)
+    out = hw(dx)
+    sync(device)
+    check(k.launch_counts()[HVP_KERNEL] == 1, "4e: not one launch of K8")
+    plain = barrier_hvp_plain(xs, g, ys, c, dx, *consts, der.scale)
+    wide = [t.double() for t in (xs, g, ys, c, dx) + consts[:1]]
+    truth = barrier_hvp_plain(*wide, der.idx, *(t.double() for t in consts[2:]), der.scale)
+    lane_max = lambda v: v.abs().flatten(1).amax(dim=1)  # noqa: E731
+    mag = lane_max(truth)
+    err_k, err_p = lane_max(out.double() - truth) / mag, lane_max(plain.double() - truth) / mag
+    gap = lane_max(out - plain) / lane_max(plain)
+    q = lambda v: [float(t) for t in torch.quantile(v.float(), torch.tensor(  # noqa: E731
+        [0.5, 0.99, 1.0], device=device))]
+    ratio = [a / b for a, b in zip(q(err_k), q(err_p))]
+    say(f"phase 4e {HVP_KERNEL} d={d} m={m} B={b}: lane error against float64 over the lane's "
+        f"largest |entry| (median, 99 %, max): kernel {q(err_k)}, plain {q(err_p)}, ratios "
+        f"{ratio} (limits {HVP_SPREAD:g}, {HVP_SPREAD:g}, {HVP_WORST:g}); kernel against plain "
+        f"{q(gap)}")
+    check(bool(torch.isfinite(out).all()), "4e: a lane's image is not finite")
+    check(max(ratio[:2]) <= HVP_SPREAD and ratio[2] <= HVP_WORST,
+          f"4e: the lanes' errors {ratio} times the plain version's")
+    def k8(sel, x=xs):  # K8 on the lanes ``sel``
+        return k.stableid_barrier_hvp(x[sel], g[sel], ys[sel], c[sel], dx[sel], gram=der.gram,
+                                      idx=der.idx, lin=der.lin, two=der.two, p1=der.p1,
+                                      scale=der.scale)
+
+    perm = torch.randperm(b, generator=gen, device=device)
+    check(same_bits(k8(perm), out[perm]), "4e: a permuted batch reads other images")
+    short = slice(0, b - 5)  # no multiple of a block's lanes
+    check(same_bits(k8(short), out[short]), "4e: a batch of B - 5 lanes reads other images")
+    for i in (0, b // 2, b - 1):
+        check(same_bits(k8(slice(i, i + 1))[0], out[i]), f"4e: lane {i} alone reads another "
+              "image")
+    bad = xs.clone()
+    bad[7, 1, 2, 3] = float("nan")
+    nan_out = k8(slice(None), bad)
+    rest = torch.arange(b, device=device) != 7
+    check(bool(torch.isnan(nan_out[7]).all()) and same_bits(nan_out[rest], out[rest]),
+          "4e: a NaN lane is not NaN whole, or its neighbours moved")
+    del perm, bad, nan_out, rest, wide, truth
+    lag, gx, gx_adj = problem.lag_rhess_at(xs, ys), problem.gx_at(xs), problem.gx_adj_at(xs)
+
+    def composed():  # the route every product took before the kernel
+        return lag(dx) + gx((ys * gx_adj(dx)) / c)
+
+    check(float((lane_max(composed() - plain) / lane_max(plain)).max()) == 0.0,
+          "4e: the plain version is not the composition's values")
+    k1, c1, c2, k2 = (event_ms(f, device) for f in (
+        lambda: hw(dx), composed, composed, lambda: hw(dx)))
+    ms, lib_ms = (k1 + k2) / 2, (c1 + c2) / 2
+    plain_ms = event_ms(lambda: barrier_hvp_plain(xs, g, ys, c, dx, *consts, der.scale),
+                        device)
+    own = kernel_ms(lambda: hw(dx), device, calls=50)
+    lib_own = kernel_ms(composed, device, calls=20)
+    ops, nbytes = hvp_work(b, d, m)
+    bound_us, bound_by = roofline_bound(ops, nbytes)
+    say(f"phase 4e {HVP_KERNEL} B={b}: kernel {ms:.4f} ms (runs {k1:.4f}/{k2:.4f}; its own "
+        f"device time {'not measured' if own is None else '%.4f ms' % own}), composition "
+        f"{lib_ms:.4f} ms (runs {c1:.4f}/{c2:.4f}; its kernels "
+        f"{'not measured' if lib_own is None else '%.4f ms' % lib_own}), plain {plain_ms:.4f} "
+        f"ms, bound {bound_us:.3f} us ({bound_by}: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} "
+        f"MB), {100 * bound_us / 1e3 / ms:.2f} % of it")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, kernel_own_ms=own,
+                library_kernels_ms=lib_own, bound_ms=bound_us / 1e3, bound_us=bound_us,
+                bound_by=bound_by, shape=f"d={d}, m={m}, B={b}", error=float(err_k.max()),
+                error_plain=float(err_p.max()), error_ratios=ratio)
+
+
+def phase_stableid_sweep(device, report):
+    """Phase 4f: the benchmark cell's RIPTRM sweep (its entry, options and
+    pool) for HVP_SWEEP_STEPS lockstep steps: K8 launched once for each
+    product the tCG asks for (the launch count goes into the report), then
+    the same steps with the composition in its place: the median residuals
+    against each other, and the answers' gaps reported."""
+    from riptrm_torch.ops import kernels as k
+    from riptrm_torch.problems import stable_identification as si
+    from riptrm_torch.solvers import riptrm
+
+    cell, problem, xs = _sid_cell(device)
+    ys = torch.ones(xs.shape[0], problem.num_ineq, dtype=xs.dtype, device=device)
+    barrier_ops, barrier_hvp_at = riptrm._barrier_ops, si.Derivatives.barrier_hvp_at
+    products = [0]
+
+    def counted(*args):
+        c, hw, cx = barrier_ops(*args)
+
+        def hw_counted(dx):
+            products[0] += 1
+            return hw(dx)
+
+        return c, hw_counted, cx
+
+    runs = {}
+    for route in ("kernel", "composition"):
+        riptrm._barrier_ops = counted
+        if route == "composition":
+            si.Derivatives.barrier_hvp_at = lambda self, x, y, c: None
+        try:
+            products[0] = 0
+            k.reset_launch_counts()
+            run = cell.entry.build(problem, cell.config, cell.traffic, HVP_SWEEP_STEPS)
+            t0 = time.perf_counter()
+            x, _, steps, res = run(xs, ys)
+            sync(device)
+            runs[route] = (x, steps, res, time.perf_counter() - t0, products[0],
+                           k.launch_counts())
+        finally:
+            riptrm._barrier_ops, si.Derivatives.barrier_hvp_at = barrier_ops, barrier_hvp_at
+    (x, steps, res, secs, calls, counts), (x_c, steps_c, res_c, secs_c, calls_c, counts_c) = (
+        runs["kernel"], runs["composition"])
+    x_gap = ((x - x_c).flatten(2).norm(dim=-1) / x_c.flatten(2).norm(dim=-1)).amax(dim=1)
+    gaps = [float(t) for t in torch.quantile(x_gap, torch.tensor([0.5, 0.99, 1.0],
+                                                                  device=device))]
+    med, med_c = float(res.median()), float(res_c.median())
+    say(f"phase 4f the cell's sweep, {HVP_SWEEP_STEPS} steps at B={xs.shape[0]}: {calls} "
+        f"products, K8 launches {counts[HVP_KERNEL]} (composition route: {calls_c} products, "
+        f"no launch); lanes at the same step {float((steps == steps_c).float().mean()):.4f}; "
+        f"answer gap (a block's norm; median, 99 %, max) {gaps}; residual median {med:.4e} "
+        f"(composition {med_c:.4e}); {secs:.2f} s (composition {secs_c:.2f} s)")
+    check(counts[HVP_KERNEL] == calls > 0, f"4f: {counts[HVP_KERNEL]} launches for {calls} "
+          "products")
+    check(not any(counts_c.values()), "4f: a kernel launched on the composition's route")
+    check(bool(torch.isfinite(res).all()) and abs(med - med_c) <= HVP_SWEEP_MEDIAN * med_c,
+          f"4f: median residual {med:.4e} against the composition's {med_c:.4e}")
+    report[HVP_KERNEL]["launches"] = counts[HVP_KERNEL]
+    report[HVP_KERNEL]["sweep_products"] = calls
+    del runs, x, x_c, xs, ys
+    torch.cuda.empty_cache()
+
+
 def phase_roofline(report):
     """Phase 9: the roofline entry point at its default shapes."""
     from riptrm_torch.experiment import roofline
@@ -3207,6 +3397,13 @@ def main(argv):
     phase_ripm_dense(device, report)
     say(f"RIPM dense path (phase 4d): {time.perf_counter() - t_path:.1f} s")
 
+    report[HVP_KERNEL] = phase_stableid_hvp(device)
+    k.reset_launch_counts()  # the StableIdentification cell's path starts here
+    t_path = time.perf_counter()
+    phase_stableid_sweep(device, report)
+    say(f"StableIdentification barrier operator (phases 4e-4f): "
+        f"{time.perf_counter() - t_path:.1f} s")
+
     k.reset_launch_counts()  # the NonnegPCA path starts here
     t_path = time.perf_counter()
     smoke.phase_golden()
@@ -3289,7 +3486,9 @@ def main(argv):
         {"name": name, "route": "cuda", "source": src, "replaces": replaces, **report[name]}
         for name, (src, replaces) in KERNELS.items()
     ] + [{"name": DENSE_KERNEL, "route": "cuda", "source": DENSE_SRC, "replaces": DENSE_REPLACES,
-          **report[DENSE_KERNEL]}]
+          **report[DENSE_KERNEL]},
+         {"name": HVP_KERNEL, "route": "cuda", "source": HVP_SRC, "replaces": HVP_REPLACES,
+          **report[HVP_KERNEL]}]
     say(smi)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

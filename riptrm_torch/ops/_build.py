@@ -59,6 +59,9 @@ _SIGNATURES = {
     "chain_hbm_launch": [_P] * 9 + [_I] * 8 + [_P],
     # a, b, x, batch, n, rows, grid, transposed, device, stream
     "dense_solve_launch": [_P] * 3 + [_I] * 6 + [_P],
+    # x, g, y, c, dx, gram, idx, lin, two, p1, out, scale, batch, d, m, grid,
+    # device, stream
+    "stableid_hvp_launch": [_P] * 11 + [_F] + [_I] * 5 + [_P],
 }
 
 

@@ -33,6 +33,14 @@ by ``ops/_build.py``.
   for RIPM's Newton solve, where the JAX package calls
   ``jnp.linalg.solve`` (XLA's LU).  float32 at n <= ``DENSE_SOLVE_MAX_N``;
   every other system keeps ``torch.linalg.solve_ex`` (``dense_solve_plan``).
+* ``stableid_barrier_hvp`` (K8) replaces no Pallas kernel: the barrier-KKT
+  operator of the StableIdentification family, which RIPTRM's generic tCG
+  applies once an iteration, in one launch (``csrc/stableid_hvp.cu``),
+  where the JAX package takes the Hessian by autograd.  float32 at
+  d <= STABLEID_HVP_MAX_D with at most STABLEID_HVP_MAX_M constraints; every
+  other problem composes the operator (``stableid_hvp_plan``).  Its plain
+  version is that composition (``problems/stable_identification.py::
+  barrier_hvp_plain``); under ``vmap`` the mapped axis folds into the lanes.
 
 K2 and K3 share their CUDA kernels, K2 being their launch at B = 1; each
 keeps its own wrapper and counter.  ``tcg_plan`` picks the route before
@@ -44,13 +52,13 @@ thread-block cluster of row slices (``stiefel_plan``).
 
 Each launch is a ``torch.library`` operator of the ``riptrm`` namespace
 (``chain_resident``, ``sphere_tcg``, ``stiefel_tcg``, ``matvec_chain_left``,
-``matvec_chain_right``, ``chain_hbm``, ``dense_solve``; the table at the
-end), so a traced program (``experiment/export_artifact.py``) holds it as
-one node.  The
-wrappers work out the plans and call the operators, which dispatch on
-where the tensors lie: on the CPU the plain PyTorch version runs; on a
-CUDA device the kernel launches, or the call raises (a missing ``nvcc``, a
-failed build or a failed launch is an error, never a fallback).  Each
+``matvec_chain_right``, ``chain_hbm``, ``dense_solve``, ``stableid_hvp``;
+the table at the end), so a traced program (``experiment/export_artifact.py``)
+holds it as one node.  The wrappers work out the plans and call the
+operators, which dispatch on where the tensors lie: on the CPU the plain
+PyTorch version runs; on a CUDA device the kernel launches, or the call
+raises (a missing ``nvcc``, a failed build or a failed launch is an error,
+never a fallback).  Each
 wrapper's ``launches`` attribute counts its kernel launches, and nothing
 else; the operator's CUDA implementation counts them, so a reloaded
 program counts its own.
@@ -1130,6 +1138,97 @@ def _dense_solve_cuda(a, b, rows, grid):
 
 dense_solve_nan.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# StableIdentification's barrier-KKT operator (K8): one launch a product
+# ---------------------------------------------------------------------------
+# Warps a block (csrc/stableid_hvp.cu's kHvpWarps); a lane takes d threads
+# of a warp, 32 // d lanes a warp.
+STABLEID_HVP_WARPS = 4
+# The widest point the kernel takes: a thread holds a row of every d x d
+# block and Q whole in registers (8 + 8 x 8 floats at d = 8), and a warp
+# holds at least one lane.
+STABLEID_HVP_MAX_D = 8
+# The most constraints: their entries, kinds and p1 sit in a block's shared
+# memory, and each thread walks them all for those on its row.
+STABLEID_HVP_MAX_M = 64
+
+
+def stableid_hvp_plan(d: int, m: int):
+    """The kernel's plan for StableIdentification at width d with m
+    constraints: the lanes a block holds (32 // d a warp), or None where it
+    takes no such problem (d above STABLEID_HVP_MAX_D or m above
+    STABLEID_HVP_MAX_M)."""
+    if not (1 <= d <= STABLEID_HVP_MAX_D and 0 <= m <= STABLEID_HVP_MAX_M):
+        return None
+    return STABLEID_HVP_WARPS * (32 // d)
+
+
+def stableid_barrier_hvp(x, g, y, c, dx, *, gram, idx, lin, two, p1, scale):
+    """Hw(dx) = Hess L[dx] + Gx(y * Gxaj(dx) / c) of a StableIdentification
+    problem (``problems/stable_identification.py::Derivatives``) at the
+    points ``x`` [B, 3, d, d] with the Lagrangian's Euclidean gradient in A
+    ``g`` [B, d, d], multipliers ``y`` and slacks ``c`` [B, m], along
+    ``dx`` [B, 3, d, d]; the instance's X X' ``gram`` [d, d], constrained
+    entries ``idx`` [m] (row * d + column, int64), kinds ``lin``, ``two``
+    and parameters ``p1`` [m], and ``scale`` 2 h^2 / N.
+
+    float32 within ``stableid_hvp_plan``'s limits, through the operator
+    ``riptrm::stableid_hvp``: on a CUDA device the kernel
+    (csrc/stableid_hvp.cu), one launch; on the CPU its plain version, the
+    composition bit for bit (``barrier_hvp_plain``).  Anything else
+    raises: the caller composes the operator instead."""
+    d, m = x.shape[-1], idx.shape[0]
+    lanes = (dx.shape[0], 3, d, d)
+    if (x.shape != lanes or dx.shape != lanes or g.shape != (lanes[0], d, d)
+            or y.shape != (lanes[0], m) or c.shape != y.shape or gram.shape != (d, d)
+            or {t.shape for t in (idx, lin, two, p1)} != {(m,)} or idx.dtype != torch.int64
+            or {t.dtype for t in (x, g, y, c, dx, gram, lin, two, p1)} != {torch.float32}
+            or stableid_hvp_plan(d, m) is None):
+        raise ValueError(f"stableid_barrier_hvp: x {tuple(x.shape)} {x.dtype}, dx "
+                         f"{tuple(dx.shape)}, g {tuple(g.shape)}, y {tuple(y.shape)} and c "
+                         f"{tuple(c.shape)} with {m} constraints: not float32 lanes the "
+                         "kernel's plan takes")
+    return torch.ops.riptrm.stableid_hvp(x, g, y, c, dx, gram, idx, lin, two, p1, scale)
+
+
+def _stableid_hvp_cuda(x, g, y, c, dx, gram, idx, lin, two, p1, scale):
+    d, m, batch = x.shape[-1], idx.shape[0], dx.shape[0]
+    out = torch.empty_like(dx)
+    lib = _build.load()
+    grid = _ceil(batch, stableid_hvp_plan(d, m))
+    err = lib.stableid_hvp_launch(*(_ptr(t) for t in (x, g, y, c, dx, gram, idx, lin, two, p1,
+                                                      out)),
+                                  scale, batch, d, m, grid, x.device.index or 0,
+                                  _stream(x.device))
+    _build.check(lib, err, "stableid_barrier_hvp")
+    stableid_barrier_hvp.launches += 1
+    return out
+
+
+def _stableid_hvp_cpu(*args):
+    # the family's module imports this one
+    from riptrm_torch.problems.stable_identification import barrier_hvp_plain
+
+    return barrier_hvp_plain(*args)
+
+
+def _stableid_hvp_vmap(info, in_dims, x, g, y, c, dx, *consts):
+    """A mapped axis on the lanes' tensors (exact mode's materialisation
+    maps the operator over basis directions) folds into the lanes: one
+    call over size x B lanes, the unmapped tensors repeated."""
+    if any(dim is not None for dim in in_dims[5:]):
+        raise NotImplementedError("riptrm::stableid_hvp: the instance's constants are mapped")
+    size = info.batch_size
+    flat = [(t.movedim(dim, 0) if dim is not None else t.expand((size,) + t.shape)
+             ).reshape((-1,) + t.shape[1 if dim is None else 2:])
+            for t, dim in zip((x, g, y, c, dx), in_dims[:5])]
+    out = torch.ops.riptrm.stableid_hvp(*flat, *consts)
+    return out.unflatten(0, (size, -1)), 0
+
+
+stableid_barrier_hvp.launches = 0
+
 KERNEL_WRAPPERS = (
     chained_barrier_matvec,
     fused_tcg_sphere_quadratic,
@@ -1138,6 +1237,7 @@ KERNEL_WRAPPERS = (
     bare_matvec_chain,
     chained_barrier_matvec_hbm,
     dense_solve_nan,
+    stableid_barrier_hvp,
 )
 
 
@@ -1230,6 +1330,13 @@ _OPS = {
         lambda a, b, *plan: dense_solve_plain(a, b),
         lambda a, b, *plan: _same(b),
     ),
+    "stableid_hvp": (
+        "(Tensor x, Tensor g, Tensor y, Tensor c, Tensor dx, Tensor gram, Tensor idx, "
+        "Tensor lin, Tensor two, Tensor p1, float scale) -> Tensor",
+        _contiguous(_stableid_hvp_cuda),
+        _stableid_hvp_cpu,
+        lambda x, g, y, c, dx, *consts: _same(dx),
+    ),
 }
 
 
@@ -1238,3 +1345,4 @@ for _name, (_schema, _cuda, _cpu, _fake) in _OPS.items():
     _LIB.impl(_name, _cuda, "CUDA")
     _LIB.impl(_name, _cpu, "CPU")
     torch.library.register_fake(f"riptrm::{_name}", _fake, lib=_LIB)
+torch.library.register_vmap("riptrm::stableid_hvp", _stableid_hvp_vmap, lib=_LIB)

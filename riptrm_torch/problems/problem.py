@@ -113,7 +113,9 @@ class Problem:
     # Closed-form lane-batched derivatives (None: torch.func), for a problem
     # with inequality constraints only and no per-lane data: an object with
     #   lag_at(x, y) -> (egrad of L, v -> ehess of L [v]) and
-    #   ineq_at(x) -> (dx -> d ineq(x) [dx], w -> egrad of w . ineq(x)).
+    #   ineq_at(x) -> (dx -> d ineq(x) [dx], w -> egrad of w . ineq(x)),
+    # and optionally barrier_hvp_at(x, y, c) -> the barrier-KKT operator
+    # whole, or None for a point it does not take.
     derivatives: Optional[Any] = None
 
     @property
@@ -234,6 +236,14 @@ class Problem:
             return self.manifold.ehess2rhess(x, eg, eh, v)
 
         return hvp
+
+    @scoped
+    def barrier_hvp_at(self, x, y, c):
+        """Returns dx -> Hess_x L[dx] + Gx(y * Gxaj(dx) / c) as one operator
+        where the family's closed form gives one (``barrier_hvp_at`` of
+        ``derivatives``, for the points it takes), else None."""
+        fn = getattr(self.derivatives, "barrier_hvp_at", None) if self._closed_form else None
+        return None if fn is None else fn(x, y, c)
 
     # ------------------------------------------------------------------
     # Constraint-Jacobian operators in terms of the slack c = -g

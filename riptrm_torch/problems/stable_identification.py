@@ -26,6 +26,7 @@ of a mesh axis, the cost the sum of the ranks' partial sums
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -35,6 +36,7 @@ from torch.func import grad, vmap
 from riptrm_torch.config import as_tensor, check_matmul_precision, resolve
 from riptrm_torch.manifolds import Product, SkewSymmetric, SymmetricPositiveDefinite
 from riptrm_torch.manifolds.base import bmm
+from riptrm_torch.ops import kernels
 from riptrm_torch.ops.collectives import enter, exit_sum, mesh_axis
 from riptrm_torch.problems.problem import Problem
 from riptrm_torch.utils.io import loadtxt
@@ -95,6 +97,74 @@ def _split_xxp(x_full):
     return x_full[:, :-1], x_full[:, 1:]
 
 
+def _entries(a, idx):
+    """The constrained entries of A [B, d, d], [B, m]."""
+    return a.flatten(-2)[..., idx]
+
+
+def _scatter(w, onehot, d):
+    """[B, m] constraint weights onto their entries, [B, d, d]: a one-hot
+    [m, d*d] product (a repeated entry sums in a fixed order)."""
+    return (w @ onehot).unflatten(-1, (d, d))
+
+
+def _frozen(x, idx, lin, two, p1):
+    """The point's work: (J - R, Q, A, the constraints' slopes g_i')."""
+    jmr, q = x[:, 0] - x[:, 1], x[:, 2]
+    a = bmm(jmr, q)
+    slope = lin - 2.0 * two * (_entries(a, idx) - p1)
+    return jmr, q, a, slope
+
+
+def _d_a(jmr, q, v):
+    return bmm(v[:, 0] - v[:, 1], q) + bmm(jmr, v[:, 2])
+
+
+def _in_jrq(jmr, q, g):
+    """A Euclidean gradient in A, [B, d, d], as one in (J, R, Q)."""
+    gq = bmm(g, q.transpose(-2, -1))
+    return torch.stack((gq, -gq, bmm(jmr.transpose(-2, -1), g)), dim=1)
+
+
+def _lag_ehvp(jmr, q, g, curv, scale, gram, idx, onehot, v):
+    """The Euclidean Hessian image of the Lagrangian along v (``Derivatives``)."""
+    d = jmr.shape[-1]
+    da = _d_a(jmr, q, v)
+    dg = scale * (da @ gram) + _scatter(curv * _entries(da, idx), onehot, d)
+    dgq = bmm(dg, q.transpose(-2, -1)) + bmm(g, v[:, 2].transpose(-2, -1))
+    dq = bmm((v[:, 0] - v[:, 1]).transpose(-2, -1), g) + bmm(jmr.transpose(-2, -1), dg)
+    return torch.stack((dgq, -dgq, dq), dim=1)
+
+
+def _ineq_jvp(jmr, q, slope, idx, dx):
+    return slope * _entries(_d_a(jmr, q, dx), idx)
+
+
+def _ineq_vjp(jmr, q, slope, onehot, w):
+    return _in_jrq(jmr, q, _scatter(w * slope, onehot, jmr.shape[-1]))
+
+
+def barrier_hvp_plain(x, g, y, c, dx, gram, idx, lin, two, p1, scale):
+    """The barrier-KKT operator Hw(dx) = Hess L[dx] + Gx(y * Gxaj(dx) / c)
+    at (x, y) as ``solvers/riptrm.py::_barrier_ops`` composes it from
+    ``Problem.lag_rhess_at``, ``gx_at`` and ``gx_adj_at`` over the closed
+    form: the same operators in the same order, so the same values bit for
+    bit.  ``g`` is the Lagrangian's Euclidean gradient in A
+    (``Derivatives.egrad``), ``c`` the slacks, ``gram`` X X', ``idx`` the
+    constrained entries (row * d + column), ``lin``, ``two``, ``p1`` the
+    constraints' kinds and parameters, ``scale`` 2 h^2 / N.  The plain
+    version of ``riptrm::stableid_hvp`` (``ops/kernels.py``)."""
+    d = x.shape[-1]
+    man = manifold(d)
+    onehot = torch.nn.functional.one_hot(idx, d * d).to(x.dtype)
+    jmr, q, _, slope = _frozen(x, idx, lin, two, p1)
+    curv = (-2.0 * two) * y
+    eh = _lag_ehvp(jmr, q, g, curv, scale, gram, idx, onehot, dx)
+    lag = man.ehess2rhess(x, _in_jrq(jmr, q, g), eh, dx)
+    w = (y * -_ineq_jvp(jmr, q, slope, idx, dx)) / c
+    return lag + man.egrad2rgrad(x, _ineq_vjp(jmr, q, slope, onehot, -w))
+
+
 class Derivatives:
     """The Lagrangian's derivatives in closed form, over lanes: the
     derivatives the upstream takes by autograd (and ``Problem`` by
@@ -109,7 +179,11 @@ class Derivatives:
     image is (dG Q' + G vQ', -(dG Q' + G vQ'), (vJ - vR)' G + (J - R)' dG).
     g' is -1 (``KIND_LS``), +1 (``KIND_RS``) or -2 (a - p1) (``KIND_TWO``,
     whose g'' is -2).  Constraint values reach their entries of A through
-    a one-hot [m, d*d] product (a repeated entry sums in a fixed order)."""
+    a one-hot [m, d*d] product (a repeated entry sums in a fixed order).
+
+    ``barrier_hvp_at`` gives the barrier-KKT operator whole, as one
+    ``riptrm::stableid_hvp`` call a product (``ops/kernels.py``), where
+    that operator's plan takes the point."""
 
     def __init__(self, X, XP, n_cols, h, kinds, rows, cols, p1, gram):
         d = X.shape[0]
@@ -121,50 +195,43 @@ class Derivatives:
                                ).to(X.dtype)
         self.two = (kinds == KIND_TWO).to(X.dtype)
         self.p1, self.gram = p1, gram
-
-    def _scatter(self, w):
-        """[B, m] constraint weights onto their entries, [B, d, d]."""
-        return (w @ self.onehot).unflatten(-1, (self.d, self.d))
-
-    def _entries(self, a):
-        return a.flatten(-2)[..., self.idx]
+        self.scale = 2.0 * h**2 / n_cols
 
     def _frozen(self, x):
-        jmr, q = x[:, 0] - x[:, 1], x[:, 2]
-        a = bmm(jmr, q)
-        slope = self.lin - 2.0 * self.two * (self._entries(a) - self.p1)
-        return jmr, q, a, slope
+        return _frozen(x, self.idx, self.lin, self.two, self.p1)
 
-    def _d_a(self, jmr, q, v):
-        return bmm(v[:, 0] - v[:, 1], q) + bmm(jmr, v[:, 2])
-
-    @staticmethod
-    def _in_jrq(jmr, q, g):
-        gq = bmm(g, q.transpose(-2, -1))
-        return torch.stack((gq, -gq, bmm(jmr.transpose(-2, -1), g)), dim=1)
-
-    def lag_at(self, x, y):
+    def egrad(self, x, y):
+        """(J - R, Q, the slopes, the Lagrangian's Euclidean gradient G in A)."""
         jmr, q, a, slope = self._frozen(x)
         resid = self.XP - (self.eye + self.h * a) @ self.X
-        g = (-2.0 * self.h / self.n_cols) * (resid @ self.X.mT) + self._scatter(y * slope)
-        eg = self._in_jrq(jmr, q, g)
+        g = ((-2.0 * self.h / self.n_cols) * (resid @ self.X.mT)
+             + _scatter(y * slope, self.onehot, self.d))
+        return jmr, q, slope, g
+
+    def lag_at(self, x, y):
+        jmr, q, _, g = self.egrad(x, y)
         curv = (-2.0 * self.two) * y
-        scale = 2.0 * self.h**2 / self.n_cols
-
-        def ehvp(v):
-            da = self._d_a(jmr, q, v)
-            dg = scale * (da @ self.gram) + self._scatter(curv * self._entries(da))
-            dgq = bmm(dg, q.transpose(-2, -1)) + bmm(g, v[:, 2].transpose(-2, -1))
-            dq = (bmm((v[:, 0] - v[:, 1]).transpose(-2, -1), g)
-                  + bmm(jmr.transpose(-2, -1), dg))
-            return torch.stack((dgq, -dgq, dq), dim=1)
-
-        return eg, ehvp
+        return _in_jrq(jmr, q, g), functools.partial(
+            _lag_ehvp, jmr, q, g, curv, self.scale, self.gram, self.idx, self.onehot)
 
     def ineq_at(self, x):
         jmr, q, _, slope = self._frozen(x)
-        return (lambda dx: slope * self._entries(self._d_a(jmr, q, dx)),
-                lambda w: self._in_jrq(jmr, q, self._scatter(w * slope)))
+        return (functools.partial(_ineq_jvp, jmr, q, slope, self.idx),
+                functools.partial(_ineq_vjp, jmr, q, slope, self.onehot))
+
+    def barrier_hvp_at(self, x, y, c):
+        """dx -> Hw(dx), the barrier-KKT operator at (x, y) with slacks c,
+        as one ``ops/kernels.py::stableid_barrier_hvp`` call a product, its
+        point's work (G) done here once; None where the operator's plan
+        takes no such point (float64, d or m above its limits): the caller
+        then composes Hw from ``lag_at`` and ``ineq_at``."""
+        if x.dtype != torch.float32 or kernels.stableid_hvp_plan(
+                self.d, self.idx.shape[0]) is None:
+            return None
+        g = self.egrad(x, y)[3]
+        return functools.partial(kernels.stableid_barrier_hvp, x, g, y, c, gram=self.gram,
+                                 idx=self.idx, lin=self.lin, two=self.two, p1=self.p1,
+                                 scale=self.scale)
 
 
 def make_problem(

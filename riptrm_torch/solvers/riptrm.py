@@ -237,14 +237,18 @@ state_to_numpy = base.state_to_numpy
 def _barrier_ops(problem, x, y, mu):
     """Condensed barrier-KKT operator pieces at (x, y, mu): the slack c, the
     operator Hw(dx) = Hess_x L[dx] + Gx(y * Gxaj(dx) / c) with the point's
-    work done once, and cx = grad f - Gx(mu / c)."""
+    work done once, and cx = grad f - Gx(mu / c).  Hw is the family's one
+    operator where it gives one (``Problem.barrier_hvp_at``), else composed
+    from the Lagrangian's Hessian image and the constraint operators."""
     c = problem.slack(x)
-    lag_hvp = problem.lag_rhess_at(x, y)
     gx = problem.gx_at(x)
-    gx_adj = problem.gx_adj_at(x)
+    hw = problem.barrier_hvp_at(x, y, c)
+    if hw is None:
+        lag_hvp = problem.lag_rhess_at(x, y)
+        gx_adj = problem.gx_adj_at(x)
 
-    def hw(dx):
-        return lag_hvp(dx) + gx((y * gx_adj(dx)) / c)
+        def hw(dx):
+            return lag_hvp(dx) + gx((y * gx_adj(dx)) / c)
 
     cx_vec = problem.rgrad(x) - gx(mu[:, None] / c)
     return c, hw, cx_vec

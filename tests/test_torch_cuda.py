@@ -17,6 +17,11 @@ the CPU, float64, rtol 1e-8.  Instance batching's per-lane Zs runs K2 and
 the Stiefel kernel once a lane at one lane each (K3 never), each launch
 at the bounds above; a 'high' problem's gradient (TF32 in its scope)
 stays within TF32's elementwise bound of the 'highest' one's.
+StableIdentification's barrier operator (K8) against the float64 image
+of the same inputs, its lanes' errors within 2 times its plain version's
+at the median and the 99th percentile and 8 times at the worst lane (FP32
+sums of d terms in another order), at every width its plan takes, and
+once a product in a float32 sweep.
 """
 
 import numpy as np
@@ -966,3 +971,155 @@ def test_ripm_float32_sweep_on_card_matches_cpu(dev, n):
     gap = (res - res_c).abs() / torch.clamp(res_c, min=option["tolresid"])
     assert float(gap.max()) <= 1e-2, gap.max()
     assert float((x - x_c).abs().max()) <= 1e-5
+
+
+def _sid_lanes(b, dev, d=5, seed=0):
+    """StableIdentification on the card, float32: the shipped instance
+    (d = 5, m = 16) or one of random data at width d (2 d + 1 constraints),
+    b lanes around its start
+    (each moved along a random tangent), multipliers in [0.5, 1.5], a random
+    direction; the operator's inputs (x, g, y, c, dx) and keywords."""
+    from riptrm_torch.problems import stable_identification as si
+
+    if d == 5:
+        problem = si.load_problem("dataset/StableIdentification/1", "a", dtype=torch.float32,
+                                  device=dev)
+    else:
+        # a box on entry (i, 2i mod d) of each row, and a twobox row on the
+        # last row's entry: two kinds on one entry
+        rng = np.random.default_rng(seed)
+        constset = [[0, i, 2 * i % d, -10.0, 10.0] for i in range(d)]
+        constset.append([2, d - 1, 2 * (d - 1) % d, 0.0, 0.1])
+        problem = si.make_problem(d, [rng.standard_normal((d, 20))], np.asarray(constset),
+                                  (np.zeros((d, d)), np.eye(d), np.eye(d)),
+                                  dtype=torch.float32, device=dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    man = problem.manifold
+    x = problem.x0.expand((b,) + problem.x0.shape).clone()
+
+    def tangent():  # Skew(1) has no unit tangent: projected normals
+        return man.proj(x, torch.randn(x.shape, generator=gen, device=dev))
+
+    x = man.retract(x, 0.05 * tangent())
+    y = 0.5 + torch.rand(b, problem.num_ineq, generator=gen, device=dev)
+    der = problem.derivatives
+    kw = dict(gram=der.gram, idx=der.idx, lin=der.lin, two=der.two, p1=der.p1, scale=der.scale)
+    return (x, der.egrad(x, y)[3], y, problem.slack(x), tangent()), kw
+
+
+def _hvp_errors(args, kw):
+    """(K8's image, its plain version's, each lane's error of both against
+    the float64 image of the same inputs over the lane's largest |entry|)."""
+    from riptrm_torch.problems.stable_identification import barrier_hvp_plain
+
+    consts = [kw[k] for k in ("gram", "idx", "lin", "two", "p1")]
+    out = tk.stableid_barrier_hvp(*args, **kw)
+    plain = barrier_hvp_plain(*args, *consts, kw["scale"])
+    truth = barrier_hvp_plain(*(t.double() for t in args), consts[0].double(), consts[1],
+                              *(t.double() for t in consts[2:]), kw["scale"])
+
+    def lane(v):
+        return v.abs().flatten(1).amax(dim=1)
+
+    mag = lane(truth)
+    return out, plain, lane(out.double() - truth) / mag, lane(plain.double() - truth) / mag
+
+
+# K8 against the float64 image of the same float32 inputs, each lane's error
+# over its largest |entry|: over the lanes, the median and the 99th
+# percentile may be at most HVP_SPREAD times the plain version's, the worst
+# lane HVP_WORST times the plain version's worst.  Both are the same FP32
+# products with their sums of d terms in another order; the worst lanes are
+# those whose image cancels most, where two orders part by several times
+# (the card read 1.1x at the median, 1.04x at 99 % and 1.1-2.7x at the worst
+# lane, PERF.md).
+HVP_SPREAD, HVP_WORST = 2.0, 8.0
+
+
+def _within_plain(err, err_plain):
+    q = torch.tensor([0.5, 0.99], dtype=err.dtype, device=err.device)
+    return bool((torch.quantile(err, q) <= HVP_SPREAD * torch.quantile(err_plain, q)).all()
+                and err.max() <= HVP_WORST * err_plain.max())
+
+
+@pytest.mark.parametrize("b", [131072, 1000])
+def test_stableid_hvp_kernel_matches_plain(dev, b):
+    """K8 against its plain version at the benchmark cell's shapes (d = 5,
+    m = 16, B = 131072) and at a B that is no multiple of a block's 24
+    lanes: one launch, every lane finite, the lanes' errors against float64
+    within HVP_SPREAD and HVP_WORST of the plain version's."""
+    args, kw = _sid_lanes(b, dev)
+    tk.reset_launch_counts()
+    out, _, err, err_plain = _hvp_errors(args, kw)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["stableid_barrier_hvp"] == 1
+    assert torch.isfinite(out).all()
+    assert _within_plain(err, err_plain), (err.max(), err_plain.max())
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 6, 7, 8])
+def test_stableid_hvp_kernel_widths(dev, d):
+    """K8 at every other width its plan takes (instances of random data,
+    B = 777): within the same bound."""
+    args, kw = _sid_lanes(777, dev, d=d, seed=d)
+    out, _, err, err_plain = _hvp_errors(args, kw)
+    assert torch.isfinite(out).all()
+    assert _within_plain(err, err_plain), (d, err.max(), err_plain.max())
+
+
+def test_stableid_hvp_kernel_lanes_and_nan(dev):
+    """A lane reads the same bits alone, in the batch, at another place in
+    it and in a batch of 1001 lanes; a NaN in a lane's point makes that
+    lane NaN whole and leaves the others as they were."""
+    args, kw = _sid_lanes(1001, dev, seed=3)
+    out = tk.stableid_barrier_hvp(*args, **kw)
+    perm = torch.randperm(1001, device=dev)
+    assert torch.equal(tk.stableid_barrier_hvp(*(t[perm] for t in args), **kw), out[perm])
+    for i in (0, 500, 1000):
+        assert torch.equal(tk.stableid_barrier_hvp(*(t[i:i + 1] for t in args), **kw)[0], out[i])
+    x = args[0].clone()
+    x[11, 2, 0, 4] = float("nan")
+    x[12] = float("nan")
+    bad = tk.stableid_barrier_hvp(x, *args[1:], **kw)
+    rest = torch.ones(1001, dtype=torch.bool, device=dev)
+    rest[11:13] = False
+    assert torch.isnan(bad[11:13]).all() and torch.equal(bad[rest], out[rest])
+
+
+def test_stableid_sweep_launches_k8_once_a_product(dev):
+    """The benchmark cell's RIPTRM tCG options on the shipped instance,
+    float32, from its 20 starts for 4 lockstep steps: K8 launches once for
+    every product the tCG asks for; float64 launches nothing."""
+    from riptrm_torch.parallel.sweep import batched_riptrm_solve
+    from riptrm_torch.problems import stable_identification as si
+    from riptrm_torch.solvers import riptrm
+
+    option = {"maxiter": 60, "tolresid": 1e-3, "TRS_solver": "tCG",
+              "second_order_stationarity": False}
+    starts = "abcdefghijklmnopqrst"
+    barrier_ops = riptrm._barrier_ops
+    for dtype in (torch.float32, torch.float64):
+        problems = [si.load_problem("dataset/StableIdentification/1", s, dtype=dtype, device=dev)
+                    for s in starts]
+        xs = torch.stack([p.x0 for p in problems])
+        ys = torch.ones(len(starts), problems[0].num_ineq, dtype=dtype, device=dev)
+        products = [0]
+
+        def counted(*args):
+            c, hw, cx = barrier_ops(*args)
+
+            def hw_counted(dx):
+                products[0] += 1
+                return hw(dx)
+
+            return c, hw_counted, cx
+
+        tk.reset_launch_counts()
+        riptrm._barrier_ops = counted
+        try:
+            _, k, res = batched_riptrm_solve(problems[0], option, 4)(xs, ys)
+        finally:
+            riptrm._barrier_ops = barrier_ops
+        launches = tk.launch_counts()["stableid_barrier_hvp"]
+        assert int(k.max()) == 4 and torch.isfinite(res).all()
+        assert launches == (products[0] if dtype == torch.float32 else 0) and products[0] > 0

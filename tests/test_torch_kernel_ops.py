@@ -54,12 +54,27 @@ def _cases():
         + (False,),
         "chain_hbm": chain + (1, 1, 4, 8, True),
         "dense_solve": _dense_case() + (1, 1),
+        "stableid_hvp": _stableid_case(),
     }
 
 
 def _dense_case():
     g = _gen(5)
     return torch.randn(B, N, N, generator=g), torch.randn(B, N, generator=g)
+
+
+def _stableid_case():
+    """StableIdentification's barrier operator at d = 3 with 4 constraints:
+    (x, g, y, c, dx, gram, idx, lin, two, p1, scale)."""
+    g, d, m = _gen(6), 3, 4
+    a = torch.randn(B, 2, d, d, generator=g)
+    x = torch.stack((a[:, 0] - a[:, 0].mT, torch.eye(d) + 0.1 * (a[:, 1] + a[:, 1].mT),
+                     torch.eye(d).expand(B, d, d)), dim=1)
+    gram = torch.randn(d, d, generator=g)
+    return (x, torch.randn(B, d, d, generator=g), torch.rand(B, m, generator=g) + 0.5,
+            torch.rand(B, m, generator=g) + 0.5, torch.randn(B, 3, d, d, generator=g),
+            gram @ gram.T, torch.tensor([0, 4, 4, 7]), torch.tensor([-1.0, 1.0, 0.0, 0.0]),
+            torch.tensor([0.0, 0.0, 1.0, 1.0]), torch.randn(m, generator=g), 0.01)
 
 
 @pytest.mark.parametrize("name", sorted(tk._OPS))
@@ -83,9 +98,10 @@ def test_operator_has_every_implementation(name):
     ("bare_matvec_chain", "left"),
     ("chained_barrier_matvec_hbm", "chain"),
     ("dense_solve_nan", "dense"),
+    ("stableid_barrier_hvp", "stableid"),
 ])
 def test_wrapper_calls_one_operator(wrapper, args):
-    """Each of the seven launch counters' wrappers reaches exactly one
+    """Each of the eight launch counters' wrappers reaches exactly one
     riptrm:: operator a call, and counts nothing on the CPU."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -99,6 +115,8 @@ def test_wrapper_calls_one_operator(wrapper, args):
         "frames": (_stiefel_case(), {"maxinner": N * P}),
         "left": ((zs, torch.randn(B, N, generator=_gen(3)), 4, "highest"), {}),
         "dense": (_dense_case(), {}),
+        "stableid": (_stableid_case()[:5], dict(zip(("gram", "idx", "lin", "two", "p1", "scale"),
+                                                    _stableid_case()[5:]))),
     }
     seen = []
 

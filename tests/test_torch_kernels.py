@@ -123,6 +123,11 @@ def test_cpu_tensors_take_the_plain_path(setup):
         torch.tensor([0.1, 0.2]), maxinner=s["dim"],
     )
     tk.dense_solve_nan(torch.eye(3)[None] + 0.1, torch.ones(1, 3))
+    eye = torch.eye(2)[None]
+    tk.stableid_barrier_hvp(torch.cat((0 * eye, eye, eye))[None], eye, torch.ones(1, 1),
+                            torch.ones(1, 1), torch.ones(1, 3, 2, 2), gram=eye[0],
+                            idx=torch.tensor([1]), lin=torch.ones(1), two=torch.zeros(1),
+                            p1=torch.zeros(1), scale=0.1)
     assert tk.launch_counts() == {
         "chained_barrier_matvec": 0,
         "fused_tcg_sphere_quadratic": 0,
@@ -131,6 +136,7 @@ def test_cpu_tensors_take_the_plain_path(setup):
         "bare_matvec_chain": 0,
         "chained_barrier_matvec_hbm": 0,
         "dense_solve_nan": 0,
+        "stableid_barrier_hvp": 0,
     }
 
 

@@ -183,18 +183,17 @@ def test_exported_sweep_holds_no_profiler_node(tmp_path):
 
 SID_STARTS, SID_STEPS = "abcd", 8
 TCG_READERS = ("tcg.pct_of_window", "tcg.iters_per_step", "tcg.hvp_pct_of_window",
-               "tcg.syncs_per_step", "riptrm.retract_pct_of_window")
+               "tcg.syncs_per_step", "riptrm.retract_pct_of_window", "tcg.hvp_kernel_share")
 
 
-def _sid_instance():
+def _sid_instance(dtype=torch.float64):
     """StableIdentification's shipped instance 1 (Product(Skew(5), SPD(5),
     SPD(5)), 16 constraints) with its starts a-d as lanes, float64."""
     path = str(pathlib.Path(__file__).resolve().parents[1] / "dataset/StableIdentification/1")
-    problems = [stable_identification.load_problem(path, s, dtype=torch.float64, device="cpu")
+    problems = [stable_identification.load_problem(path, s, dtype=dtype, device="cpu")
                 for s in SID_STARTS]
     xs = torch.stack([p.x0 for p in problems])
-    return problems[0], xs, torch.ones(len(SID_STARTS), problems[0].num_ineq,
-                                       dtype=torch.float64)
+    return problems[0], xs, torch.ones(len(SID_STARTS), problems[0].num_ineq, dtype=dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -309,6 +308,25 @@ def test_dense_solve_kernel_share(dtype, share):
                       [harness.Call(0, 0.0, 1.0, x, y, k.numpy(), res)], 1.0, 0.0, trace)
     assert len(_named(trace, "riptrm.ripm.newton_solve")) == int(k.max())
     assert _read("ripm.dense_solve_kernel_share", run) == share
+
+
+@pytest.mark.parametrize("dtype,share", [(torch.float32, 1.0), (torch.float64, None)],
+                         ids=["f32", "f64"])
+def test_tcg_hvp_kernel_share(dtype, share):
+    """``tcg.hvp_kernel_share`` reads one riptrm::stableid_hvp inside every
+    ``riptrm.tcg.hvp`` span of a float32 StableIdentification RIPTRM sweep,
+    and None where the HVP is composed (float64)."""
+    problem, xs, ys = _sid_instance(dtype)
+    run_fn = batched_riptrm_solve(problem, {"maxiter": 30, "tolresid": 1e-8} | TCG, 3)
+    (state, k, res), trace = _traced(run_fn, xs, ys)
+    run = harness.Run(None, 0, torch.device("cpu"),
+                      [harness.Call(0, 0.0, 1.0, state.x, state.y, k.numpy(), res)], 1.0, 0.0,
+                      trace)
+    hvps = _named(trace, "riptrm.tcg.hvp")
+    ops = _named(trace, "riptrm::stableid_hvp")
+    assert hvps and len(ops) == (len(hvps) if share else 0)
+    assert all(_parent(trace, i) == "riptrm.tcg.hvp" for i in ops)
+    assert _read("tcg.hvp_kernel_share", run) == share
 
 
 def test_tcg_iteration_spans_equal_lockstep_iterations():
