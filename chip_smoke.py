@@ -486,15 +486,23 @@ def call_ms(fn, device, calls=5):
     return f"{1e3 * statistics.median(times):.2f} ms ({own})"
 
 
+def closed_form(problem, x, y, mu):
+    """Exact mode's Hw and cx at (x, y, mu) in the problem's closed form
+    (``Problem.hessian_coords_at``: on the sphere, one Householder
+    congruence), as ``solvers/riptrm.py::materialize_at`` asks for them."""
+    c = problem.slack(x)
+    return problem.hessian_coords_at(x, y)(y / c, mu[:, None] / c)
+
+
 def exact_parts(problem, x, y, mu):
     """The parts of an exact-mode ms step's materialisation at (x, y, mu):
     the whole (``materialize_at``), the Householder congruence with cx's
     coordinates, and the 32-step dense Lanczos of its extremes."""
     from riptrm_torch.solvers import riptrm
 
-    h, _ = riptrm._materialize_structured(problem, x, y, mu)
+    h, _ = closed_form(problem, x, y, mu)
     return (("materialize_at", lambda: riptrm.materialize_at(problem, x, y, mu, True)),
-            ("congruence", lambda: riptrm._materialize_structured(problem, x, y, mu)),
+            ("congruence", lambda: closed_form(problem, x, y, mu)),
             ("dense Lanczos", lambda: riptrm._dense_ritz(h)))
 
 
@@ -2725,7 +2733,6 @@ def phase_certificates(smoke, stiefel):
     from riptrm_torch.ops.basis import materialize_symmetrized
     from riptrm_torch.parallel.sweep import certificate_operator, certify_second_order
     from riptrm_torch.problems import bounded_pca
-    from riptrm_torch.solvers.riptrm import _materialize_structured
 
     device = smoke.device
     cases = [(f"NonnegPCA n={smoke.n} B={b}", smoke.problem, smoke.final[b]) for b in smoke.lanes]
@@ -2773,7 +2780,7 @@ def phase_certificates(smoke, stiefel):
 
     # the card's float32 eigh at n = 1000
     st = smoke.final[smoke.lanes[0]]
-    h32, _ = _materialize_structured(smoke.problem, st.x[:1], st.y[:1], st.mu[:1])
+    h32, _ = closed_form(smoke.problem, st.x[:1], st.y[:1], st.mu[:1])
     (lam, q), t = wall(lambda: torch.linalg.eigh(h32), device)
     lam64 = torch.linalg.eigvalsh(h32.double())
     n = h32.shape[-1]

@@ -12,10 +12,8 @@ solves (``staged_precision_riptrm_solve``, ``staged_precision_riptrm_compacted``
 ``certify_second_order``.  The JAX package ``vmap``s a per-lane
 ``lax.while_loop``; here the solver state carries the lanes and one
 lane-batched step runs them in lockstep, a finished lane frozen at its
-stop.  With ``use_fused_tcg`` every step's tCG is one launch of a batched
-kernel against the shared Zs: K3 on NonnegPCA, the Stiefel-bound kernel on
-BoundedPCA; under instance batching, where each lane has its own Zs, one
-one-lane launch per lane (``solvers/riptrm.py::fused_tcg_route``).
+stop.  With ``use_fused_tcg`` every step's tCG is the kernel the problem
+gives (``Problem.fused_tcg_at``, ``problems/structured.py``).
 ``certify_second_order`` certifies a batch of final points.  The compacted
 staged solve (``staged_precision_riptrm_compacted``) drives phase 2 from
 the host, a segment at a time over the lanes still running.

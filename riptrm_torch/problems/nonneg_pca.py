@@ -9,8 +9,8 @@ one problem over B instances, each lane's Zs its data (instance batching).
 package's row-sharded Z): the cost is the sum of the ranks' partial
 quadratic forms (``ops/collectives.py``'s ``enter`` and ``exit_sum``).
 Such a problem carries no structure: the fused tCG kernels and the closed
-forms of the solvers need the whole Zs, so every solver takes its generic
-path.
+forms of ``problems/structured.py`` need the whole Zs, so every solver takes
+its generic path.
 """
 
 from __future__ import annotations

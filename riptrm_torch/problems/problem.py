@@ -59,6 +59,7 @@ from torch.func import grad, jvp, vjp, vmap
 
 from riptrm_torch.config import matmul_precision as _precision_scope
 from riptrm_torch.manifolds.base import Manifold
+from riptrm_torch.problems import structured
 from riptrm_torch.utils.spans import span
 
 
@@ -100,9 +101,10 @@ class Problem:
     manvio_fn: Optional[Callable] = None
     # Extra per-iteration metrics, (problem, x, y, z, eval_dict) -> eval_dict
     callback: Optional[Callable] = None
-    # Structure metadata for fused fast paths: {"kind": "sphere_quadratic",
-    # "Zs": ...} or {"kind": "stiefel_bound", "Zs", "bound", "d"} routes the
-    # tCG to a hand-written kernel (ops/kernels.py).
+    # The family's declaration of its fast paths: {"kind": "sphere_quadratic",
+    # "Zs": ...} or {"kind": "stiefel_bound", "Zs", "bound", "d"} (None:
+    # none).  Only the problem layer reads it (problems/structured.py,
+    # through fused_tcg_at, hessian_coords_at and ineq_rows_at below).
     structure: Optional[dict] = None
     # Per-lane instance data [B, ...]: the last argument of every per-lane
     # function above, mapped with the point (None: no such argument).
@@ -115,8 +117,16 @@ class Problem:
     #   lag_at(x, y) -> (egrad of L, v -> ehess of L [v]) and
     #   ineq_at(x) -> (dx -> d ineq(x) [dx], w -> egrad of w . ineq(x)),
     # and optionally barrier_hvp_at(x, y, c) -> the barrier-KKT operator
-    # whole, or None for a point it does not take.
+    # whole, or None for a point it does not take.  Only the problem's own
+    # methods below read it.
     derivatives: Optional[Any] = None
+
+    # The family's fast paths, each None where it has none
+    # (problems/structured.py): the fused tCG, the closed form of the
+    # Lagrangian's Hessian in the tangent basis, and the constraint rows.
+    fused_tcg_at = structured.fused_tcg_at
+    hessian_coords_at = structured.hessian_coords_at
+    ineq_rows_at = structured.ineq_rows_at
 
     @property
     def has_ineq(self) -> bool:

@@ -12,8 +12,8 @@ runner (``RIPTRM.run``, B = 1) and the fixed-budget loop
 
 Both direction solvers of the JAX package run: ``TRS_solver='tCG'`` and
 ``'Exact_RepMat'``, which materialises Hw in the tangent basis
-(``ops/basis.py``; one Householder congruence on ``sphere_quadratic``
-problems) and solves the TRS exactly (``ops/trs.py``: ``eigh``, or
+(``ops/basis.py``, or the problem's closed form, ``hessian_coords_at``) and
+solves the TRS exactly (``ops/trs.py``: ``eigh``, or
 Moré-Sorensen by Cholesky at dim >= 256 under ``exact_trs_method='auto'``),
 with the per-lane cache of the materialised Hw.  The second-order criterion
 reads the least eigenvalue of Hw at the trial point: from the exact mode's
@@ -31,15 +31,9 @@ from that file (``experiment/checkpoint.py``); ``wandb_logging`` logs its
 rows through ``solvers/base.py``'s wandb hooks.
 
 ``use_fused_tcg`` (the JAX ``use_pallas_tcg``, which the port refuses by
-that name) routes the tCG to a fused kernel by the problem's structure,
-where the kernel's plan holds the problem (``fused_tcg_route``): a
-``sphere_quadratic`` problem to ``ops/kernels.py`` (K2 at B = 1, K3 at
-B > 1), a ``stiefel_bound`` problem to the Stiefel-bound kernel of the same
-module (one kernel for K4a and K4b, at every B); elsewhere the plain
-``truncated_cg`` runs, as in the JAX package.  A structure whose Zs is per
-lane [B, n, n] (instance batching) runs one one-lane launch a lane (K2, or
-the Stiefel kernel at B = 1): both kernels share one Zs across their
-lanes.  Exact mode runs no tCG.
+that name) runs the tCG as the hand-written kernel the problem gives
+(``Problem.fused_tcg_at``, ``problems/structured.py``), and the plain
+``truncated_cg`` where it gives none.  Exact mode runs no tCG.
 
 ``solve_compiled(..., return_done=True)`` also returns each lane's stop
 flag; ``solve_compiled_traced`` records a per-lane, per-step trace.
@@ -60,11 +54,7 @@ import time
 import torch
 
 from riptrm_torch.ops import kernels
-from riptrm_torch.ops.basis import (
-    materialize_symmetrized,
-    sphere_householder_congruence,
-    sphere_householder_coords,
-)
+from riptrm_torch.ops.basis import materialize_symmetrized
 from riptrm_torch.ops.compensated import barrier_log_ratio_sum, complementarity_norm
 from riptrm_torch.ops.kkt import compute_residual, evaluation
 from riptrm_torch.ops.spectrum import eigh_nan, eigvalsh_nan, lanczos
@@ -83,7 +73,6 @@ from riptrm_torch.solvers.base import (
     merge_options,
 )
 from riptrm_torch.utils.lanes import dot as _dot
-from riptrm_torch.utils.lanes import sym_mv as _sym_mv
 from riptrm_torch.utils.lanes import tracing
 from riptrm_torch.utils.lanes import where_lanes as _lanes
 from riptrm_torch.utils.spans import span
@@ -154,9 +143,8 @@ def default_option():
         "const_left": 0.5,
         "const_right": 1e20,
         "checkTRSoptimality": False,
-        # Run the whole tCG as one hand-written kernel when the problem
-        # carries sphere_quadratic or stiefel_bound structure (float32
-        # inside).
+        # Run the whole tCG as one hand-written kernel where the problem
+        # gives one (Problem.fused_tcg_at; float32 inside).
         "use_fused_tcg": False,
         "compensated_reductions": False,
         "verbosity": 0,
@@ -271,36 +259,6 @@ def _outer_update(option, mu):
     return torch.clamp(simple, min=option["min_barrier_parameter"])
 
 
-def fused_tcg_route(kind, manifold, lanes, device, per_lane=False):
-    """The fused tCG kernel that takes a step's tCG, by the problem's
-    structure ``kind``, or None for the plain ``truncated_cg``: decided by
-    the kernels' plans before any launch, as the JAX package gates its
-    kernels on ``fits_in_vmem``.  ``sphere_quadratic``: K2/K3 wherever
-    ``ops/kernels.py::tcg_plan`` has a kernel route (n <= 7232);
-    ``stiefel_bound``: the Stiefel-bound kernel wherever
-    ``stiefel_plan`` fits.
-
-    ``per_lane``: the structure's Zs carries a lane axis (instance
-    batching).  Both kernels share one Zs across their lanes, so each lane
-    is then its own one-lane launch (K2 on the sphere, the Stiefel kernel
-    at B = 1), as the JAX package's vmap rules ``lax.map`` one-lane kernels
-    over a batched Zs; the route is named ``<kind>_per_lane``."""
-    sms = kernels._sms(device)
-    plan_lanes = 1 if per_lane else lanes
-    suffix = "_per_lane" if per_lane else ""
-    if kind == "sphere_quadratic":
-        if kernels.tcg_plan(manifold.n, plan_lanes, sms).route == "plain":
-            return None
-        return kind + suffix
-    if kind == "stiefel_bound":
-        try:
-            kernels.stiefel_plan(manifold.n, manifold.p, plan_lanes, sms)
-        except ValueError:
-            return None
-        return kind + suffix
-    return None
-
-
 def exact_trs_method(option, dim):
     """The exact-mode TRS algorithm: ``exact_trs_method``, where 'auto'
     means 'ms' at dim >= 256 (where the dense eigh leads the step) and
@@ -323,28 +281,15 @@ def _dense_ritz(h_mat):
     return ritz[:, 0], ritz[:, -1]
 
 
-def _materialize_structured(problem, x, y, mu):
-    """Hw and cx in the Householder basis of a ``sphere_quadratic`` problem
-    (cost -x'Zs x, constraints -x): Hw's ambient form is A = -2 Zs +
-    diag(y/c) with curvature kappa = x'(-2 Zs x - y), so its matrix is one
-    O(n^2) congruence per lane, not dim HVPs."""
-    zs = problem.structure["Zs"].to(y.dtype)  # [n, n], or [B, n, n] per lane
-    c = problem.slack(x)
-    zsx = _sym_mv(zs, x)
-    a_mat = -2.0 * zs + torch.diag_embed(y / c)
-    kappa = _dot(x, -2.0 * zsx - y)
-    h_mat = sphere_householder_congruence(x, a_mat, kappa)
-    c_vec = sphere_householder_coords(x, -2.0 * zsx - mu[:, None] / c)
-    return h_mat, c_vec
-
-
 def materialize_at(problem, x, y, mu, ms):
     """The exact-mode cache payload at (x, y, mu): (h_lam, h_q, c_vec), Hw
     and cx in the tangent basis.  ``ms`` False: Hw eigendecomposed (h_lam
     ascending); True: h_q is the raw matrix and h_lam holds its Lanczos
     extremes at [:, 0] and [:, -1]."""
-    if (problem.structure or {}).get("kind") == "sphere_quadratic":
-        h_mat, c_vec = _materialize_structured(problem, x, y, mu)
+    closed = problem.hessian_coords_at(x, y)
+    if closed is not None:
+        c = problem.slack(x)
+        h_mat, c_vec = closed(y / c, mu[:, None] / c)
     else:
         man = problem.manifold
         basis = man.basis(x)
@@ -385,43 +330,6 @@ def make_step(problem, option, callbacks=True):
         mininner=option["tCG_mininner"],
         maxinner=dim,
     )
-    kind = None  # exact mode runs no tCG
-    if option["use_fused_tcg"] and not exact:
-        kind = (problem.structure or {}).get("kind")
-
-    def direction(x, y, c, hw, cx, tr_radius):
-        zs = problem.structure["Zs"] if kind else None
-        per_lane = zs is not None and zs.ndim == 3
-        fused = fused_tcg_route(kind, man, x.shape[0], x.device, per_lane)
-        if fused is None:
-            with span("riptrm.tcg"):
-                return truncated_cg(man, x, hw, cx, tr_radius, **tcg_kw)
-        if per_lane:
-            # one one-lane launch per lane, each against its own Zs
-            outs = [launch(fused, zs[i], x[i:i + 1], y[i:i + 1], c[i:i + 1], cx[i:i + 1],
-                           tr_radius[i:i + 1]) for i in range(x.shape[0])]
-            dx, h_dx, it, code = (torch.cat(parts) for parts in zip(*outs))
-        else:
-            dx, h_dx, it, code = launch(fused, zs, x, y, c, cx, tr_radius)
-        return dx.to(x.dtype), h_dx.to(x.dtype), it, code
-
-    def launch(fused, zs, x, y, c, cx, tr_radius):
-        """The fused tCG of the lanes of ``x`` against one Zs: the
-        Stiefel-bound kernel, or K2 (one lane) or K3 (several)."""
-        if fused.startswith("stiefel_bound"):
-            # one kernel at every B (a single lane is B = 1, as in JAX)
-            d = problem.structure["d"]
-            ws, ss = kernels.stiefel_bound_pieces(zs, d, x, y, c)
-            return kernels.fused_tcg_stiefel_bound_batched(
-                zs, d, x, ws, ss, cx, tr_radius, **tcg_kw
-            )
-        w = y / c
-        if x.shape[0] == 1:
-            dx, h_dx, it, code = kernels.fused_tcg_sphere_quadratic(
-                zs, x[0], w[0], cx[0], tr_radius[0], **tcg_kw
-            )
-            return dx[None], h_dx[None], it.reshape(1), code.reshape(1)
-        return kernels.fused_tcg_sphere_quadratic_batched(zs, x, w, cx, tr_radius, **tcg_kw)
 
     def step(state: RiptrmState):
         x, y, mu, tr_radius = state.x, state.y, state.mu, state.tr_radius
@@ -455,7 +363,13 @@ def make_step(problem, option, callbacks=True):
             tcg_iters = torch.zeros_like(dxtype)
         else:
             with span("riptrm.riptrm.direction"):
-                dx, h_dx, tcg_iters, tcg_code = direction(x, y, c, hw, cx, tr_radius)
+                tcg = problem.fused_tcg_at(x, y, c) if option["use_fused_tcg"] else None
+                if tcg is None:
+                    with span("riptrm.tcg"):
+                        dx, h_dx, tcg_iters, tcg_code = truncated_cg(man, x, hw, cx, tr_radius,
+                                                                     **tcg_kw)
+                else:
+                    dx, h_dx, tcg_iters, tcg_code = tcg(cx, tr_radius, **tcg_kw)
                 hw_dx_dx = man.inner(x, dx, h_dx)
                 cx_dx = man.inner(x, cx, dx)
             dxtype = 10 + tcg_code.to(torch.int64)

@@ -5,12 +5,13 @@ carries ``x`` [B, ...], the inequality multipliers ``y`` [B, m], the
 equality multipliers ``z`` [B, l], the penalty ``rho`` [B] and, for the
 Newton-Schulz QP, the previous QP's inverse ``qp_xinv`` [B, dim, dim]
 ([B, 0, 0] otherwise).  A step materialises the Lagrangian Hessian in the
-tangent basis (one Householder congruence on ``sphere_quadratic``
-problems, whose linearised constraint rows are then G = -B' exactly),
-regularises it (``quadoptim_type``: 'reghess' eigenvalue clamp,
-'reghess_operator' in the eigenbasis, 'reghess_shift' certified diagonal
-shift, or 'eye'), solves the tangent-space QP (``ops/qp.py``, a
-lane-masked IPM) and backtracks on the l1 penalty (a lane-masked loop).
+tangent basis (or takes the problem's closed forms of it and of the
+linearised constraint rows, ``Problem.hessian_coords_at`` and
+``ineq_rows_at``), regularises it (``quadoptim_type``: 'reghess'
+eigenvalue clamp, 'reghess_operator' in the eigenbasis, 'reghess_shift'
+certified diagonal shift, or 'eye'), solves the tangent-space QP
+(``ops/qp.py``, a lane-masked IPM) and backtracks on the l1 penalty (a
+lane-masked loop).
 """
 
 from __future__ import annotations
@@ -21,11 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from riptrm_torch.ops.basis import (
-    constraint_grad_rows,
-    materialize_symmetrized,
-    sphere_householder_congruence,
-)
+from riptrm_torch.ops.basis import constraint_grad_rows, materialize_symmetrized
 from riptrm_torch.ops.kkt import compute_residual, evaluation
 from riptrm_torch.ops.qp import METHODS, solve_qp
 from riptrm_torch.ops.spectrum import eigh_nan, lanczos
@@ -43,7 +40,6 @@ from riptrm_torch.utils.lanes import bcast
 from riptrm_torch.utils.lanes import dot as _dot
 from riptrm_torch.utils.lanes import lane_loop
 from riptrm_torch.utils.lanes import mv as _mv
-from riptrm_torch.utils.lanes import sym_mv as _sym_mv
 from riptrm_torch.utils.spans import span
 
 QUADOPTIM_TYPES = ("reghess", "reghess_operator", "reghess_shift", "eye")
@@ -243,18 +239,11 @@ def make_step(problem, option):
         maxiter=option["quadoptim_maxiter"],
         method=option["quadoptim_linear_solver"],
     )
-    # The closed form of sphere_quadratic problems (NonnegPCA): Q is one
-    # O(n^2) Householder congruence of -2 Zs with curvature
-    # kappa = x'(-2 Zs x - y), and the rows of g(x) = -x are G = -B'.
-    structured_sphere = ((problem.structure or {}).get("kind") == "sphere_quadratic"
-                         and l == 0)
 
     def q_raw_at(x, y, z, basis):
-        if structured_sphere:
-            zs = problem.structure["Zs"].to(y.dtype)  # [n, n], or [B, n, n] per lane
-            kappa = _dot(x, -2.0 * _sym_mv(zs, x) - y)
-            a_mat = (-2.0 * zs).expand(x.shape[0], *zs.shape[-2:])
-            return sphere_householder_congruence(x, a_mat, kappa)
+        closed = problem.hessian_coords_at(x, y)
+        if closed is not None:
+            return closed()[0]
         return materialize_symmetrized(man, x, basis, problem.lag_rhess_at(x, y, z))
 
     def step(state: RsqoState):
@@ -270,11 +259,10 @@ def make_step(problem, option):
         p_vec = man.to_coords(x, basis, problem.rgrad(x))
 
         # ---- linearised constraints -----------------------------------
-        if structured_sphere:
-            g_mat = -basis.mT.to(dt)  # rows: coords of rgrad(-x)_i
-            h_vec = -problem.ineq_val(x)
-        elif m > 0:
-            g_mat = constraint_grad_rows(man, x, basis, problem.ineq_fn, m, dtype=dt)
+        if m > 0:
+            g_mat = problem.ineq_rows_at(x, basis)
+            g_mat = (constraint_grad_rows(man, x, basis, problem.ineq_fn, m, dtype=dt)
+                     if g_mat is None else g_mat.to(dt))
             h_vec = -problem.ineq_val(x)
         else:
             g_mat = torch.zeros((lanes, 0, dim), dtype=dt, device=dev)

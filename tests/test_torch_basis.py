@@ -159,10 +159,13 @@ def _sphere_problem(n=23, seed=0):
     return z, x0
 
 
-def test_householder_congruence_matches_hvp_path_and_jax():
-    """sphere_householder_congruence/_coords against the port's HVP
-    materialisation of Hw and cx (atol 1e-10) and against JAX's congruence
-    (atol 1e-12), at B = 3 lanes."""
+@pytest.mark.parametrize("weights", ["barrier", "none"])
+def test_householder_congruence_matches_hvp_path_and_jax(weights):
+    """The sphere's closed form (``Problem.hessian_coords_at``, one
+    Householder congruence) against the port's HVP materialisation (atol
+    1e-10) and against JAX's congruence (atol 1e-12), at B = 3 lanes: with
+    the barrier weights y/c and cx's coordinates (RIPTRM's exact mode), and
+    without them, with the constraint rows -B' (``ineq_rows_at``; RSQO)."""
     z, x0 = _sphere_problem()
     n = z.shape[0]
     tp = tn.make_problem(z, x0, device="cpu")
@@ -175,29 +178,35 @@ def test_householder_congruence_matches_hvp_path_and_jax():
     tx, ty, tmu = torch.tensor(xs), torch.tensor(ys), torch.tensor(mu)
     man = tp.manifold
     basis = man.basis(tx)
-    c, hw, cx = t_barrier_ops(tp, tx, ty, tmu)
-    h_ref = tb.materialize_symmetrized(man, tx, basis, hw)
-    c_ref = tb.covector(man, tx, basis, cx)
-    zs = tp.structure["Zs"]
-    a = -2.0 * zs + torch.diag_embed(ty / c)
-    kappa = torch.sum(tx * (-2.0 * (tx @ zs) - ty), dim=-1)
-    h_fast = tb.sphere_householder_congruence(tx, a, kappa)
-    c_fast = tb.sphere_householder_coords(tx, -2.0 * (tx @ zs) - tmu[:, None] / c)
-    np.testing.assert_allclose(h_fast.numpy(), h_ref.numpy(), atol=1e-10)
-    np.testing.assert_allclose(c_fast.numpy(), c_ref.numpy(), atol=1e-10)
+    closed = tp.hessian_coords_at(tx, ty)
     jzs = jp.structure["Zs"]
+    if weights == "barrier":
+        c, hw, cx = t_barrier_ops(tp, tx, ty, tmu)
+        h_ref = tb.materialize_symmetrized(man, tx, basis, hw)
+        c_ref = tb.covector(man, tx, basis, cx)
+        h_fast, c_fast = closed(ty / c, tmu[:, None] / c)
+        np.testing.assert_allclose(c_fast.numpy(), c_ref.numpy(), atol=1e-10)
+    else:
+        h_ref = tb.materialize_symmetrized(man, tx, basis, tp.lag_rhess_at(tx, ty))
+        h_fast, c_fast = closed()
+        assert c_fast is None
+        rows = tb.constraint_grad_rows(man, tx, basis, tp.ineq_fn, n)
+        np.testing.assert_allclose(tp.ineq_rows_at(tx, basis).numpy(), rows.numpy(),
+                                   atol=1e-12)
+    np.testing.assert_allclose(h_fast.numpy(), h_ref.numpy(), atol=1e-10)
     for i in range(B):
         xi, yi = jnp.asarray(xs[i]), jnp.asarray(ys[i])
         jc, _, _ = j_barrier_ops(jp, xi, yi, jnp.asarray(mu[i]))
-        ja = -2.0 * jzs + jnp.diag(yi / jc)
+        ja = -2.0 * jzs + (jnp.diag(yi / jc) if weights == "barrier" else 0.0)
         jk = xi @ (-2.0 * (jzs @ xi) - yi)
         np.testing.assert_allclose(h_fast[i].numpy(),
                                    np.asarray(jb.sphere_householder_congruence(xi, ja, jk)),
                                    atol=ATOL)
-        np.testing.assert_allclose(
-            c_fast[i].numpy(),
-            np.asarray(jb.sphere_householder_coords(xi, -2.0 * (jzs @ xi) - mu[i] / jc)),
-            atol=ATOL)
+        if weights == "barrier":
+            np.testing.assert_allclose(
+                c_fast[i].numpy(),
+                np.asarray(jb.sphere_householder_coords(xi, -2.0 * (jzs @ xi) - mu[i] / jc)),
+                atol=ATOL)
 
 
 @pytest.mark.parametrize("which", ["rhess", "lag_rhess"])

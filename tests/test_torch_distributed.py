@@ -58,7 +58,6 @@ OPTION = {"maxiter": 12, "tolresid": 1e-7, "TRS_solver": "tCG",
           "second_order_stationarity": False}
 CKPT_OPTION = OPTION | {"tolresid": 1e-6, "maxiter": 30}
 CKPT = dict(max_steps=300, segment_steps=20)
-CPU = torch.device("cpu")
 SID_OPTION = {"maxiter": 40, "tolresid": 1e-6, "TRS_solver": "tCG",
               "second_order_stationarity": False}
 
@@ -284,14 +283,15 @@ def test_tp_sharded_nonneg_takes_plain_tcg(group1, inputs, monkeypatch):
     mesh = ts.make_mesh({"dp": 1, "tp": 1}, "cpu")
     p = tn.make_problem(z, xs[0], dtype=torch.float64, device="cpu", mesh=mesh, axis="tp")
     assert p.structure is None
-    man = p.manifold
-    assert trm.fused_tcg_route(None, man, BATCH, CPU) is None
-    assert trm.fused_tcg_route("sphere_quadratic", man, BATCH, CPU) == "sphere_quadratic"
+    opt = trm.RIPTRM(OPTION | {"use_fused_tcg": True}).option
+    st0 = ts.init_state_from(p, opt, torch.tensor(xs), torch.tensor(ys))
+    c0 = p.slack(st0.x)
+    assert p.fused_tcg_at(st0.x, st0.y, c0) is None
+    # the same manifold and lanes with the whole Zs take the kernel
+    assert _port_problem(inputs).fused_tcg_at(st0.x, st0.y, c0) is not None
     for name in ("fused_tcg_sphere_quadratic", "fused_tcg_sphere_quadratic_batched"):
         monkeypatch.setattr(tk, name, lambda *a, **k: pytest.fail("a kernel was called"))
     tk.reset_launch_counts()
-    opt = trm.RIPTRM(OPTION | {"use_fused_tcg": True}).option
-    st0 = ts.init_state_from(p, opt, torch.tensor(xs), torch.tensor(ys))
     new, _ = trm.make_step(p, opt)(st0)
     assert not any(tk.launch_counts().values())
     plain = _port_problem(inputs)

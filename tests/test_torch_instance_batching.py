@@ -12,6 +12,8 @@ reaches K3 or a multi-lane Stiefel launch: each lane is a one-lane launch
 (the kernels' plain versions here) of its own instance.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,7 +35,6 @@ torch.set_num_threads(1)
 
 OPTION = {"maxiter": 25, "tolresid": 1e-8, "TRS_solver": "tCG",
           "second_order_stationarity": False}
-CPU = torch.device("cpu")
 
 
 def instances(b, n, seed=0):
@@ -169,23 +170,27 @@ def test_per_lane_zs_routes_to_one_lane_kernels(monkeypatch):
     K3 or a multi-lane Stiefel launch; each lane's step equals that
     instance's own one-lane fused step."""
     fused = OPTION | {"use_fused_tcg": True}
-    route = trm.fused_tcg_route
     zs, xs, ys = instances(3, 12, seed=1)
     p = tn.make_problem(torch.tensor(zs), torch.tensor(xs), device="cpu")
     assert p.data.shape == (3, 12, 12) and p.structure["Zs"].shape == (3, 12, 12)
-    assert route("sphere_quadratic", p.manifold, 3, CPU, per_lane=True) == \
-        "sphere_quadratic_per_lane"
-    assert route("sphere_quadratic", p.manifold, 3, CPU) == "sphere_quadratic"
-    assert route("stiefel_bound", tb.Stiefel(10, 2), 3, CPU, per_lane=True) == \
-        "stiefel_bound_per_lane"
-    assert route("sphere_quadratic", tn.Sphere(7233), 3, CPU, per_lane=True) is None
+    opt = trm.RIPTRM(fused).option
+    st0 = ts.init_state_from(p, opt, torch.tensor(xs), torch.tensor(ys))
+    c0 = p.slack(st0.x)
+    assert p.fused_tcg_at(st0.x, st0.y, c0) is not None
+    shared = tn.make_problem(zs[0], xs[0], device="cpu")
+    k3 = _Calls(tk.fused_tcg_sphere_quadratic_batched, lambda zs, x, *a: (zs.shape, x.shape))
+    monkeypatch.setattr(tk, "fused_tcg_sphere_quadratic_batched", k3)
+    cx = trm._barrier_ops(shared, st0.x, st0.y, st0.mu)[2]
+    shared.fused_tcg_at(st0.x, st0.y, c0)(cx, st0.tr_radius, maxinner=11)
+    assert k3.lanes == [((12, 12), (3, 12))]  # one Zs for the lanes: K3 once
+    wide = dataclasses.replace(p, manifold=tn.Sphere(7233), structure={
+        "kind": "sphere_quadratic", "Zs": torch.zeros(()).expand(3, 7233, 7233)})
+    assert wide.fused_tcg_at(torch.zeros(3, 7233), st0.y, c0) is None
 
     monkeypatch.setattr(tk, "fused_tcg_sphere_quadratic_batched",
                         lambda *a, **k: pytest.fail("K3 called with a per-lane Zs"))
     k2 = _Calls(tk.fused_tcg_sphere_quadratic, lambda zs, x, *a: (zs.shape, x.shape))
     monkeypatch.setattr(tk, "fused_tcg_sphere_quadratic", k2)
-    opt = trm.RIPTRM(fused).option
-    st0 = ts.init_state_from(p, opt, torch.tensor(xs), torch.tensor(ys))
     new, _ = trm.make_step(p, opt)(st0)
     assert k2.lanes == [((12, 12), (12,))] * 3
     for i in range(3):
@@ -206,6 +211,7 @@ def test_per_lane_zs_routes_to_one_lane_kernels(monkeypatch):
     monkeypatch.setattr(tk, "fused_tcg_stiefel_bound_batched", stiefel)
     opt = trm.RIPTRM(fused).option
     st0 = ts.init_state_from(bp, opt, frames, torch.ones(b, bp.num_ineq, dtype=torch.float64))
+    assert bp.fused_tcg_at(st0.x, st0.y, bp.slack(st0.x)) is not None
     new, _ = trm.make_step(bp, opt)(st0)
     assert stiefel.lanes == [1] * b
     for i in range(b):

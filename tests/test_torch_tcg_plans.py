@@ -1,7 +1,8 @@
 """The plans of the fused tCG kernels (``ops/kernels.py::tcg_plan`` for the
 sphere, K2/K3; ``stiefel_plan`` for the Stiefel-bound kernel, K4a/K4b) and
-the solver's route through them (``solvers/riptrm.py::fused_tcg_route``),
-on the CPU: pure arithmetic on shapes, with H100_SMS = 132 SMs.
+the route through them that the problem layer gives the solver
+(``Problem.fused_tcg_at``, ``problems/structured.py``), on the CPU: pure
+arithmetic on shapes, with H100_SMS = 132 SMs.
 
 The fused route of ``make_step`` is also held to the JAX package's
 ``use_pallas_tcg`` step (its Pallas kernels in interpret mode) from the
@@ -10,6 +11,8 @@ to rtol 1e-5 (eta moves by ~1e-7 relative between two float32 summation
 orders), the new multipliers to rtol 1e-4 (see the test), and the tCG
 iteration count and stop code exactly.
 """
+
+import functools
 
 import jax
 import numpy as np
@@ -21,6 +24,7 @@ from riptrm_torch.manifolds import Sphere, Stiefel
 from riptrm_torch.ops import kernels as tk
 from riptrm_torch.problems import bounded_pca as tb
 from riptrm_torch.problems import nonneg_pca as tn
+from riptrm_torch.problems.problem import Problem
 from riptrm_torch.solvers import riptrm as trm
 from riptrm_tpu.problems import bounded_pca as jb
 from riptrm_tpu.problems import nonneg_pca as jn
@@ -28,7 +32,8 @@ from riptrm_tpu.solvers import riptrm as jrm
 
 torch.set_num_threads(1)
 
-CPU = torch.device("cpu")
+ENTRIES = ("fused_tcg_sphere_quadratic", "fused_tcg_sphere_quadratic_batched",
+           "fused_tcg_stiefel_bound_batched")
 SLICE = {"TRS_solver": "tCG", "second_order_stationarity": False}
 
 
@@ -125,18 +130,52 @@ def test_stiefel_plan_refusals():
 # ---------------------------------------------------------------------------
 # The solver's route
 # ---------------------------------------------------------------------------
-def test_route_is_plain_where_no_kernel_plan_fits():
+def kernels_called(monkeypatch, manifold, kind, lanes, per_lane=False):
+    """The kernel entries of ``ops/kernels.py`` that ``Problem.fused_tcg_at``
+    calls for ``lanes`` lanes of a ``kind`` problem on ``manifold``, in
+    order, or None where it gives no fused tCG.  Its Zs is a zero-stride
+    view (lane-leading with ``per_lane``) and the entries record their
+    calls in place of running, so the plans are asked at their limits."""
+    called = []
+
+    def entry(name, at):
+        def call(*args, **kw):
+            called.append(name)
+            x = args[at]
+            return x, x, torch.zeros(x.shape[:1] if x.ndim > 1 else ()), torch.zeros(())
+
+        return call
+
+    for name, at in zip(ENTRIES, (1, 1, 2)):
+        monkeypatch.setattr(tk, name, entry(name, at))
+    monkeypatch.setattr(tk, "stiefel_bound_pieces", lambda *a: (None, None))
+    n = manifold.n
+    shape = (n,) if isinstance(manifold, Sphere) else (n, manifold.p)
+    zs = torch.zeros(()).expand(*(lanes,) * per_lane, n, n)
+    structure = kind and {"kind": kind, "Zs": zs, "d": torch.ones(shape[-1])}
+    x, y = torch.zeros(lanes, *shape), torch.ones(lanes, 1)
+    tcg = Problem(manifold, cost_fn=None, structure=structure).fused_tcg_at(x, y, y)
+    if tcg is None:
+        return None
+    dx, _, _, _ = tcg(x, torch.ones(lanes))
+    assert dx.shape == x.shape
+    return called
+
+
+def test_route_is_plain_where_no_kernel_plan_fits(monkeypatch):
     """The fused route holds where a kernel plan does (n = 7232 on the
-    sphere, St(2864, 8)), and the plain truncated_cg runs above (n = 7233,
-    St(2865, 8), p = 33), as the JAX package gates on fits_in_vmem."""
-    route = trm.fused_tcg_route
+    sphere: K2 at one lane, K3 at several; St(2864, 8)), and the plain
+    truncated_cg runs above (n = 7233, St(2865, 8), p = 33), as the JAX
+    package gates on fits_in_vmem; a problem with no structure has no
+    fused route."""
+    route = functools.partial(kernels_called, monkeypatch)
     for b in (1, 16, 128):
-        assert route("sphere_quadratic", Sphere(7232), b, CPU) == "sphere_quadratic"
-        assert route("sphere_quadratic", Sphere(7233), b, CPU) is None
-    assert route("stiefel_bound", Stiefel(2864, 8), 1, CPU) == "stiefel_bound"
-    assert route("stiefel_bound", Stiefel(2865, 8), 1, CPU) is None
-    assert route("stiefel_bound", Stiefel(128, 33), 1, CPU) is None
-    assert route(None, Sphere(50), 1, CPU) is None
+        assert route(Sphere(7232), "sphere_quadratic", b) == [ENTRIES[b > 1]]
+        assert route(Sphere(7233), "sphere_quadratic", b) is None
+    assert route(Stiefel(2864, 8), "stiefel_bound", 1) == [ENTRIES[2]]
+    assert route(Stiefel(2865, 8), "stiefel_bound", 1) is None
+    assert route(Stiefel(128, 33), "stiefel_bound", 1) is None
+    assert route(Sphere(50), None, 1) is None
 
 
 def test_make_step_takes_the_plain_tcg_where_the_plan_refuses(monkeypatch):
@@ -150,6 +189,7 @@ def test_make_step_takes_the_plain_tcg_where_the_plan_refuses(monkeypatch):
     monkeypatch.setattr(tk, "tcg_plan", lambda n, b, sms: tk.TcgPlan("plain", *[0] * 7))
     monkeypatch.setattr(tk, "fused_tcg_sphere_quadratic",
                         lambda *a, **k: pytest.fail("kernel wrapper called"))
+    assert tp.fused_tcg_at(st.x, st.y, tp.slack(st.x)) is None
     got, got_info = trm.make_step(tp, opt | {"use_fused_tcg": True})(st)
     np.testing.assert_array_equal(got.x.numpy(), want.x.numpy())
     assert got_info["tcg_iters"].tolist() == want_info["tcg_iters"].tolist()
