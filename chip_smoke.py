@@ -75,6 +75,13 @@ Phases:
      solve on the library's route (no launch): steps lane by lane, every
      residual under tolresid in both, each lane's residual and answer
      against the library route's;
+  4e-4f. StableIdentification's barrier operator (K8) on the benchmark
+     cell's instance and pool, then its launches in the cell's sweep;
+  4g. the SPD metric's Cholesky solve (K9) at the same cell's systems
+     ([131072, 2, 5, 5], u read in place from a packed tangent) against
+     its plain version, the library's two triangular solves and the
+     float64 solve, its CUDA-event times beside its byte bound, and one
+     launch a metric solve in HVP_SWEEP_STEPS steps of the cell's sweep;
   -- launch counters reset: the NonnegPCA path starts here --
   5. golden solve: RIPTRM.run on dataset/NonnegPCA/1 point a, float64,
      plain tCG (residual <= 1e-8, cost -1.537809 +- 1e-4), then fused;
@@ -321,6 +328,14 @@ HVP_SPREAD, HVP_WORST = 2.0, 8.0
 # residual may lie from the composition's sweep's (float32 walks part at
 # the accept and reject tests, so lanes are compared as a population)
 HVP_SWEEP_STEPS, HVP_SWEEP_MEDIAN = 5, 1e-2
+# 4g: the SPD metric's Cholesky solve (K9) on the same cell: the stacked SPD
+# blocks of the pool's first sweep and the narrowed blocks of a random
+# tangent, as Product's inner product passes them; each system's distance
+# from the float64 solve held as 4e holds K8's (HVP_SPREAD, HVP_WORST)
+SPD_KERNEL = "spd_cho_solve"
+SPD_SRC = "riptrm_torch/csrc/spd_solve.cu"
+SPD_REPLACES = ("no Pallas kernel: jax.scipy.linalg.cho_solve "
+                "(riptrm_tpu/manifolds/spd.py)")
 SPHERE_KERNELS = tuple(KERNELS)[:3]
 STIEFEL_KERNEL = "fused_tcg_stiefel_bound_batched"
 K1_CHAIN, BARE_CHAIN, HBM_CHAIN = ("chained_barrier_matvec", "bare_matvec_chain",
@@ -3152,12 +3167,140 @@ def phase_stableid_sweep(device, report):
         f"(composition {med_c:.4e}); {secs:.2f} s (composition {secs_c:.2f} s)")
     check(counts[HVP_KERNEL] == calls > 0, f"4f: {counts[HVP_KERNEL]} launches for {calls} "
           "products")
-    check(not any(counts_c.values()), "4f: a kernel launched on the composition's route")
+    check(counts_c[HVP_KERNEL] == 0, "4f: K8 launched on the composition's route")
     check(bool(torch.isfinite(res).all()) and abs(med - med_c) <= HVP_SWEEP_MEDIAN * med_c,
           f"4f: median residual {med:.4e} against the composition's {med_c:.4e}")
     report[HVP_KERNEL]["launches"] = counts[HVP_KERNEL]
     report[HVP_KERNEL]["sweep_products"] = calls
     del runs, x, x_c, xs, ys
+    torch.cuda.empty_cache()
+
+
+def spd_solve_work(systems, d):
+    """(FP32 operations, bytes) of one K9 call on ``systems`` d x d systems
+    with d right-hand columns: d^2 (d + 1) FMA a system (d(d - 1)/2 a column
+    a substitution and d divisions, counted as FMA); L and u read and x
+    written once."""
+    return 2.0 * systems * d * d * (d + 1), 4.0 * systems * 3 * d * d
+
+
+def phase_spd_solve(device, report):
+    """Phase 4g: K9 on the StableIdentification cell's systems (B = 131072,
+    the two SPD blocks, d = 5: [B, 2, 5, 5], u a narrowed view of a packed
+    tangent), against its plain version, the library's two triangular
+    solves and the float64 solve; the same bits from a contiguous copy, a
+    permuted batch, one lane alone and NaN lanes; CUDA-event times of the
+    kernel, the library pair and the plain version beside the byte bound.
+    Then HVP_SWEEP_STEPS steps of the cell's sweep: K9 launched once for
+    each of the metric's solves, with the tCG's iterations beside."""
+    from riptrm_torch.experiment.roofline import roofline_bound
+    from riptrm_torch.manifolds import spd
+    from riptrm_torch.ops import kernels as k
+    from riptrm_torch.solvers import riptrm
+
+    cell, problem, xs = _sid_cell(device)
+    gen = torch.Generator(device).manual_seed(SID_CELL_SEED)
+    b, d = xs.shape[0], xs.shape[-1]
+    v = problem.manifold.random_tangent(xs, gen)
+    l, u = spd._chol(xs.narrow(1, 1, 2)), v.narrow(1, 1, 2)
+
+    def library(l=l, u=u):
+        a = torch.linalg.solve_triangular(l, u, upper=False)
+        return torch.linalg.solve_triangular(l.mT, a, upper=True)
+
+    k.reset_launch_counts()
+    out = k.spd_cho_solve(l, u)
+    sync(device)
+    check(k.launch_counts()[SPD_KERNEL] == 1, "4g: not one launch of K9")
+    plain, lib = k.spd_cho_solve_plain(l, u), library()
+    truth = k.spd_cho_solve_plain(l.double(), u.double())
+    sys_max = lambda t: t.abs().flatten(-2).amax(dim=-1).flatten()  # noqa: E731
+    mag = sys_max(truth)
+    err_k, err_p, err_l = (sys_max(t.double() - truth) / mag for t in (out, plain, lib))
+    q = lambda t: [float(a) for a in torch.quantile(t.float(), torch.tensor(  # noqa: E731
+        [0.5, 0.99, 1.0], device=device))]
+    ratio = [a / c for a, c in zip(q(err_k), q(err_p))]
+    say(f"phase 4g {SPD_KERNEL} d={d} systems={2 * b} (u strides {u.stride()}, l strides "
+        f"{l.stride()}): system error against float64 over the system's largest |entry| "
+        f"(median, 99 %, max): kernel {q(err_k)}, plain {q(err_p)}, library {q(err_l)}; "
+        f"kernel over plain {ratio} (limits {HVP_SPREAD:g}, {HVP_SPREAD:g}, {HVP_WORST:g})")
+    check(bool(torch.isfinite(out).all()), "4g: a system's solve is not finite")
+    check(max(ratio[:2]) <= HVP_SPREAD and ratio[2] <= HVP_WORST,
+          f"4g: the systems' errors {ratio} times the plain version's")
+    check(same_bits(k.spd_cho_solve(l.contiguous(), u.contiguous()), out),
+          "4g: contiguous inputs read other solves")
+    perm = torch.randperm(b, generator=gen, device=device)
+    check(same_bits(k.spd_cho_solve(l[perm], u[perm]), out[perm]),
+          "4g: a permuted batch reads other solves")
+    for i in (0, b // 2, b - 1):
+        check(same_bits(k.spd_cho_solve(l[i:i + 1], u[i:i + 1]), out[i:i + 1]),
+              f"4g: lane {i} alone reads other solves")
+    bad = l.clone()
+    bad[7, 1] = float("nan")
+    nan_out = k.spd_cho_solve(bad, u)
+    rest = torch.ones(b, 2, dtype=torch.bool, device=device)
+    rest[7, 1] = False
+    check(bool(torch.isnan(nan_out[7, 1]).all()) and same_bits(nan_out[rest], out[rest]),
+          "4g: a NaN factor's system is not NaN whole, or its neighbours moved")
+    del perm, bad, nan_out, rest, truth
+    k1, c1, c2, k2 = (event_ms(f, device) for f in (
+        lambda: k.spd_cho_solve(l, u), library, library, lambda: k.spd_cho_solve(l, u)))
+    ms, lib_ms = (k1 + k2) / 2, (c1 + c2) / 2
+    plain_ms = event_ms(lambda: k.spd_cho_solve_plain(l, u), device)
+    own = kernel_ms(lambda: k.spd_cho_solve(l, u), device, calls=200)
+    lib_own = kernel_ms(library, device, calls=50)
+    ops, nbytes = spd_solve_work(2 * b, d)
+    bound_us, bound_by = roofline_bound(ops, nbytes)
+    say(f"phase 4g {SPD_KERNEL} [{b}, 2, {d}, {d}]: kernel {ms:.4f} ms (runs {k1:.4f}/{k2:.4f}; "
+        f"its own device time {'not measured' if own is None else '%.4f ms' % own}), library "
+        f"{lib_ms:.4f} ms (runs {c1:.4f}/{c2:.4f}; its kernels "
+        f"{'not measured' if lib_own is None else '%.4f ms' % lib_own}), plain {plain_ms:.4f} "
+        f"ms, bound {bound_us:.3f} us ({bound_by}: {ops / 1e9:.4f} GFLOP, {nbytes:.0f} B), "
+        f"{100 * bound_us / 1e3 / ms:.2f} % of it")
+    report[SPD_KERNEL] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, kernel_own_ms=own,
+        library_kernels_ms=lib_own, bound_ms=bound_us / 1e3, bound_us=bound_us,
+        bound_by=bound_by, bound_bytes=nbytes, shape=f"[{b}, 2, {d}, {d}]",
+        error=float(err_k.max()), error_plain=float(err_p.max()),
+        error_library=float(err_l.max()), error_ratios=ratio)
+    del l, u, v, out, plain, lib
+
+    # the cell's sweep: K9 once a metric solve, the tCG's iterations beside
+    ys = torch.ones(xs.shape[0], problem.num_ineq, dtype=xs.dtype, device=device)
+    cho_solve, make_step = spd._cho_solve, riptrm.make_step
+    solves, iters = [0], []
+
+    def counted(l, u):
+        solves[0] += 1
+        return cho_solve(l, u)
+
+    def recording(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def run(state):
+            new_state, info = step(state)
+            iters.append(int(info["tcg_iters"].max()))
+            return new_state, info
+
+        return run
+
+    spd._cho_solve, riptrm.make_step = counted, recording
+    try:
+        k.reset_launch_counts()
+        run = cell.entry.build(problem, cell.config, cell.traffic, HVP_SWEEP_STEPS)
+        (_, _, steps, res), secs = wall(lambda: run(xs, ys), device)
+    finally:
+        spd._cho_solve, riptrm.make_step = cho_solve, make_step
+    launches = k.launch_counts()[SPD_KERNEL]
+    say(f"phase 4g the cell's sweep, {HVP_SWEEP_STEPS} steps at B={xs.shape[0]}: {solves[0]} "
+        f"metric solves, K9 launches {launches}, {sum(iters)} lockstep tCG iterations "
+        f"({iters}), {launches / max(sum(iters), 1):.2f} launches an iteration; residual "
+        f"median {float(res.median()):.4e}; {secs:.2f} s")
+    check(launches == solves[0] > 0, f"4g: {launches} launches for {solves[0]} metric solves")
+    check(bool(torch.isfinite(res).all()), "4g: a lane's residual is not finite")
+    report[SPD_KERNEL]["launches"] = launches
+    report[SPD_KERNEL]["sweep_iterations"] = sum(iters)
+    del xs, ys
     torch.cuda.empty_cache()
 
 
@@ -3410,6 +3553,9 @@ def main(argv):
     phase_stableid_sweep(device, report)
     say(f"StableIdentification barrier operator (phases 4e-4f): "
         f"{time.perf_counter() - t_path:.1f} s")
+    t_path = time.perf_counter()
+    phase_spd_solve(device, report)
+    say(f"SPD metric's Cholesky solve (phase 4g): {time.perf_counter() - t_path:.1f} s")
 
     k.reset_launch_counts()  # the NonnegPCA path starts here
     t_path = time.perf_counter()
@@ -3495,7 +3641,9 @@ def main(argv):
     ] + [{"name": DENSE_KERNEL, "route": "cuda", "source": DENSE_SRC, "replaces": DENSE_REPLACES,
           **report[DENSE_KERNEL]},
          {"name": HVP_KERNEL, "route": "cuda", "source": HVP_SRC, "replaces": HVP_REPLACES,
-          **report[HVP_KERNEL]}]
+          **report[HVP_KERNEL]},
+         {"name": SPD_KERNEL, "route": "cuda", "source": SPD_SRC, "replaces": SPD_REPLACES,
+          **report[SPD_KERNEL]}]
     say(smi)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -41,10 +41,19 @@ def _chol(x):
 
 def _cho_solve(l, u):
     """x^-1 u from x's Cholesky factor ``l``: the two triangular solves of
-    LAPACK's potrs, as ``jax.scipy.linalg.cho_solve``.  Not
+    LAPACK's potrs, as ``jax.scipy.linalg.cho_solve``.  float32 systems of
+    one shape within ``spd_solve_plan``'s width take them in one launch
+    (``ops/kernels.py::spd_cho_solve``, K9; its plain version on the CPU);
+    every other solve takes the library's two.  Not
     ``torch.cholesky_solve``: on CUDA that runs MAGMA's batched solve,
     which waits on the host (``cudaStreamSynchronize``) and takes ~2 ms a
     call at 131072 lanes of 5 x 5."""
+    # imported here: ops imports the manifolds (ops/kernels.py)
+    from riptrm_torch.ops import kernels
+
+    if (l.dtype == u.dtype == torch.float32 and l.shape == u.shape
+            and kernels.spd_solve_plan(l.shape[-1]) is not None):
+        return kernels.spd_cho_solve(l, u)
     a = torch.linalg.solve_triangular(l, u, upper=False)
     return torch.linalg.solve_triangular(l.transpose(-2, -1), a, upper=True)
 

@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # zs, x, w, v0, u scratch, out, n, n_iters, grid, rows_per_cta, device,
     # stream
@@ -62,6 +63,9 @@ _SIGNATURES = {
     # x, g, y, c, dx, gram, idx, lin, two, p1, out, scale, batch, d, m, grid,
     # device, stream
     "stableid_hvp_launch": [_P] * 11 + [_F] + [_I] * 5 + [_P],
+    # l, u, out, outer, inner, l's outer and inner strides, row, column, u's
+    # the same, d, grid, device, stream
+    "spd_solve_launch": [_P] * 3 + [_L] * 4 + [_I] * 2 + [_L] * 2 + [_I] * 5 + [_P],
 }
 
 

@@ -41,6 +41,12 @@ by ``ops/_build.py``.
   other problem composes the operator (``stableid_hvp_plan``).  Its plain
   version is that composition (``problems/stable_identification.py::
   barrier_hvp_plain``); under ``vmap`` the mapped axis folds into the lanes.
+* ``spd_cho_solve`` (K9) replaces no Pallas kernel: x^-1 u from x's
+  Cholesky factor, the SPD metric's two triangular solves
+  (``manifolds/spd.py::_cho_solve``), in one launch (``csrc/spd_solve.cu``),
+  where the JAX package calls ``jax.scipy.linalg.cho_solve``.  float32 at
+  d <= SPD_SOLVE_MAX_D, the inputs read in place by their strides; every
+  other solve keeps ``torch.linalg.solve_triangular`` (``spd_solve_plan``).
 
 K2 and K3 share their CUDA kernels, K2 being their launch at B = 1; each
 keeps its own wrapper and counter.  ``tcg_plan`` picks the route before
@@ -52,10 +58,11 @@ thread-block cluster of row slices (``stiefel_plan``).
 
 Each launch is a ``torch.library`` operator of the ``riptrm`` namespace
 (``chain_resident``, ``sphere_tcg``, ``stiefel_tcg``, ``matvec_chain_left``,
-``matvec_chain_right``, ``chain_hbm``, ``dense_solve``, ``stableid_hvp``;
-the table at the end), so a traced program (``experiment/export_artifact.py``)
-holds it as one node.  The wrappers work out the plans and call the
-operators, which dispatch on where the tensors lie: on the CPU the plain
+``matvec_chain_right``, ``chain_hbm``, ``dense_solve``, ``stableid_hvp``,
+``spd_cho_solve``; the table at the end), so a traced program
+(``experiment/export_artifact.py``) holds it as one node.  The wrappers
+work out the plans and call the operators, which dispatch on where the
+tensors lie: on the CPU the plain
 PyTorch version runs; on a CUDA device the kernel launches, or the call
 raises (a missing ``nvcc``, a failed build or a failed launch is an error,
 never a fallback).  Each
@@ -1229,6 +1236,106 @@ def _stableid_hvp_vmap(info, in_dims, x, g, y, c, dx, *consts):
 
 stableid_barrier_hvp.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# The SPD metric's Cholesky solve (K9): x^-1 u in one launch
+# ---------------------------------------------------------------------------
+# Threads a block (csrc/spd_solve.cu's kSolveThreads); one thread a
+# (system, right-hand column), 256 // d systems a block.
+SPD_SOLVE_THREADS = 256
+# The widest system the kernel takes: a thread holds its column (d floats)
+# in registers, and a block stages its systems' L and u in static shared
+# memory (16 KB at d = 8).
+SPD_SOLVE_MAX_D = 8
+
+
+def spd_solve_plan(d: int):
+    """The kernel's plan for d x d systems: the systems a block holds
+    (256 // d), or None where it takes no such system (d above
+    SPD_SOLVE_MAX_D, or d < 1)."""
+    if not 1 <= d <= SPD_SOLVE_MAX_D:
+        return None
+    return SPD_SOLVE_THREADS // d
+
+
+def spd_cho_solve_plain(l, u):
+    """Plain version of the Cholesky solve: the kernel's order of
+    operations over systems in PyTorch.  Forward substitution, y_i = (u_i -
+    sum_{j<i} L_ij y_j) / L_ii, then back substitution, x_i = (y_i -
+    sum_{j>i} L_ji x_j) / L_ii, each sum from its lowest j, one row of d
+    columns at a time.  [..., d, d], contiguous, in the inputs' dtype."""
+    d = l.shape[-1]
+    x = [None] * d
+    for i in range(d):
+        acc = u[..., i, :]
+        for j in range(i):
+            acc = acc - l[..., i, j, None] * x[j]
+        x[i] = acc / l[..., i, i, None]
+    for i in reversed(range(d)):
+        acc = x[i]
+        for j in range(i + 1, d):
+            acc = acc - l[..., j, i, None] * x[j]
+        x[i] = acc / l[..., i, i, None]
+    return torch.stack(x, dim=-2)
+
+
+def spd_cho_solve(l, u):
+    """x^-1 u for a batch of d x d systems from x's lower Cholesky factor
+    ``l`` [..., d, d] and right-hand sides ``u`` of the same shape, both
+    float32 at d within ``spd_solve_plan``'s limit, in any strides; [..., d,
+    d], contiguous.  A system whose factor holds a NaN reads NaN whole.
+
+    Through the operator ``riptrm::spd_cho_solve``: on a CUDA device the
+    kernel (csrc/spd_solve.cu), one launch, reading both inputs in place;
+    on the CPU its plain version.  Anything else raises: the caller takes
+    the library's two triangular solves instead (``manifolds/spd.py``)."""
+    d = l.shape[-1]
+    if (l.shape != u.shape or l.ndim < 2 or l.shape[-2] != d
+            or {l.dtype, u.dtype} != {torch.float32} or spd_solve_plan(d) is None):
+        raise ValueError(f"spd_cho_solve: l {tuple(l.shape)} {l.dtype} and u {tuple(u.shape)} "
+                         f"{u.dtype}: not float32 systems of one shape the kernel's plan takes")
+    _on_card(l, u)
+    return torch.ops.riptrm.spd_cho_solve(l, u)
+
+
+def _lead_levels(shape, *strides):
+    """The leading axes of tensors of one ``shape``, merged where every
+    tensor's strides let two neighbours be read as one: [(size, (each
+    tensor's stride))], axes of size 1 dropped."""
+    levels = []
+    for n, st in zip(shape, zip(*strides)):
+        if n == 1:
+            continue
+        if levels and all(p == n * q for p, q in zip(levels[-1][1], st)):
+            levels[-1] = (levels[-1][0] * n, st)
+        else:
+            levels.append((n, st))
+    return levels
+
+
+def _spd_cho_solve_cuda(l, u):
+    d = l.shape[-1]
+    out = torch.empty(u.shape, dtype=u.dtype, device=u.device)
+    if out.numel() == 0:
+        return out
+    lead = l.shape[:-2]
+    levels = _lead_levels(lead, l.stride()[:-2], u.stride()[:-2])
+    if len(levels) > 2:  # three or more levels: read as one contiguous batch
+        l, u = l.contiguous(), u.contiguous()
+        levels = _lead_levels(lead, l.stride()[:-2], u.stride()[:-2])
+    (outer, (lo, uo)), (inner, (li, ui)) = ([(1, (0, 0))] * 2 + levels)[-2:]
+    lib = _build.load()
+    grid = max(1, _ceil(outer * inner, spd_solve_plan(d)))
+    err = lib.spd_solve_launch(_ptr(l), _ptr(u), _ptr(out), outer, inner, lo, li,
+                               l.stride(-2), l.stride(-1), uo, ui, u.stride(-2), u.stride(-1),
+                               d, grid, l.device.index or 0, _stream(l.device))
+    _build.check(lib, err, "spd_cho_solve")
+    spd_cho_solve.launches += 1
+    return out
+
+
+spd_cho_solve.launches = 0
+
 KERNEL_WRAPPERS = (
     chained_barrier_matvec,
     fused_tcg_sphere_quadratic,
@@ -1238,6 +1345,7 @@ KERNEL_WRAPPERS = (
     chained_barrier_matvec_hbm,
     dense_solve_nan,
     stableid_barrier_hvp,
+    spd_cho_solve,
 )
 
 
@@ -1336,6 +1444,12 @@ _OPS = {
         _contiguous(_stableid_hvp_cuda),
         _stableid_hvp_cpu,
         lambda x, g, y, c, dx, *consts: _same(dx),
+    ),
+    "spd_cho_solve": (
+        "(Tensor l, Tensor u) -> Tensor",
+        _spd_cho_solve_cuda,
+        spd_cho_solve_plain,
+        lambda l, u: _same(u),
     ),
 }
 

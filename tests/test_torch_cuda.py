@@ -21,7 +21,9 @@ StableIdentification's barrier operator (K8) against the float64 image
 of the same inputs, its lanes' errors within 2 times its plain version's
 at the median and the 99th percentile and 8 times at the worst lane (FP32
 sums of d terms in another order), at every width its plan takes, and
-once a product in a float32 sweep.
+once a product in a float32 sweep.  The SPD metric's Cholesky solve (K9)
+against the float64 solve by the same rule, the same bits from every
+layout of its inputs, and once a metric solve in a float32 sweep.
 """
 
 import numpy as np
@@ -1123,3 +1125,122 @@ def test_stableid_sweep_launches_k8_once_a_product(dev):
         launches = tk.launch_counts()["stableid_barrier_hvp"]
         assert int(k.max()) == 4 and torch.isfinite(res).all()
         assert launches == (products[0] if dtype == torch.float32 else 0) and products[0] > 0
+
+
+def _spd_systems(b, dev, d=5, seed=0):
+    """The SPD metric's solves as Product's inner product passes them: the
+    factor of b stacked pairs of d x d SPD points (``spd._chol``'s,
+    column-major) and the SPD blocks of a packed [b, 3, d, d] tangent, a
+    narrowed view."""
+    from riptrm_torch.manifolds import spd
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = spd.SymmetricPositiveDefinite(d).random_point(gen, 2 * b, dtype=torch.float32,
+                                                      device=dev)
+    v = torch.randn((b, 3, d, d), generator=gen, device=dev)
+    return spd._chol(x.unflatten(0, (b, 2))), (v + v.mT).narrow(1, 1, 2)
+
+
+def _solve_errors(l, u):
+    """(K9's solve, each system's error of K9 and of the plain version
+    against the float64 solve over the system's largest |entry|)."""
+    out = tk.spd_cho_solve(l, u)
+    plain = tk.spd_cho_solve_plain(l, u)
+    truth = tk.spd_cho_solve_plain(l.double(), u.double())
+
+    def system(v):
+        return v.abs().flatten(-2).amax(dim=-1).flatten()
+
+    mag = system(truth)
+    return out, system(out.double() - truth) / mag, system(plain.double() - truth) / mag
+
+
+@pytest.mark.parametrize("b", [131072, 1001])
+def test_spd_solve_kernel_matches_plain(dev, b):
+    """K9 at the benchmark cell's systems ([131072, 2, 5, 5], u read in place
+    from a packed tangent) and at a batch that is no multiple of a block's
+    51 systems: one launch, every system finite, the systems' errors
+    against float64 within HVP_SPREAD and HVP_WORST of the plain version's
+    (K8's rule: the same FP32 operations, fused or not)."""
+    l, u = _spd_systems(b, dev)
+    tk.reset_launch_counts()
+    out, err, err_plain = _solve_errors(l, u)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["spd_cho_solve"] == 1
+    assert out.is_contiguous() and torch.isfinite(out).all()
+    assert _within_plain(err, err_plain), (err.max(), err_plain.max())
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 6, 7, 8])
+def test_spd_solve_kernel_widths(dev, d):
+    """K9 at every other width its plan takes (B = 777): within the same
+    bound."""
+    l, u = _spd_systems(777, dev, d=d, seed=d)
+    out, err, err_plain = _solve_errors(l, u)
+    assert torch.isfinite(out).all()
+    assert _within_plain(err, err_plain), (d, err.max(), err_plain.max())
+
+
+def test_spd_solve_kernel_layouts_lanes_and_nan(dev):
+    """A system reads the same bits from contiguous inputs, from row- or
+    column-major ones, from three leading axes that no two strides merge,
+    alone, and at another place in the batch; a NaN factor makes its system
+    NaN whole and leaves the others as they were; an empty batch launches
+    nothing."""
+    l, u = _spd_systems(1001, dev, seed=3)
+    out = tk.spd_cho_solve(l, u)
+    lc, uc = l.contiguous(), u.contiguous()
+    assert torch.equal(tk.spd_cho_solve(lc, uc), out)
+    assert torch.equal(tk.spd_cho_solve(lc, uc.mT.contiguous().mT), out)
+    # 1001 lanes as [13, 11, 7]: the factor's axes reversed, so no two merge
+    l3 = lc.reshape(7, 11, 13, 2, 5, 5).permute(2, 1, 0, 3, 4, 5)
+    u3 = uc.reshape(13, 11, 7, 2, 5, 5)
+    assert torch.equal(tk.spd_cho_solve(l3, u3),
+                       tk.spd_cho_solve(l3.contiguous(), u3.contiguous()))
+    perm = torch.randperm(1001, device=dev)
+    assert torch.equal(tk.spd_cho_solve(l[perm], u[perm]), out[perm])
+    for i in (0, 500, 1000):
+        assert torch.equal(tk.spd_cho_solve(l[i:i + 1], u[i:i + 1]), out[i:i + 1])
+    bad = l.clone()
+    bad[11, 1] = float("nan")
+    nan_out = tk.spd_cho_solve(bad, u)
+    rest = torch.ones(1001, 2, dtype=torch.bool, device=dev)
+    rest[11, 1] = False
+    assert torch.isnan(nan_out[11, 1]).all() and torch.equal(nan_out[rest], out[rest])
+    tk.reset_launch_counts()
+    assert tk.spd_cho_solve(l[:0], u[:0]).shape == (0, 2, 5, 5)
+    assert tk.launch_counts()["spd_cho_solve"] == 0
+
+
+def test_stableid_sweep_launches_k9_once_a_metric_solve(dev):
+    """The benchmark cell's RIPTRM tCG options on the shipped instance from
+    its 20 starts for 4 lockstep steps: K9 launches once for every solve of
+    the SPD metric in float32, never in float64."""
+    from riptrm_torch.manifolds import spd
+    from riptrm_torch.parallel.sweep import batched_riptrm_solve
+    from riptrm_torch.problems import stable_identification as si
+
+    option = {"maxiter": 60, "tolresid": 1e-3, "TRS_solver": "tCG",
+              "second_order_stationarity": False}
+    starts = "abcdefghijklmnopqrst"
+    cho_solve = spd._cho_solve
+    for dtype in (torch.float32, torch.float64):
+        problems = [si.load_problem("dataset/StableIdentification/1", s, dtype=dtype, device=dev)
+                    for s in starts]
+        xs = torch.stack([p.x0 for p in problems])
+        ys = torch.ones(len(starts), problems[0].num_ineq, dtype=dtype, device=dev)
+        solves = [0]
+
+        def counted(l, u):
+            solves[0] += 1
+            return cho_solve(l, u)
+
+        tk.reset_launch_counts()
+        spd._cho_solve = counted
+        try:
+            _, k, res = batched_riptrm_solve(problems[0], option, 4)(xs, ys)
+        finally:
+            spd._cho_solve = cho_solve
+        launches = tk.launch_counts()["spd_cho_solve"]
+        assert int(k.max()) == 4 and torch.isfinite(res).all()
+        assert launches == (solves[0] if dtype == torch.float32 else 0) and solves[0] > 0

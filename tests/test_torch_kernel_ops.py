@@ -55,6 +55,7 @@ def _cases():
         "chain_hbm": chain + (1, 1, 4, 8, True),
         "dense_solve": _dense_case() + (1, 1),
         "stableid_hvp": _stableid_case(),
+        "spd_cho_solve": _spd_case(),
     }
 
 
@@ -75,6 +76,16 @@ def _stableid_case():
             torch.rand(B, m, generator=g) + 0.5, torch.randn(B, 3, d, d, generator=g),
             gram @ gram.T, torch.tensor([0, 4, 4, 7]), torch.tensor([-1.0, 1.0, 0.0, 0.0]),
             torch.tensor([0.0, 0.0, 1.0, 1.0]), torch.randn(m, generator=g), 0.01)
+
+
+def _spd_case():
+    """The SPD metric's solve at d = 3 as a Product reads it: a factor of
+    the stacked blocks (column-major, as the Cholesky writes it) and the
+    narrowed blocks of a packed [B, 3, d, d] tangent."""
+    g, d = _gen(7), 3
+    a = torch.randn(B, 2, d, d, generator=g)
+    l = torch.linalg.cholesky(a @ a.mT + torch.eye(d))
+    return l, torch.randn(B, 3, d, d, generator=g).narrow(1, 1, 2)
 
 
 @pytest.mark.parametrize("name", sorted(tk._OPS))
@@ -99,9 +110,10 @@ def test_operator_has_every_implementation(name):
     ("chained_barrier_matvec_hbm", "chain"),
     ("dense_solve_nan", "dense"),
     ("stableid_barrier_hvp", "stableid"),
+    ("spd_cho_solve", "spd"),
 ])
 def test_wrapper_calls_one_operator(wrapper, args):
-    """Each of the eight launch counters' wrappers reaches exactly one
+    """Each of the nine launch counters' wrappers reaches exactly one
     riptrm:: operator a call, and counts nothing on the CPU."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -117,6 +129,7 @@ def test_wrapper_calls_one_operator(wrapper, args):
         "dense": (_dense_case(), {}),
         "stableid": (_stableid_case()[:5], dict(zip(("gram", "idx", "lin", "two", "p1", "scale"),
                                                     _stableid_case()[5:]))),
+        "spd": (_spd_case(), {}),
     }
     seen = []
 

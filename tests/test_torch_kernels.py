@@ -128,6 +128,7 @@ def test_cpu_tensors_take_the_plain_path(setup):
                             torch.ones(1, 1), torch.ones(1, 3, 2, 2), gram=eye[0],
                             idx=torch.tensor([1]), lin=torch.ones(1), two=torch.zeros(1),
                             p1=torch.zeros(1), scale=0.1)
+    tk.spd_cho_solve(torch.eye(2)[None], torch.ones(1, 2, 2))
     assert tk.launch_counts() == {
         "chained_barrier_matvec": 0,
         "fused_tcg_sphere_quadratic": 0,
@@ -137,6 +138,7 @@ def test_cpu_tensors_take_the_plain_path(setup):
         "chained_barrier_matvec_hbm": 0,
         "dense_solve_nan": 0,
         "stableid_barrier_hvp": 0,
+        "spd_cho_solve": 0,
     }
 
 
@@ -147,6 +149,11 @@ def test_wrappers_refuse_other_devices(setup):
         tk.chained_barrier_matvec(zs.to("meta"), x.to("meta"), w.to("meta"), v0.to("meta"), 1)
     with pytest.raises(ValueError, match="several devices"):
         tk.chained_barrier_matvec(zs.to("meta"), x, w, v0, 1)
+    eye = torch.eye(2)[None]
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tk.spd_cho_solve(eye.to("meta"), eye.to("meta"))
+    with pytest.raises(ValueError, match="several devices"):
+        tk.spd_cho_solve(eye.to("meta"), eye)
 
 
 def test_kernel_size_limit():

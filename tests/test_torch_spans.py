@@ -183,7 +183,8 @@ def test_exported_sweep_holds_no_profiler_node(tmp_path):
 
 SID_STARTS, SID_STEPS = "abcd", 8
 TCG_READERS = ("tcg.pct_of_window", "tcg.iters_per_step", "tcg.hvp_pct_of_window",
-               "tcg.syncs_per_step", "riptrm.retract_pct_of_window", "tcg.hvp_kernel_share")
+               "tcg.syncs_per_step", "riptrm.retract_pct_of_window", "tcg.hvp_kernel_share",
+               "spd.metric_solve_pct_of_window", "spd.solve_kernel_share")
 
 
 def _sid_instance(dtype=torch.float64):
@@ -243,6 +244,7 @@ def _read(name, run):
     ("tcg.hvp_pct_of_window", True),
     ("tcg.syncs_per_step", False),
     ("riptrm.retract_pct_of_window", True),
+    ("spd.metric_solve_pct_of_window", True),
 ])
 def test_metric_readers_on_a_cpu_trace(name, device_only):
     """On a CPU trace of a RIPM sweep (of a StableIdentification RIPTRM
@@ -327,6 +329,58 @@ def test_tcg_hvp_kernel_share(dtype, share):
     assert hvps and len(ops) == (len(hvps) if share else 0)
     assert all(_parent(trace, i) == "riptrm.tcg.hvp" for i in ops)
     assert _read("tcg.hvp_kernel_share", run) == share
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_spd_solve_kernel_share(dtype):
+    """``spd.solve_kernel_share`` on a StableIdentification RIPTRM tCG
+    sweep: in float32 one riptrm::spd_cho_solve a Cholesky solve, and the
+    library's triangular solves only ``dist``'s congruences in the
+    evaluation (two a step, two solves each), so the share is the
+    operator's calls over those calls plus one a congruence; None in
+    float64, where the library solves."""
+    problem, xs, ys = _sid_instance(dtype)
+    run_fn = batched_riptrm_solve(problem, {"maxiter": 30, "tolresid": 1e-8} | TCG, 3)
+    (state, k, res), trace = _traced(run_fn, xs, ys)
+    run = harness.Run(None, 0, torch.device("cpu"),
+                      [harness.Call(0, 0.0, 1.0, state.x, state.y, k.numpy(), res)], 1.0, 0.0,
+                      trace)
+    ops = _named(trace, "riptrm::spd_cho_solve")
+    solves = _named(trace, "aten::linalg_solve_triangular")
+    assert not any(_inside(trace, i, "aten::linalg_solve_triangular") for i in solves)
+    if dtype == torch.float64:
+        assert not ops and solves
+        assert _read("spd.solve_kernel_share", run) is None
+        return
+    steps = int(k.max())
+    assert len(solves) == 4 * steps
+    assert all(_inside(trace, i, "riptrm.riptrm.evaluation") for i in solves)
+    assert ops and not any(_inside(trace, i, "riptrm::spd_cho_solve") for i in ops)
+    assert _read("spd.solve_kernel_share", run) == pytest.approx(
+        len(ops) / (len(ops) + 2 * steps))
+
+
+def test_spd_readers_on_device_events():
+    """The SPD metric's readers on a trace built by hand: device time
+    launched inside either implementation of the solve (at any depth)
+    over the window, and the operator's calls over those calls plus half
+    the library's outermost triangular solves."""
+    from perfbench.trace import DeviceEvent, HostOp
+
+    ops = {1: HostOp("aten::linalg_solve_triangular", 0.0, 1.0, 0),
+           2: HostOp("aten::copy_", 0.1, 0.2, 1),
+           3: HostOp("riptrm.tcg", 1.0, 3.0, 0),
+           4: HostOp("riptrm::spd_cho_solve", 1.0, 1.2, 3),
+           5: HostOp("aten::mul", 2.0, 2.1, 3),
+           6: HostOp("aten::linalg_solve_triangular", 2.2, 2.3, 3),
+           7: HostOp("aten::linalg_solve_triangular", 2.2, 2.3, 6)}
+    device = [DeviceEvent("trsm", 0.1, 0.6, 2), DeviceEvent("spd_solve", 1.0, 1.25, 4),
+              DeviceEvent("mul", 2.0, 3.0, 5), DeviceEvent("trsm", 2.2, 2.45, 7)]
+    run = harness.Run(None, 0, torch.device("cpu"), [], 10.0, 0.0, Trace(device, ops))
+    assert _read("spd.metric_solve_pct_of_window", run) == pytest.approx(10.0)
+    assert _read("spd.solve_kernel_share", run) == pytest.approx(1 / (1 + 2 / 2))
+    del ops[4]
+    assert _read("spd.solve_kernel_share", run) is None
 
 
 def test_tcg_iteration_spans_equal_lockstep_iterations():
